@@ -9,12 +9,23 @@ checkout, and exits non-zero on the first phase that fails:
   2. build: the CUDA kernel (nvcc, sm_90a) and the native Ward library,
      both compiles started together;
   3. kernel: ``distance_cluster_sums`` against its plain PyTorch version
-     at three shapes (flagship-like, ragged, skinny), with times and bound;
+     at four shapes (flagship-like, ragged, skinny, wide), with times and
+     bound;
   4. slice, card against CPU: the dense fast-Wilcoxon ``refine()`` at
      2,000 cells × 800 genes × 4 clusters on ``cuda`` and on the CPU;
-  5. slice at full size: ``recluster_de_consensus_fast`` at 26,000 cells ×
-     15,000 genes × 22 planted clusters, data drawn on the card, with the
-     kernel's launch count reset just before and read just after.
+  5. edgeR, card against CPU: ``recluster_de_consensus(method="edgeR")``
+     at the headline's thresholds, 2,000 × 800 × 4, on ``cuda`` and on the
+     CPU with the same PCA projection;
+  6. the 26k data: 26,000 cells × 15,000 genes × 22 planted clusters,
+     drawn once on the card and shared by phases 7 and 8;
+  7. Wilcoxon at full size: ``recluster_de_consensus_fast``, with the
+     kernel's launch count reset just before and read just after;
+  8. the edgeR headline at full size: the reference bench's headline call
+     ``recluster_de_consensus(method="edgeR", q_val_thrs=0.01,
+     fc_thrs=2.0, mean_scaling_factor=2.0)``, its wall, stage walls (the
+     ``edger_*`` sub-stages among them), peak device memory, union,
+     common-dispersion quantiles and the kernel's launch count, then the
+     kernel at this path's own inputs.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -233,13 +244,14 @@ def _consensus_labels(truth, n_clusters: int):
     return plot_contingency_table(sup, uns)
 
 
-def phase_small() -> None:
+def _card_against_cpu(tag: str, cfg, run):
     """2,000 cells × 800 genes × 4 clusters (the reference bench's reduced
-    flagship): the port on the card against the port on the CPU, with the
-    same PCA projection handed to both."""
+    flagship): ``run(data, cons, device, omega)`` on the card against the
+    same on the CPU, with the same PCA projection handed to both. Checks
+    the union, ARI = 1 and silhouettes per deepSplit; returns both
+    results."""
     import torch
 
-    from scconsensus_tpu_torch import ReclusterConfig, refine
     from scconsensus_tpu_torch.de.engine import de_gene_union, pairwise_de
     from scconsensus_tpu_torch.utils.synthetic import synthetic_scrna
 
@@ -248,43 +260,98 @@ def phase_small() -> None:
         n_genes=n_genes, n_cells=n_cells, n_clusters=n_clusters,
         n_markers_per_cluster=min(40, n_genes // n_clusters), seed=7)
     cons = _consensus_labels(truth, n_clusters)
-    cfg = ReclusterConfig()
     f = de_gene_union(pairwise_de(data, cons, cfg, device="cuda"),
                       cfg.n_top_de_genes).size
     k = min(cfg.n_pcs + 10, f, n_cells)
     omega = torch.randn((f, k), generator=torch.Generator().manual_seed(0))
     t0 = time.perf_counter()
-    gpu = refine(data, cons, cfg, device="cuda", omega=omega)
+    gpu = run(data, cons, "cuda", omega)
     t_gpu = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = refine(data, cons, cfg, device="cpu", omega=omega)
+    cpu = run(data, cons, "cpu", omega)
     t_cpu = time.perf_counter() - t0
-    log(f"[small] refine walls: cuda {t_gpu!r} s, cpu {t_cpu!r} s; "
+    log(f"[{tag}] refine walls: cuda {t_gpu!r} s, cpu {t_cpu!r} s; "
         f"union {gpu.de_gene_union_idx.size}")
     if not np.array_equal(gpu.de_gene_union_idx, cpu.de_gene_union_idx):
-        raise AssertionError("[small] card and CPU unions differ")
+        raise AssertionError(f"[{tag}] card and CPU unions differ")
     for g_info, c_info in zip(gpu.deep_split_info, cpu.deep_split_info):
         key = f"deepsplit: {g_info['deep_split']}"
         ari = _ari(gpu.dynamic_labels[key], cpu.dynamic_labels[key])
         dsil = abs(g_info["silhouette"] - c_info["silhouette"])
-        log(f"[small] {key}: clusters {g_info['n_clusters']} "
+        log(f"[{tag}] {key}: clusters {g_info['n_clusters']} "
             f"silhouette {g_info['silhouette']!r} ARI(card, cpu) {ari!r} "
             f"|dsil| {dsil!r}")
         if ari != 1.0:
-            raise AssertionError(f"[small] {key}: ARI {ari} != 1")
+            raise AssertionError(f"[{tag}] {key}: ARI {ari} != 1")
         # fp32 sums over 2,000 distances in another order on each side
         if not dsil <= 1e-4:
-            raise AssertionError(f"[small] {key}: silhouettes differ {dsil}")
+            raise AssertionError(f"[{tag}] {key}: silhouettes differ {dsil}")
+    return gpu, cpu
 
 
-def phase_full() -> dict:
-    """The flagship slice on the card, with the kernel count reset just
-    before the run and read just after."""
+def phase_small() -> None:
+    """The dense fast-Wilcoxon ``refine()``, card against CPU."""
+    from scconsensus_tpu_torch import ReclusterConfig, refine
+
+    cfg = ReclusterConfig()
+    _card_against_cpu("small", cfg, lambda data, cons, dev, omega: refine(
+        data, cons, cfg, device=dev, omega=omega))
+
+
+# the CPU run's tolerance for finite log p in compat mode
+# (tests/test_torch_edger.py: 9.7e-4 measured against the JAX package).
+# The exact test rounds each group's pseudo-count sum, so a sum that sits
+# at a half-integer rounds to the other count on the other device and its
+# log p moves by a whole count's step: at most 1 in 1,000 entries may.
+EDGER_LOGP_ATOL = 2e-3
+EDGER_ROUNDING_SHARE = 1e-3
+EDGER_KW = dict(method="edgeR", q_val_thrs=0.01, fc_thrs=2.0,
+                mean_scaling_factor=2.0)
+
+
+def phase_small_edger() -> None:
+    """The edgeR slow path at the headline's thresholds, card against CPU:
+    besides the checks of phase 4, identical DE masks and finite log p
+    within the CPU tests' tolerance."""
+    import math
+
+    from scconsensus_tpu_torch import ReclusterConfig, recluster_de_consensus
+
+    cfg = ReclusterConfig(method="edger", q_val_thrs=0.01,
+                          log_fc_thrs=math.log(2.0), mean_scaling_factor=2.0)
+    gpu, cpu = _card_against_cpu(
+        "edger-small", cfg, lambda data, cons, dev, omega:
+        recluster_de_consensus(data, cons, device=dev, omega=omega,
+                               **EDGER_KW))
+    gd, cd = gpu.de, cpu.de
+    lp_g, lp_c = gd.log_p.cpu().numpy(), cd.log_p.numpy()
+    fin = np.isfinite(lp_c)
+    errs = np.abs(lp_g[fin] - lp_c[fin])
+    n_out = int((errs > EDGER_LOGP_ATOL).sum())
+    cg = gd.aux["common_dispersion"].cpu().numpy()
+    cc = cd.aux["common_dispersion"].numpy()
+    log(f"[edger-small] DE calls {int(gd.de_mask.sum())} / "
+        f"{int(cd.de_mask.sum())}; |dlog p| 99.9th percentile "
+        f"{float(np.quantile(errs, 1.0 - EDGER_ROUNDING_SHARE))!r}, max "
+        f"{float(errs.max())!r}, {n_out} of {errs.size} above "
+        f"{EDGER_LOGP_ATOL}; common dispersion max |card / cpu - 1| "
+        f"{float(np.max(np.abs(cg / cc - 1.0)))!r}")
+    if not np.array_equal(gd.de_mask.cpu().numpy(), cd.de_mask.numpy()):
+        raise AssertionError("[edger-small] card and CPU DE masks differ")
+    if not np.array_equal(np.isfinite(lp_g), fin) or \
+            n_out > EDGER_ROUNDING_SHARE * errs.size:
+        raise AssertionError(f"[edger-small] {n_out} log p differ by more "
+                             f"than {EDGER_LOGP_ATOL}")
+    if not np.isfinite(cg).all():
+        raise AssertionError("[edger-small] a common dispersion is not "
+                             "finite")
+
+
+def phase_full_data():
+    """The 26k flagship data, drawn once on the card for both full-size
+    phases."""
     import torch
 
-    from scconsensus_tpu_torch import recluster_de_consensus_fast
-    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
-    from scconsensus_tpu_torch.ops.silhouette import cut_labels
     from scconsensus_tpu_torch.utils.synthetic import synthetic_scrna_device
 
     n_cells, n_genes, n_clusters = 26000, 15000, 22
@@ -295,50 +362,106 @@ def phase_full() -> dict:
         device="cuda")
     cons = _consensus_labels(truth, n_clusters)
     torch.cuda.synchronize()
-    log(f"[full] data {tuple(data.shape)} drawn on the card in "
+    log(f"[data] {tuple(data.shape)} drawn on the card in "
         f"{time.perf_counter() - t0!r} s; nnz fraction "
         f"{float((data > 0).float().mean())!r}; consensus clusters "
         f"{np.unique(cons).size}")
+    return data, truth, cons
 
+
+def _run_full(tag: str, call, truth):
+    """One full-size refine with the kernel count reset just before and
+    read just after; checks what every path must give."""
+    import torch
+
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     distance_cluster_sums.launches = 0
     t0 = time.perf_counter()
-    res = recluster_de_consensus_fast(data, cons, device="cuda")
+    res = call()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = distance_cluster_sums.launches
     m = res.metrics
-    log(f"[full] refine wall {wall!r} s, peak device memory "
+    n_cells = m["n_cells"]
+    log(f"[{tag}] refine wall {wall!r} s, peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes")
-    log("[full] stage walls (s): " + json.dumps(m["stage_walls_s"]))
-    log(f"[full] union {m['union_size']} genes; tree engine "
+    log(f"[{tag}] stage walls (s): " + json.dumps(m["stage_walls_s"]))
+    log(f"[{tag}] union {m['union_size']} genes; tree engine "
         f"{m['tree_engine']}; distance_cluster_sums launches {launches}")
     for info in res.deep_split_info:
         key = f"deepsplit: {info['deep_split']}"
-        log(f"[full] {key}: clusters {info['n_clusters']} silhouette "
+        log(f"[{tag}] {key}: clusters {info['n_clusters']} silhouette "
             f"{info['silhouette']!r} ARI(planted) "
             f"{_ari(res.dynamic_labels[key], truth)!r}")
     if launches < 1:
-        raise AssertionError("[full] the silhouette stage did not launch "
+        raise AssertionError(f"[{tag}] the silhouette stage did not launch "
                              "the CUDA kernel")
     if m["tree_engine"] != "native":
-        raise AssertionError(f"[full] Ward ran on {m['tree_engine']}")
+        raise AssertionError(f"[{tag}] Ward ran on {m['tree_engine']}")
+    if m["union_size"] < 2:
+        raise AssertionError(f"[{tag}] union of {m['union_size']} genes")
     if res.embedding.shape != (n_cells, min(m["union_size"], 15)) or \
             not np.isfinite(res.embedding).all():
-        raise AssertionError("[full] embedding is not finite or mis-shaped")
+        raise AssertionError(f"[{tag}] embedding is not finite or "
+                             "mis-shaped")
     if not all(np.isfinite(i["silhouette"]) for i in res.deep_split_info):
-        raise AssertionError("[full] a silhouette is not finite")
+        raise AssertionError(f"[{tag}] a silhouette is not finite")
     if res.nodg.shape != (n_cells,):
-        raise AssertionError("[full] nodg is mis-shaped")
+        raise AssertionError(f"[{tag}] nodg is mis-shaped")
+    return res, launches
 
-    # the kernel at the inputs the main path gave it
+
+def _measure_main_path(res, label: str) -> dict:
+    """The kernel at the inputs the main path gave it."""
+    import torch
+
+    from scconsensus_tpu_torch.ops.silhouette import cut_labels
+
     labs = [np.where(res.dynamic_labels[f"deepsplit: {i['deep_split']}"] > 0,
                      res.dynamic_labels[f"deepsplit: {i['deep_split']}"], -1)
             for i in res.deep_split_info]
     ids, k_total, _ = cut_labels(labs)
     x = torch.from_numpy(res.embedding).cuda().contiguous()
-    rec = _measure_kernel(x, torch.from_numpy(ids).cuda(), k_total,
-                          "main-path")
+    return _measure_kernel(x, torch.from_numpy(ids).cuda(), k_total, label)
+
+
+def phase_full(data, truth, cons) -> dict:
+    """The fast-Wilcoxon flagship slice on the card."""
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+
+    res, launches = _run_full(
+        "full", lambda: recluster_de_consensus_fast(data, cons,
+                                                    device="cuda"), truth)
+    rec = _measure_main_path(res, "main-path")
+    rec["launches"] = launches
+    return rec
+
+
+def phase_edger_full(data, truth, cons) -> dict:
+    """The edgeR headline on the card."""
+    import torch
+
+    from scconsensus_tpu_torch import recluster_de_consensus
+
+    res, launches = _run_full(
+        "edger-full", lambda: recluster_de_consensus(
+            data, cons, device="cuda", **EDGER_KW), truth)
+    common = res.de.aux["common_dispersion"]
+    tagwise = res.de.aux["tagwise_dispersion"]
+    ok_pairs = ~np.asarray(res.de.pair_skipped)
+    c = common.cpu().numpy()[ok_pairs]
+    log(f"[edger-full] pairs {c.size}; common dispersion quantiles "
+        f"(0, .25, .5, .75, 1): "
+        f"{np.quantile(c, [0, .25, .5, .75, 1]).tolist()}; DE calls "
+        f"{int(res.de.de_mask.sum())}")
+    ok_rows = torch.as_tensor(ok_pairs, device=tagwise.device)
+    if not np.isfinite(c).all() or \
+            not bool(tagwise[ok_rows].isfinite().all()):
+        raise AssertionError("[edger-full] a dispersion is not finite")
+    rec = _measure_main_path(res, "edger-main-path")
     rec["launches"] = launches
     return rec
 
@@ -359,13 +482,19 @@ def main() -> int:
     phase_build()
     phase_kernel()
     phase_small()
-    rec = phase_full()
+    phase_small_edger()
+    data, truth, cons = phase_full_data()
+    rec = phase_full(data, truth, cons)
+    erec = phase_edger_full(data, truth, cons)
+    # times from the Wilcoxon path's inputs; launches from both full paths
     log(json.dumps({"kernels": [{
         "name": "distance_cluster_sums",
         "route": "cuda",
         "source": "scconsensus_tpu_torch/csrc/distance_cluster_sums.cu",
         "replaces": "scconsensus_tpu/ops/pallas_kernels.py:51",
-        "launches": rec["launches"],
+        "launches": rec["launches"] + erec["launches"],
+        "launches_by_path": {"wilcox_26k": rec["launches"],
+                             "edger_26k": erec["launches"]},
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"],
         "plain_ms": rec["plain_ms"],

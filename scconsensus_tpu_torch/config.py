@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import Optional, Tuple
 
 __all__ = ["CompatFlags", "ReclusterConfig"]
@@ -85,6 +86,19 @@ class ReclusterConfig:
     compat: CompatFlags = dataclasses.field(default_factory=CompatFlags)
     artifact_dir: Optional[str] = None
     plot_name: Optional[str] = None
+
+    @classmethod
+    def slow_path_preset(cls, q_val_thrs: float, fc_thrs: float,
+                         **kw) -> "ReclusterConfig":
+        """Reference slow-path defaults: fcThrs given as a ratio
+        (natural-log threshold = log(fcThrs)), min_pct 0."""
+        return cls(
+            method=kw.pop("method", "wilcox"),
+            q_val_thrs=q_val_thrs,
+            log_fc_thrs=math.log(fc_thrs),
+            min_pct=kw.pop("min_pct", 0.0),
+            **kw,
+        )
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)

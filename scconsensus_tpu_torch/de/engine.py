@@ -1,42 +1,56 @@
-"""All-pairs differential-expression engine: the dense Wilcoxon path.
+"""All-pairs differential-expression engine: the dense Wilcoxon and edgeR
+paths.
 
-The torch form of the dense, mesh-free ``method="wilcox"`` path of
-``scconsensus_tpu/de/engine.py``: every statistic for all K(K−1)/2 cluster
-pairs at once from per-cluster structures.
+The torch form of the dense, mesh-free ``method`` ∈ {``wilcox``,
+``wilcoxon``, ``edger``} paths of ``scconsensus_tpu/de/engine.py``: every
+statistic for all K(K−1)/2 cluster pairs at once from per-cluster
+structures.
 
   1. cluster filter (count > min_cluster_size, 'grey' dropped),
   2. per-cluster aggregates (``ops.gates``),
-  3. per-pair Seurat gates from the aggregates (masks),
-  4. the rank-sum test for every (pair, gene) through ``ranksum_body``,
-     driven by the window ladder: genes sorted by nonzero count run in
-     buckets whose window is the next power of two of their nnz, so the
-     mostly-zero rows of expression data pay a fraction of the full scan;
-     R's exact branch for pairs of small groups runs on the host,
-  5. per-pair BH over the tested genes,
+  3. per-pair gates from the aggregates (masks): Seurat's pct / mean /
+     |logFC| battery on the fast path, the mean-expression gate and the
+     difference of log-means on the slow paths,
+  4. the test for every (pair, gene). Wilcoxon: ``ranksum_body`` driven
+     by the window ladder (genes sorted by nonzero count run in buckets
+     whose window is the next power of two of their nnz), with R's exact
+     branch for pairs of small groups on the host. edgeR: the NB engine of
+     ``de.edger``,
+  5. BH: per pair over the tested genes (fast path) or over every finite
+     entry with n = G (slow paths, ``bh_reference_n``),
   6. the DE call and the top-N union.
 
 The (P, G) results stay on the matrix's device; the union fetches only the
 (P, n_top) indices. Left out against the reference: the mesh, sparse
 input, the run-space kernel and its overflow redo, mid-stage checkpoints,
-ladder recovery, the occupancy probe, integrity hooks and fault injection,
-and methods other than ``wilcox``.
+ladder recovery, the occupancy probe, integrity, quality and
+fault-injection hooks, and the methods bimod, roc and t.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from scconsensus_tpu_torch.config import ReclusterConfig
 from scconsensus_tpu_torch.device import resolve_device
+from scconsensus_tpu_torch.io.sparsemat import (
+    expm1_sparse,
+    mean_expm1,
+    mean_value,
+)
 from scconsensus_tpu_torch.ops.gates import (
     compute_aggregates_cid,
     pair_gates_fast,
+    pair_gates_slow,
 )
-from scconsensus_tpu_torch.ops.multipletests import bh_adjust_masked
+from scconsensus_tpu_torch.ops.multipletests import (
+    bh_adjust,
+    bh_adjust_masked,
+)
 from scconsensus_tpu_torch.ops.ranksum_allpairs import (
     ALLPAIRS_ELEM_BUDGET,
     chunk_genes_for_budget,
@@ -66,9 +80,11 @@ class PairwiseDEResult:
     tested: torch.Tensor     # (P, G) bool: entered the statistical test
     de_mask: torch.Tensor    # (P, G) bool: final DE call
     pair_skipped: np.ndarray  # (P,) bool: skipped by group-size validation
-    pct1: torch.Tensor       # (P, G)
-    pct2: torch.Tensor
-    u: torch.Tensor          # (P, G) Mann-Whitney U of group 1
+    pct1: Optional[torch.Tensor] = None  # (P, G), fast path only
+    pct2: Optional[torch.Tensor] = None
+    u: Optional[torch.Tensor] = None     # (P, G) Mann-Whitney U, Wilcoxon
+    # edgeR: "common_dispersion" (P,) and "tagwise_dispersion" (P, G)
+    aux: Optional[Dict[str, torch.Tensor]] = None
     skip_reasons: Optional[List[str]] = None
 
     def de_counts(self) -> np.ndarray:
@@ -99,6 +115,20 @@ def _all_pairs(k: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def _next_pow2(x: int) -> int:
     return 1 << (int(x) - 1).bit_length()
+
+
+def _expand_rows(sub: torch.Tensor, ok_rows: np.ndarray, n_rows: int
+                 ) -> torch.Tensor:
+    """Scatter per-run-pair results back onto the full pair axis; rows of
+    pairs skipped by group-size validation stay NaN (float) / False
+    (bool)."""
+    if ok_rows.size == n_rows:
+        return sub
+    fill = False if sub.dtype == torch.bool else float("nan")
+    out = torch.full((n_rows,) + tuple(sub.shape[1:]), fill, dtype=sub.dtype,
+                     device=sub.device)
+    out[torch.as_tensor(ok_rows, device=sub.device)] = sub
+    return out
 
 
 def _cid_from_groups(cell_idx_of: List[np.ndarray], n_cells: int
@@ -223,15 +253,18 @@ def pairwise_de(
     device=None,
     clock: Optional[StageClock] = None,
 ) -> PairwiseDEResult:
-    """Run the all-pairs Wilcoxon DE test.
+    """Run the all-pairs DE test of ``config.method``: "wilcox" (the fast
+    path), "wilcoxon" (the slow-path Wilcoxon) or "edger".
 
     data: (G, N) log-normalized expression, a numpy array or a tensor
     (kept where it is when it already lies on ``device``); labels:
     per-cell cluster names. Runs on ``cuda`` unless ``device="cpu"``."""
     dev = resolve_device(device)
-    if config.method.lower() != "wilcox":
+    method = config.method.lower()
+    if method not in ("wilcox", "wilcoxon", "edger"):
         raise NotImplementedError(
-            f"DE method {config.method!r} is not ported yet (wilcox only)"
+            f"DE method {config.method!r} is not ported yet (wilcox, "
+            "wilcoxon and edger only)"
         )
     clock = clock or StageClock(dev)
     data = as_device_matrix(data, dev)
@@ -258,6 +291,7 @@ def pairwise_de(
                 for ci in cell_idx_of
             ]
         pair_i, pair_j = _all_pairs(K)
+        P = int(pair_i.size)
         # Group-size validation: pairs with a group below min_cells_group
         # are skipped with a recorded reason (the reference hard-errors,
         # R/reclusterDEConsensusFast.R:201-226).
@@ -283,33 +317,89 @@ def pairwise_de(
     pi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
     pj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
     ok = torch.as_tensor(pair_ok, device=dev)
-    with clock.stage("gates"):
-        gate, log_fc, pct1, pct2 = pair_gates_fast(
-            agg, pi, pj,
-            min_pct=config.min_pct,
-            min_diff_pct=config.min_diff_pct,
-            log_fc_thrs=config.log_fc_thrs,
-            mean_exprs_thrs=config.mean_exprs_thrs,
-            pseudocount=config.pseudocount,
-            only_pos=config.only_pos,
-        )
-        tested = gate & ok[:, None]
+    pct1 = pct2 = u = aux = mean_gate = None
+    if method == "edger":
+        from scconsensus_tpu_torch.de.edger import run_edger_pairs
 
-    with clock.stage("wilcox_test"):
-        log_p, u = _run_wilcox(data, cell_idx_of, pair_i, pair_j)
-        # untested entries surface as NaN (and stay out of BH and the call)
-        log_p = torch.where(tested, log_p,
-                            torch.full_like(log_p, float("nan")))
+        # The reference hands the log-normalized matrix to DGEList as
+        # counts (R/reclusterDEConsensus.R:133); compat keeps that literal
+        # arithmetic, fixed mode tests on expm1(data).
+        if config.compat.edger_log_counts:
+            counts, gate_mean = data, mean_expm1(data)
+        else:
+            counts = expm1_sparse(data)
+            gate_mean = mean_value(counts)
+        ok_rows = np.nonzero(pair_ok)[0]
+        with clock.stage("edger_nb"):
+            nb = run_edger_pairs(counts, cell_idx_of, pair_i[pair_ok],
+                                 pair_j[pair_ok], G, seed=config.random_seed,
+                                 clock=clock)
+        del counts
+        with clock.stage("gates"):
+            mean_gate, _ = pair_gates_slow(
+                agg, pi, pj,
+                mean_exprs_thrs=config.mean_scaling_factor * gate_mean,
+                mixed_spaces=config.compat.mean_gate_mixed_spaces,
+            )
+        log_p = _expand_rows(nb.log_p, ok_rows, P)
+        log_fc = _expand_rows(nb.log_fc, ok_rows, P)
+        tested = ok[:, None].expand(P, G).contiguous()
+        aux = {
+            "common_dispersion": _expand_rows(nb.common_disp, ok_rows, P),
+            "tagwise_dispersion": _expand_rows(nb.tagwise_disp, ok_rows, P),
+        }
+    else:
+        with clock.stage("gates"):
+            if method == "wilcoxon":
+                mean_gate, log_fc = pair_gates_slow(
+                    agg, pi, pj,
+                    mean_exprs_thrs=(config.mean_scaling_factor
+                                     * mean_expm1(data)),
+                    mixed_spaces=config.compat.mean_gate_mixed_spaces,
+                )
+                tested = ok[:, None].expand(P, G).contiguous()
+            else:
+                gate, log_fc, pct1, pct2 = pair_gates_fast(
+                    agg, pi, pj,
+                    min_pct=config.min_pct,
+                    min_diff_pct=config.min_diff_pct,
+                    log_fc_thrs=config.log_fc_thrs,
+                    mean_exprs_thrs=config.mean_exprs_thrs,
+                    pseudocount=config.pseudocount,
+                    only_pos=config.only_pos,
+                )
+                tested = gate & ok[:, None]
+        with clock.stage("wilcox_test"):
+            log_p, u = _run_wilcox(data, cell_idx_of, pair_i, pair_j)
+            # untested entries (skipped pairs on the slow path) surface as
+            # NaN and stay out of BH and the call
+            log_p = torch.where(tested, log_p,
+                                torch.full_like(log_p, float("nan")))
+
     with clock.stage("bh_adjust"):
-        log_q = bh_adjust_masked(log_p, tested)
+        if method == "wilcox":
+            log_q = bh_adjust_masked(log_p, tested)
+        else:
+            # slow semantics (§2d-4): BH over every finite entry, n = G
+            log_q = bh_adjust(
+                log_p, n=float(G) if config.compat.bh_reference_n else None)
     with clock.stage("de_call"):
         log_thr = float(np.log(np.float32(config.q_val_thrs)))
-        de = tested & (log_q < log_thr) & ~torch.isnan(log_q)
+        if method == "wilcox":
+            de = tested & (log_q < log_thr)
+        elif method == "edger" and config.compat.edger_drop_logfc:
+            # §2d-1: the reference's criterion reads a scalar-NA logFC, so
+            # no gene is ever selected: an all-false mask
+            de = torch.zeros((P, G), dtype=torch.bool, device=dev)
+        else:
+            de = ((log_q < log_thr)
+                  & (torch.abs(log_fc) > config.log_fc_thrs) & mean_gate)
+        de = de & ~torch.isnan(log_q)
     return PairwiseDEResult(
         cluster_names=names, pair_i=pair_i, pair_j=pair_j,
         log_p=log_p, log_q=log_q, log_fc=log_fc, tested=tested,
         de_mask=de, pair_skipped=~pair_ok, pct1=pct1, pct2=pct2, u=u,
-        skip_reasons=skip_reasons or None,
+        aux=aux, skip_reasons=skip_reasons or None,
     )
 
 

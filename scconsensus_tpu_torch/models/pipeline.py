@@ -1,25 +1,29 @@
-"""End-to-end refinement: ``refine()`` and the fast-path entry point.
+"""End-to-end refinement: ``refine()`` and the two entry points.
 
 The torch form of the dense, mesh-free, ≤ ``approx_threshold`` branch of
 ``scconsensus_tpu/models/pipeline.py`` (``ReclusterResult`` :44-59,
-``_refine_impl`` :342-717, ``recluster_de_consensus_fast`` :836-871).
+``_refine_impl`` :342-717, ``recluster_de_consensus`` :797-833,
+``recluster_de_consensus_fast`` :836-871).
 
 Stages, each timed into ``result.metrics["stage_walls_s"]`` (on the card
-every boundary synchronizes): de (cluster filter, aggregates, gates,
-Wilcoxon ladder, BH, call) → union → embed (euclidean rSVD PCA, on the
-device) → tree (exact Ward.D2, native NN-chain on the host) → cuts
-(dynamic tree cut per deepSplit, host) → silhouette (the CUDA
-distance × one-hot kernel, all cuts in one pass) → nodg.
+every boundary synchronizes): de (cluster filter, aggregates, gates, the
+Wilcoxon ladder or the edgeR sub-stages ``edger_*``, BH, call) → union →
+embed (euclidean rSVD PCA, on the device) → tree (exact Ward.D2, native
+NN-chain on the host) → cuts (dynamic tree cut per deepSplit, host) →
+silhouette (the CUDA distance × cluster-sum kernel, all cuts in one
+pass) → nodg.
 
 Not ported yet, and raising ``NotImplementedError``: sparse input, more
-than ``approx_threshold`` cells, a mesh, ``pearson`` distance, methods
-other than ``wilcox``, and the DE heatmap (``plot_name``). The artifact
-store, retry, integrity, observability and report wrappers are left out.
+than ``approx_threshold`` cells, a mesh, ``pearson`` distance, the
+methods bimod, roc and t, and the DE heatmap (``plot_name``). The
+artifact store, retry, integrity, observability and report wrappers are
+left out.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -43,7 +47,8 @@ from scconsensus_tpu_torch.ops.silhouette import multi_cut_silhouette
 from scconsensus_tpu_torch.ops.treecut import cutree_hybrid
 from scconsensus_tpu_torch.utils.timing import StageClock
 
-__all__ = ["ReclusterResult", "refine", "recluster_de_consensus_fast"]
+__all__ = ["ReclusterResult", "refine", "recluster_de_consensus",
+           "recluster_de_consensus_fast"]
 
 
 @dataclasses.dataclass
@@ -89,9 +94,6 @@ def refine(
         raise NotImplementedError("the multi-device (mesh) path is not "
                                   "ported yet; pass mesh=None")
     dev = resolve_device(device)
-    if config.method.lower() != "wilcox":
-        raise NotImplementedError(
-            f"method {config.method!r} is not ported yet (wilcox only)")
     if config.distance != "euclidean":
         raise NotImplementedError(
             f"distance {config.distance!r} is not ported yet (euclidean)")
@@ -188,6 +190,47 @@ def refine(
     )
 
 
+def recluster_de_consensus(
+    data_matrix,
+    consensus_cluster_labels: Sequence,
+    method: str = "Wilcoxon",
+    mean_scaling_factor: float = 5.0,
+    q_val_thrs: float = 0.01,
+    fc_thrs: float = 2.0,
+    deep_split_values: Sequence[int] = (1, 2, 3, 4),
+    min_cluster_size: int = 10,
+    gene_names: Optional[Sequence[str]] = None,
+    plot_name: Optional[str] = None,
+    compat: Optional[CompatFlags] = None,
+    device=None,
+    omega: Optional[torch.Tensor] = None,
+    mesh=None,
+    **kw,
+) -> ReclusterResult:
+    """Reference-shaped slow path (R/reclusterDEConsensus.R:20-29).
+
+    ``method``: "Wilcoxon" or "edgeR" (case as in the reference).
+    ``fc_thrs`` is a ratio; the DE criterion uses its natural log.
+    ``device``: "cuda" by default. ``omega``: see ``refine``."""
+    m = {"wilcoxon": "wilcoxon", "edger": "edger"}.get(method.lower())
+    if m is None:
+        raise ValueError(
+            f"Incorrect method chosen: {method!r} (Wilcoxon|edgeR)")
+    config = ReclusterConfig(
+        method=m,
+        q_val_thrs=q_val_thrs,
+        log_fc_thrs=math.log(fc_thrs),
+        mean_scaling_factor=mean_scaling_factor,
+        deep_split_values=tuple(int(v) for v in deep_split_values),
+        min_cluster_size=min_cluster_size,
+        plot_name=plot_name,
+        compat=compat or CompatFlags(),
+        **kw,
+    )
+    return refine(data_matrix, consensus_cluster_labels, config, gene_names,
+                  device=device, omega=omega, mesh=mesh)
+
+
 def recluster_de_consensus_fast(
     data_matrix,
     consensus_cluster_labels: Sequence,
@@ -208,7 +251,7 @@ def recluster_de_consensus_fast(
 ) -> ReclusterResult:
     """Reference-shaped fast path (R/reclusterDEConsensusFast.R:22-33).
 
-    ``method``: only ``wilcox`` is ported so far. ``device``: "cuda" by
+    ``method``: only ``wilcox`` is ported so far (bimod, roc, t raise). ``device``: "cuda" by
     default. ``omega``: see ``refine``."""
     config = ReclusterConfig(
         method=method.lower(),

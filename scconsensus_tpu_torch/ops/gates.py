@@ -4,7 +4,8 @@ The (genes × cells) matrix is reduced against the cell→cluster map once,
 and every pair's Seurat gates (pct, mean expression, |logFC|) come from the
 (genes × clusters) aggregates: masks, never ragged selections. The torch
 form of ``scconsensus_tpu/ops/gates.py`` ``ClusterAggregates`` (:35-60),
-``compute_aggregates_cid`` (:80-118) and ``pair_gates_fast`` (:128-166).
+``compute_aggregates_cid`` (:80-118), ``pair_gates_fast`` (:128-166) and ``pair_gates_slow``
+(:169-196).
 
 The aggregates come in the reference's two forms. ``"segment"``: segment
 sums over cells at each cell's cluster id, O(G·N), the form the reference
@@ -20,7 +21,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ClusterAggregates", "compute_aggregates_cid", "pair_gates_fast"]
+__all__ = ["ClusterAggregates", "compute_aggregates_cid", "pair_gates_fast",
+           "pair_gates_slow"]
 
 
 @dataclasses.dataclass
@@ -32,6 +34,10 @@ class ClusterAggregates:
     sum_sq: torch.Tensor       # Σ x²
     nnz: torch.Tensor          # Σ [x > 0]
     counts: torch.Tensor       # cells per cluster (K,)
+
+    @property
+    def mean_log(self) -> torch.Tensor:
+        return self.sum_log / torch.clamp(self.counts, min=1.0)[None, :]
 
     @property
     def mean_expm1(self) -> torch.Tensor:
@@ -118,3 +124,32 @@ def pair_gates_fast(
     else:
         gate &= torch.abs(log_fc) > log_fc_thrs
     return gate, log_fc, pct1, pct2
+
+
+def pair_gates_slow(
+    agg: ClusterAggregates,
+    pair_i: torch.Tensor,
+    pair_j: torch.Tensor,
+    mean_exprs_thrs: float,
+    mixed_spaces: bool = True,
+):
+    """Slow-path mean-expression gate and logFC (difference of log-means).
+
+    ``mixed_spaces=True`` is the reference's literal arithmetic: cluster
+    means of log values against log of the count-space threshold
+    (R/reclusterDEConsensus.R:109-113, quirk §2d-3); ``False`` compares the
+    count-space cluster mean with the count-space threshold.
+
+    Returns (mean_gate (P, G) bool, log_fc (P, G))."""
+    ml = agg.mean_log
+    m1 = ml[:, pair_i].T
+    m2 = ml[:, pair_j].T
+    thr = torch.tensor(mean_exprs_thrs, dtype=torch.float32,
+                       device=ml.device)
+    if mixed_spaces:
+        thr = torch.log(thr)
+        gate = (m1 > thr) | (m2 > thr)
+    else:
+        me = agg.mean_expm1
+        gate = (me[:, pair_i].T > thr) | (me[:, pair_j].T > thr)
+    return gate, m1 - m2

@@ -1,5 +1,6 @@
 """Scaffold of the PyTorch port: independence from JAX, the device rule,
-the config mirror and what the first slice leaves out."""
+the config mirror and what the port leaves out so far. Imports nothing
+that needs JAX, so its ``cuda`` cases run on a card without it."""
 
 import ast
 import dataclasses
@@ -17,10 +18,12 @@ import scconsensus_tpu_torch as port
 from scconsensus_tpu_torch import ReclusterConfig
 from scconsensus_tpu_torch.carry import config_from_reference
 from scconsensus_tpu_torch.config import CompatFlags
-from scconsensus_tpu_torch.de.engine import pairwise_de
+from scconsensus_tpu_torch.de.edger import run_edger_pairs
+from scconsensus_tpu_torch.de.engine import filter_clusters, pairwise_de
 from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
 from scconsensus_tpu_torch.ops.pca import pca_scores
 from scconsensus_tpu_torch.utils.synthetic import (
+    noisy_labeling,
     synthetic_scrna,
     synthetic_scrna_device,
 )
@@ -105,6 +108,9 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
         "refine": lambda: port.refine(data, labels, ReclusterConfig()),
         "recluster_de_consensus_fast":
             lambda: port.recluster_de_consensus_fast(data, labels),
+        "recluster_de_consensus":
+            lambda: port.recluster_de_consensus(data, labels,
+                                                method="edgeR"),
         "pairwise_de": lambda: pairwise_de(data, labels, ReclusterConfig()),
         "pca_scores": lambda: pca_scores(data.T, 3),
         "synthetic_scrna_device":
@@ -164,7 +170,7 @@ def test_what_the_slice_leaves_out_raises(case):
     cfg = ReclusterConfig()
     run = {
         "method": lambda: port.refine(
-            data, labels, ReclusterConfig(method="edger"), device="cpu"),
+            data, labels, ReclusterConfig(method="bimod"), device="cpu"),
         "distance": lambda: port.refine(
             data, labels, ReclusterConfig(distance="pearson"), device="cpu"),
         "cells": lambda: port.refine(
@@ -181,3 +187,51 @@ def test_what_the_slice_leaves_out_raises(case):
     }[case]
     with pytest.raises(NotImplementedError):
         run()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_counts", [True, False],
+                         ids=["compat", "countscale"])
+def test_run_edger_pairs_on_the_card_matches_the_cpu(cuda_device,
+                                                     log_counts):
+    # the drift sentinel's fingerprint workload, 80 genes x 200 cells
+    data, truth, _ = synthetic_scrna(n_genes=80, n_cells=200, n_clusters=3,
+                                     n_markers_per_cluster=8, seed=11)
+    labels = noisy_labeling(truth, 0.05, seed=2)
+    counts = torch.from_numpy(data if log_counts else np.expm1(data))
+    names, cell_idx = filter_clusters(labels, 10)
+    groups = [np.nonzero(cell_idx == k)[0] for k in range(len(names))]
+    pi, pj = (a.astype(np.int32) for a in np.triu_indices(len(names), 1))
+    cpu = run_edger_pairs(counts, groups, pi, pj, counts.shape[0], seed=1)
+    gpu = run_edger_pairs(counts.to(cuda_device), groups, pi, pj,
+                          counts.shape[0], seed=1)
+    assert gpu.log_p.device.type == "cuda"
+    got = {k: getattr(gpu, k).cpu().numpy() for k in
+           ("log_p", "log_fc", "common_disp", "tagwise_disp")}
+    # the tolerances held between the port and the JAX package on the CPU
+    # (tests/test_torch_edger.py): the card's special functions are a
+    # third implementation
+    np.testing.assert_allclose(got["common_disp"], cpu.common_disp.numpy(),
+                               rtol=2e-4)
+    np.testing.assert_allclose(got["log_fc"], cpu.log_fc.numpy(), rtol=1e-5,
+                               atol=2e-6)
+    want = cpu.log_p.numpy()
+    np.testing.assert_array_equal(np.isfinite(got["log_p"]),
+                                  np.isfinite(want))
+    fin = np.isfinite(want)
+    err = np.abs(got["log_p"][fin] - want[fin])
+    # a pseudo-count sum at a half-integer rounds to the other count on
+    # the other device and moves its log p by a count's step: one entry
+    # in 1,000 may (chip_smoke.py phase 5)
+    n_out = int((err > (2e-3 if log_counts else 0.1)).sum())
+    assert n_out <= max(1, 1e-3 * err.size), err.max()
+    if not log_counts:
+        np.testing.assert_allclose(got["tagwise_disp"],
+                                   cpu.tagwise_disp.numpy(), rtol=2e-3)
