@@ -25,7 +25,19 @@ checkout, and exits non-zero on the first phase that fails:
      fc_thrs=2.0, mean_scaling_factor=2.0)``, its wall, stage walls (the
      ``edger_*`` sub-stages among them), peak device memory, union,
      common-dispersion quantiles and the kernel's launch count, then the
-     kernel at this path's own inputs.
+     kernel at this path's own inputs;
+  9. the scale branches, card against CPU, at 2,000 × 800 × 4:
+     ``recluster_de_consensus_fast`` past ``approx_threshold`` in the legacy
+     pool, landmark (with ``landmark_verify``) and kNN branches, and with
+     ``distance="pearson"`` (the exact tree);
+ 10. Tabula Muris 100k: 100,000 cells × 12,000 genes × 40 planted clusters
+     drawn on the card (the 26k data freed first), refined with
+     ``approx_threshold=50_000`` as the reference bench runs it: the pool
+     branch and the pooled silhouette, which launches no kernel;
+ 11. the 1M landmark tree: the reference bench's 1,000,000 × 15 planted
+     embedding, ``landmark_ward_linkage``, the weighted cut propagated to
+     the cells, and the silhouette of a seeded 50,000-cell sample through
+     the kernel, then the kernel at that sample's inputs.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -211,24 +223,10 @@ def phase_kernel() -> dict:
 
 
 def _ari(a, b) -> float:
-    """Adjusted Rand index of two labelings (numpy, no extra packages)."""
-    _, ai = np.unique(np.asarray(a), return_inverse=True)
-    _, bi = np.unique(np.asarray(b), return_inverse=True)
-    table = np.zeros((ai.max() + 1, bi.max() + 1), np.int64)
-    np.add.at(table, (ai, bi), 1)
+    """Adjusted Rand index of two labelings (the port's own)."""
+    from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
 
-    def pairs(v):
-        return float((v * (v - 1) // 2).sum())
-
-    total = pairs(np.array([ai.size]))
-    sum_ij = pairs(table)
-    sum_a = pairs(table.sum(axis=1))
-    sum_b = pairs(table.sum(axis=0))
-    expected = sum_a * sum_b / total
-    max_idx = 0.5 * (sum_a + sum_b)
-    if max_idx == expected:
-        return 1.0
-    return (sum_ij - expected) / (max_idx - expected)
+    return adjusted_rand_index(a, b)
 
 
 def _consensus_labels(truth, n_clusters: int):
@@ -369,9 +367,10 @@ def phase_full_data():
     return data, truth, cons
 
 
-def _run_full(tag: str, call, truth):
+def _run_full(tag: str, call, truth, min_launches: int = 1):
     """One full-size refine with the kernel count reset just before and
-    read just after; checks what every path must give."""
+    read just after; checks what every path must give (at least
+    ``min_launches`` kernel launches)."""
     import torch
 
     from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
@@ -396,7 +395,7 @@ def _run_full(tag: str, call, truth):
         log(f"[{tag}] {key}: clusters {info['n_clusters']} silhouette "
             f"{info['silhouette']!r} ARI(planted) "
             f"{_ari(res.dynamic_labels[key], truth)!r}")
-    if launches < 1:
+    if launches < min_launches:
         raise AssertionError(f"[{tag}] the silhouette stage did not launch "
                              "the CUDA kernel")
     if m["tree_engine"] != "native":
@@ -466,6 +465,143 @@ def phase_edger_full(data, truth, cons) -> dict:
     return rec
 
 
+# the scale branches of phase 9 (the thresholds of the CPU parity tests,
+# tests/test_torch_scale_pipeline.py)
+SCALE_VARIANTS = {
+    "pool": dict(approx_threshold=1000, n_pool_centroids=256),
+    "landmark": dict(approx_threshold=1000, landmark_threshold=1000,
+                     landmark_verify=True),
+    "knn": dict(approx_threshold=1000, approx_method="knn"),
+    "pearson": dict(distance="pearson"),
+}
+
+
+def phase_scale_small() -> None:
+    """Each scale branch, card against CPU: besides the checks of phase 4,
+    the same tree record, silhouette method and landmark info."""
+    from scconsensus_tpu_torch import ReclusterConfig
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+
+    for name, kw in SCALE_VARIANTS.items():
+        tag = f"scale-{name}"
+        gpu, cpu = _card_against_cpu(
+            tag, ReclusterConfig(**kw), lambda data, cons, dev, omega:
+            recluster_de_consensus_fast(data, cons, device=dev, omega=omega,
+                                        **kw))
+        gm, cm = gpu.metrics, cpu.metrics
+        log(f"[{tag}] tree {json.dumps(gm['tree'])}; silhouette "
+            f"{json.dumps(gm['silhouette'])}; tree stage "
+            f"{gm['stage_walls_s']['tree']!r} s on the card, "
+            f"{cm['stage_walls_s']['tree']!r} s on the CPU")
+        if gm["tree"] != cm["tree"] or gm["silhouette"] != cm["silhouette"]:
+            raise AssertionError(f"[{tag}] tree or silhouette records differ")
+        if gm["tree"]["approx"] != (name != "pearson"):
+            raise AssertionError(f"[{tag}] took the wrong branch")
+        if name == "landmark":
+            g, c = gm["landmark"], cm["landmark"]
+            log(f"[{tag}] landmark k {g['k']} sketch {g['sketch']} "
+                f"ari_vs_exact {json.dumps(g['ari_vs_exact'])}")
+            for key in ("k", "sketch", "ari_vs_exact", "occupancy"):
+                if g[key] != c[key]:
+                    raise AssertionError(f"[{tag}] landmark {key} differs: "
+                                         f"{g[key]} against {c[key]}")
+
+
+def phase_tm100k() -> int:
+    """Tabula Muris 100k on the card, as the reference bench's ``tm100k``
+    runs it; returns the kernel's launches on this path."""
+    import torch
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.utils.synthetic import synthetic_scrna_device
+
+    n_cells, n_genes, n_clusters = 100_000, 12_000, 40
+    t0 = time.perf_counter()
+    data, truth, _ = synthetic_scrna_device(
+        n_genes=n_genes, n_cells=n_cells, n_clusters=n_clusters,
+        n_markers_per_cluster=40, seed=7, device="cuda")
+    cons = _consensus_labels(truth, n_clusters)
+    torch.cuda.synchronize()
+    log(f"[tm100k] {tuple(data.shape)} drawn on the card in "
+        f"{time.perf_counter() - t0!r} s; consensus clusters "
+        f"{np.unique(cons).size}")
+    res, launches = _run_full(
+        "tm100k", lambda: recluster_de_consensus_fast(
+            data, cons, approx_threshold=50_000, device="cuda"), truth,
+        min_launches=0)
+    m = res.metrics
+    log(f"[tm100k] tree {json.dumps(m['tree'])}; silhouette "
+        f"{json.dumps(m['silhouette'])}")
+    if not m["tree"]["approx"] or m["tree"]["landmark"]:
+        raise AssertionError("[tm100k] expected the legacy pool branch")
+    if not m["silhouette"]["pool_reused"]:
+        raise AssertionError("[tm100k] the silhouette fitted a second pool")
+    if res.cell_tree.n_leaves > 4096:
+        raise AssertionError("[tm100k] the tree is not over the pool")
+    return launches
+
+
+def phase_brain1m() -> dict:
+    """The 1M landmark tree and the sampled silhouette (the reference
+    bench's ``run_brain1m``), then the kernel at the sample's inputs."""
+    import torch
+
+    from scconsensus_tpu_torch import (
+        landmark_ward_linkage,
+        mean_cluster_silhouette,
+    )
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+    from scconsensus_tpu_torch.ops.treecut import cutree_hybrid
+    from scconsensus_tpu_torch.utils.synthetic import planted_embedding_device
+
+    n = 1_000_000
+    x, planted, rng = planted_embedding_device(n_cells=n, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    distance_cluster_sums.launches = 0
+    walls = {}
+    t0 = t = time.perf_counter()
+    tree, assign, cents, info = landmark_ward_linkage(x, seed=1)
+    walls["landmark_ward"] = time.perf_counter() - t
+    t = time.perf_counter()
+    w = np.bincount(assign, minlength=cents.shape[0]).astype(np.float64)
+    cut = cutree_hybrid(tree, cents, deep_split=1,
+                        min_cluster_size=max(2, round(2 * n / 4096)),
+                        weights=w)
+    cells = cut[assign]
+    walls["cut"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sub = rng.choice(n, size=50_000, replace=False)
+    xs = x[torch.as_tensor(sub, device="cuda")].contiguous()
+    # as the bench: label 0 (cells of no cluster) counts as a cluster here
+    si, _ = mean_cluster_silhouette(xs, cells[sub])
+    torch.cuda.synchronize()
+    walls["silhouette"] = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    launches = distance_cluster_sums.launches
+    clusters = len(set(cells[cells > 0].tolist()))
+    log(f"[brain1m] wall {wall!r} s, {n / wall!r} cells/s, peak device "
+        f"memory {torch.cuda.max_memory_allocated()} bytes; walls (s) "
+        f"{json.dumps(walls)}")
+    log(f"[brain1m] landmarks {json.dumps(info)}; clusters {clusters}; "
+        f"silhouette (50,000-cell sample) {si!r}; ARI(planted) "
+        f"{_ari(cells, planted)!r}; distance_cluster_sums launches "
+        f"{launches}")
+    if launches < 1:
+        raise AssertionError("[brain1m] the sampled silhouette did not "
+                             "launch the CUDA kernel")
+    if not np.isfinite(si) or clusters < 2:
+        raise AssertionError(f"[brain1m] silhouette {si}, {clusters} "
+                             "clusters")
+    if info["sketch"] != 65_536 or info["k_requested"] != 2048:
+        raise AssertionError(f"[brain1m] landmark policy {info}")
+    _, inv = np.unique(cells[sub], return_inverse=True)
+    ids = torch.as_tensor(inv.astype(np.int32)[:, None], device="cuda")
+    rec = _measure_kernel(xs, ids, int(inv.max()) + 1, "brain1m-sample")
+    rec["launches"] = launches
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -486,15 +622,24 @@ def main() -> int:
     data, truth, cons = phase_full_data()
     rec = phase_full(data, truth, cons)
     erec = phase_edger_full(data, truth, cons)
-    # times from the Wilcoxon path's inputs; launches from both full paths
+    del data
+    torch.cuda.empty_cache()
+    phase_scale_small()
+    tm_launches = phase_tm100k()
+    torch.cuda.empty_cache()
+    brec = phase_brain1m()
+    # times from the Wilcoxon path's inputs; launches from every full path
     log(json.dumps({"kernels": [{
         "name": "distance_cluster_sums",
         "route": "cuda",
         "source": "scconsensus_tpu_torch/csrc/distance_cluster_sums.cu",
         "replaces": "scconsensus_tpu/ops/pallas_kernels.py:51",
-        "launches": rec["launches"] + erec["launches"],
+        "launches": (rec["launches"] + erec["launches"] + tm_launches
+                     + brec["launches"]),
         "launches_by_path": {"wilcox_26k": rec["launches"],
-                             "edger_26k": erec["launches"]},
+                             "edger_26k": erec["launches"],
+                             "tm100k": tm_launches,
+                             "brain1m_sample": brec["launches"]},
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"],
         "plain_ms": rec["plain_ms"],

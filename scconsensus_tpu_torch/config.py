@@ -1,8 +1,9 @@
 """Pipeline configuration: ``CompatFlags`` and ``ReclusterConfig``.
 
 A mirror of ``scconsensus_tpu/config.py:503-669``: every field with the
-reference's default, and ``to_json``. The reference's environment-flag
-registry (and the landmark policy that reads it) is not part of the port.
+reference's default, ``landmark_policy`` and ``to_json``. The reference's
+environment-flag registry is not part of the port: where the reference
+reads a registered flag, the port takes the flag's registered default.
 """
 
 from __future__ import annotations
@@ -10,9 +11,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["CompatFlags", "ReclusterConfig"]
+
+# the registered defaults of the reference's landmark flags
+# (scconsensus_tpu/config.py:146-162): SCC_TREE_LANDMARK_THRESHOLD, and
+# the k-policy scale c when SCC_TREE_LANDMARK_C is unset
+LANDMARK_THRESHOLD = 200_000
+LANDMARK_C = 2.0
 
 
 @dataclasses.dataclass
@@ -99,6 +106,35 @@ class ReclusterConfig:
             min_pct=kw.pop("min_pct", 0.0),
             **kw,
         )
+
+    def landmark_policy(self, n_cells: int) -> Optional[Dict[str, Any]]:
+        """Resolved landmark-path decision for a run over ``n_cells``
+        (``scconsensus_tpu/config.py:625-662``).
+
+        None when the landmark engine must not run (at or below the
+        threshold); otherwise ``{threshold, k (None = the policy at fit
+        time), c, k_min, k_max, sketch, linkage, knn_k}``. Unset fields
+        take the reference's registered defaults: threshold 200,000, k
+        from the policy, c = 2.0. No environment variable is read, and the
+        reference's exact override ``SCC_TREE_EXACT`` is left out.
+        """
+        thr = int(LANDMARK_THRESHOLD if self.landmark_threshold is None
+                  else self.landmark_threshold)
+        if n_cells <= thr:
+            return None
+        k = self.landmark_k
+        c = LANDMARK_C if self.landmark_c is None else self.landmark_c
+        return {
+            "threshold": thr,
+            "k": int(k) if k else None,
+            "c": float(c),
+            "k_min": int(self.landmark_k_min),
+            "k_max": int(self.landmark_k_max),
+            "sketch": (int(self.landmark_sketch)
+                       if self.landmark_sketch else None),
+            "linkage": str(self.landmark_linkage),
+            "knn_k": int(self.knn_graph_k),
+        }
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)

@@ -17,9 +17,10 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "as_points"]
 
 
 def _pin_fp32() -> None:
@@ -42,3 +43,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise ValueError(f"unsupported device {dev}")
     return dev
 
+
+def as_points(x, device: Optional[Union[str, torch.device]] = None
+              ) -> torch.Tensor:
+    """``x`` as a contiguous float32 tensor. A tensor stays on its own
+    device unless ``device`` names another; anything else (a numpy array)
+    goes to ``resolve_device(device)``, the card by default."""
+    if isinstance(x, torch.Tensor):
+        if device is None:
+            _pin_fp32()
+            dev = x.device
+        else:
+            dev = resolve_device(device)
+        return x.to(device=dev, dtype=torch.float32).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32),
+                           device=resolve_device(device))

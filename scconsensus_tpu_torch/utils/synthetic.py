@@ -6,8 +6,8 @@ tests and benches run on synthetic negative-binomial data with planted cluster
 structure (SURVEY.md §4 "Integration").
 
 The numpy generators are copies of ``scconsensus_tpu/utils/synthetic.py``
-(same bytes out for the same seed); ``synthetic_scrna_device`` draws on the
-card with torch.
+(same bytes out for the same seed); ``synthetic_scrna_device`` and
+``planted_embedding_device`` draw on the card with torch.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 __all__ = [
     "synthetic_scrna",
     "synthetic_scrna_device",
+    "planted_embedding_device",
     "planted_clusters",
     "noisy_labeling",
 ]
@@ -186,6 +187,39 @@ def synthetic_scrna_device(
         libsize = counts.sum(dim=0).clamp_min(1.0)
         counts.mul_((depth / libsize)[None, :]).log1p_()
     return counts, labels, marker_mask
+
+
+def planted_embedding_device(
+    n_cells: int = 1_000_000,
+    n_dims: int = 15,
+    n_clusters: int = 24,
+    scale: float = 6.0,
+    seed: int = 3,
+    device=None,
+):
+    """A planted-cluster embedding drawn on the card: the reference bench's
+    1M-cell landmark configuration (``bench.py`` ``run_brain1m``: centres
+    ~ N(0, scale²) in ``n_dims`` dimensions, uniform labels, unit noise).
+
+    The centres and labels are the numpy draws of ``default_rng(seed)``
+    in the bench's order; the noise comes from a ``torch.Generator``
+    seeded with ``seed`` on the device, so it is not the host generator's.
+    Returns (x (N, n_dims) float32 tensor on ``device``, labels (N,)
+    numpy, the numpy generator after its draws, which the bench goes on
+    using for its silhouette sample)."""
+    import torch
+
+    from scconsensus_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=scale, size=(n_clusters, n_dims))
+    labels = rng.integers(0, n_clusters, n_cells)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    x = torch.as_tensor(centers, dtype=torch.float32, device=dev)[
+        torch.as_tensor(labels, device=dev)]
+    x += torch.randn((n_cells, n_dims), generator=gen, device=dev)
+    return x, labels, rng
 
 
 def noisy_labeling(

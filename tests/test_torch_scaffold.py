@@ -22,8 +22,10 @@ from scconsensus_tpu_torch.de.edger import run_edger_pairs
 from scconsensus_tpu_torch.de.engine import filter_clusters, pairwise_de
 from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
 from scconsensus_tpu_torch.ops.pca import pca_scores
+from scconsensus_tpu_torch.parallel.ring import ring_knn
 from scconsensus_tpu_torch.utils.synthetic import (
     noisy_labeling,
+    planted_embedding_device,
     synthetic_scrna,
     synthetic_scrna_device,
 )
@@ -115,6 +117,19 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
         "pca_scores": lambda: pca_scores(data.T, 3),
         "synthetic_scrna_device":
             lambda: synthetic_scrna_device(n_genes=50, n_cells=40),
+        "planted_embedding_device":
+            lambda: planted_embedding_device(n_cells=40),
+        "pooled_ward_linkage":
+            lambda: port.pooled_ward_linkage(data.T, n_centroids=8),
+        "landmark_ward_linkage":
+            lambda: port.landmark_ward_linkage(data.T, n_landmarks=8),
+        "knn_ward_linkage": lambda: port.knn_ward_linkage(data.T, k=3),
+        "ring_knn": lambda: ring_knn(data.T, 3),
+        "mean_cluster_silhouette":
+            lambda: port.mean_cluster_silhouette(data.T, np.arange(240) % 3),
+        "pooled_multi_cut_silhouette":
+            lambda: port.pooled_multi_cut_silhouette(
+                data.T, [np.arange(240) % 3], n_centroids=8),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -161,8 +176,8 @@ def test_config_round_trips_from_the_reference_json():
         config_from_reference('{"not_a_field": 1}')
 
 
-@pytest.mark.parametrize("case", ["method", "distance", "cells", "sparse",
-                                  "mesh", "plot", "heatmap"])
+@pytest.mark.parametrize("case", ["method", "sparse", "mesh", "ring_mesh",
+                                  "knn_mesh", "plot", "heatmap"])
 def test_what_the_slice_leaves_out_raises(case):
     import scipy.sparse as sp
 
@@ -171,11 +186,11 @@ def test_what_the_slice_leaves_out_raises(case):
     run = {
         "method": lambda: port.refine(
             data, labels, ReclusterConfig(method="bimod"), device="cpu"),
-        "distance": lambda: port.refine(
-            data, labels, ReclusterConfig(distance="pearson"), device="cpu"),
-        "cells": lambda: port.refine(
-            data, labels, ReclusterConfig(approx_threshold=100),
-            device="cpu"),
+        "ring_mesh": lambda: ring_knn(data.T, 5, mesh="auto", device="cpu"),
+        "knn_mesh": lambda: port.refine(
+            data, labels, ReclusterConfig(approx_threshold=100,
+                                          approx_method="knn"),
+            device="cpu", mesh="auto"),
         "sparse": lambda: port.refine(
             sp.csr_matrix(data), labels, cfg, device="cpu"),
         "mesh": lambda: port.recluster_de_consensus_fast(
@@ -235,3 +250,42 @@ def test_run_edger_pairs_on_the_card_matches_the_cpu(cuda_device,
     if not log_counts:
         np.testing.assert_allclose(got["tagwise_disp"],
                                    cpu.tagwise_disp.numpy(), rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_scale_ops_on_the_card_match_the_cpu(cuda_device):
+    from scconsensus_tpu_torch.ops.pooling import landmark_pool
+    from scconsensus_tpu_torch.ops.silhouette import (
+        pooled_multi_cut_silhouette,
+    )
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(scale=6.0, size=(5, 15))
+    lab = rng.integers(0, 5, 6000)
+    x = (centers[lab] + rng.normal(size=(6000, 15))).astype(np.float32)
+    # kNN: the card's matmul sums in another order, so near-tied
+    # neighbours may swap (tests/test_torch_knn.py measured 2 in 30,000
+    # between the packages on the CPU)
+    d_c, i_c = ring_knn(x, 15, device="cpu")
+    d_g, i_g = ring_knn(x, 15, device=cuda_device)
+    assert (i_g.cpu() == i_c).float().mean() >= 0.999
+    tol = 8 * np.finfo(np.float32).eps * float((x.astype(np.float64) ** 2)
+                                               .sum(1).max())
+    assert float((d_g.cpu().double() ** 2 - d_c.double() ** 2).abs()
+                 .max()) <= tol
+    # landmarks: the same seeded draws, and planted blobs leave no point
+    # on a near-tie between two landmarks
+    cent_c, a_c, info_c = landmark_pool(x, n_landmarks=256, sketch=3000,
+                                        seed=1, device="cpu")
+    cent_g, a_g, info_g = landmark_pool(x, n_landmarks=256, sketch=3000,
+                                        seed=1, device=cuda_device)
+    assert info_g == info_c
+    assert (a_g == a_c).mean() >= 0.999
+    # the pooled estimator on the same pool: float32 sums in another order
+    labs = [lab, np.where(lab % 2 == 0, lab, -1)]
+    got = pooled_multi_cut_silhouette(x, labs, centroids=cent_c,
+                                      assign=a_c, device=cuda_device)
+    want = pooled_multi_cut_silhouette(x, labs, centroids=cent_c,
+                                       assign=a_c, device="cpu")
+    for (g, _), (w, _) in zip(got, want):
+        assert abs(g - w) <= 1e-5
