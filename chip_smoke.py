@@ -9,8 +9,9 @@ checkout, and exits non-zero on the first phase that fails:
   2. build: the CUDA kernel (nvcc, sm_90a) and the native Ward library,
      both compiles started together;
   3. kernel: ``distance_cluster_sums`` against its plain PyTorch version
-     at four shapes (flagship-like, ragged, skinny, wide), with times and
-     bound;
+     at five shapes (flagship-like, ragged, skinny, wide, and four nested
+     cuts at the 26k path's geometry), with times, bound, the run sums a
+     row writes against N·C, and a bitwise re-run check;
   4. slice, card against CPU: the dense fast-Wilcoxon ``refine()`` at
      2,000 cells × 800 genes × 4 clusters on ``cuda`` and on the CPU;
   5. edgeR, card against CPU: ``recluster_de_consensus(method="edgeR")``
@@ -112,14 +113,18 @@ def _bound(n: int, d: int, c: int, k: int, nnz: int) -> dict:
 
 def _measure_kernel(x, ids, k: int, label: str) -> dict:
     """Kernel against its plain version on the same card inputs (x (N, d),
-    cluster ids (N, C), K clusters): error, times, bound and the cdist
-    yardstick. Fails on disagreement."""
+    cluster ids (N, C), K clusters): error, times, bound, the cdist
+    yardstick, the run sums each row writes (against N·C read-add-writes
+    without the cluster order) and the splits of j. Fails on disagreement
+    or when a second launch does not give the same bits."""
     import torch
 
     from scconsensus_tpu_torch.ops.cuda_kernels import (
         distance_cluster_sums,
         distance_cluster_sums_reference,
         labels_onehot,
+        launch_plan,
+        run_flushes,
     )
 
     n, d = x.shape
@@ -142,6 +147,15 @@ def _measure_kernel(x, ids, k: int, label: str) -> dict:
             f"{label}: kernel disagrees with its plain version: max abs "
             f"err {max_abs} > {KERNEL_RTOL} x max |sum| {scale}"
         )
+    # every address the kernel's atomic flushes touch has one writer
+    # (csrc/distance_cluster_sums.cu, point 7): the same bits again
+    again = distance_cluster_sums(x, ids, k)
+    rerun_diff = float((again - got).abs().max())
+    if not torch.equal(again, got):
+        raise AssertionError(f"{label}: a second launch differs by up to "
+                             f"{rerun_diff}")
+
+    plan = launch_plan(n, d, c, k, x.device)
 
     def _library():
         b = 4096
@@ -155,6 +169,10 @@ def _measure_kernel(x, ids, k: int, label: str) -> dict:
         "max_abs_sum": scale,
         "max_abs_err": max_abs,
         "max_rel_err": max_rel,
+        "rerun_max_abs_diff": rerun_diff,
+        "runs_per_row": run_flushes(ids, k),
+        "n_times_c": n * c,
+        **{key: plan[key] for key in ("splits", "blocks_per_sm", "ordered")},
         "ms": _time_ms(lambda: distance_cluster_sums(x, ids, k)),
         "plain_ms": _time_ms(
             lambda: distance_cluster_sums_reference(x, ids, k)),
@@ -200,9 +218,9 @@ def phase_kernel() -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    # (N, d, K, cuts): one cut of K = 100 at the flagship N; K split over
-    # three cuts with ragged tiles; a skinny d and K; a wide d and a K
-    # past one block's cluster slice
+    # (N, d, K, cuts), random ids: one cut of K = 100 at the flagship N; K
+    # split over three cuts with ragged tiles; a skinny d and K; a wide d
+    # and K
     for label, (n, d, k, c) in (("flagship", (26000, 15, 100, 1)),
                                 ("ragged", (300, 7, 131, 3)),
                                 ("skinny", (257, 3, 2, 1)),
@@ -217,6 +235,21 @@ def phase_kernel() -> dict:
             ids[:, 1:][gap] = -1
         out[label] = _measure_kernel(
             x, ids.to(torch.int32).contiguous(), k, label)
+    # the main path's geometry: 26,000 × 15 and four cuts, each refining the
+    # one before (10, 40, 150 and 250 clusters: K = 450), about 5 % of the
+    # cells in no cluster in each later cut
+    n, sizes = 26000, (10, 40, 150, 250)
+    x = torch.randn((n, 15), generator=g, device="cuda")
+    fine = torch.randint(0, sizes[-1], (n,), generator=g, device="cuda")
+    cols, k0 = [], 0
+    for c, m in enumerate(sizes):
+        col = fine * m // sizes[-1] + k0
+        if c:
+            col[torch.rand(n, generator=g, device="cuda") < 0.05] = -1
+        cols.append(col)
+        k0 += m
+    ids = torch.stack(cols, dim=1).to(torch.int32).contiguous()
+    out["nested"] = _measure_kernel(x, ids, k0, "nested")
     log(f"[kernel] launches so far (comparison only): "
         f"{distance_cluster_sums.launches}")
     return out

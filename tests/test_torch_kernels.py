@@ -139,14 +139,22 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(26000, 15, 100, 1), (300, 7, 131, 3),
-                                   (257, 3, 2, 1), (3000, 200, 1100, 2)],
-                         ids=["flagship", "ragged", "skinny", "wide"])
+                                   (257, 3, 2, 1), (3000, 200, 1100, 2),
+                                   (26000, 15, 450, 4)],
+                         ids=["flagship", "ragged", "skinny", "wide",
+                              "nested"])
 def test_cuda_kernel_matches_plain_version(cuda_device, shape):
+    from test_torch_kernel_order import nested_ids
+
     n, d, k, n_cuts = shape
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)
                          ).to(cuda_device)
-    ids = torch.from_numpy(_ids(rng, n, k, n_cuts)).to(cuda_device)
+    if n_cuts == 4:  # four cuts, each refining the one before (K = 450)
+        ids, k = nested_ids(rng, n, [10, 40, 150, 250])
+    else:
+        ids = _ids(rng, n, k, n_cuts)
+    ids = torch.from_numpy(ids).to(cuda_device)
     before = distance_cluster_sums.launches
     got = distance_cluster_sums(x, ids, k)
     assert distance_cluster_sums.launches == before + 1
@@ -156,3 +164,6 @@ def test_cuda_kernel_matches_plain_version(cuda_device, shape):
     # a²+b²−2ab residue on the diagonal: 1e-4 of the largest sum
     err = float((got - ref).abs().max())
     assert err <= 1e-4 * max(float(ref.abs().max()), 1.0)
+    # one writer per address of the kernel's atomic flushes: a second
+    # launch gives the same bits
+    assert torch.equal(distance_cluster_sums(x, ids, k), got)
