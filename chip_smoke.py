@@ -38,7 +38,22 @@ checkout, and exits non-zero on the first phase that fails:
  11. the 1M landmark tree: the reference bench's 1,000,000 × 15 planted
      embedding, ``landmark_ward_linkage``, the weighted cut propagated to
      the cells, and the silhouette of a seeded 50,000-cell sample through
-     the kernel, then the kernel at that sample's inputs.
+     the kernel, then the kernel at that sample's inputs;
+ 12. sparse input at 2k, card against CPU: the phase 4 data as CSR, saved
+     with ``scipy.sparse.save_npz`` and read back through the port's
+     ``load_npz``; the fast Wilcoxon and edgeR (both ``edger_log_counts``
+     modes) card against CPU, and on the card against the dense matrix;
+ 13. the 26k data of phase 6 as a host CSR: the fast Wilcoxon and the
+     edgeR headline from it, each held against phases 7 and 8 (unions, DE
+     masks, cuts, silhouettes), with the kernel's launches, and the CSR
+     aggregates computed twice to the same bits;
+ 14. the 1M sparse full pipeline (``tools/run_sparse_1m.py``'s
+     configuration): 1,000,000 cells × 3,000 genes × 16 planted clusters
+     drawn on the card as CSR, two noisy labelings merged by the
+     contingency grammar, ``recluster_de_consensus_fast(csr, consensus,
+     q_val_thrs=0.05, approx_threshold=50_000)``: the compacted window
+     ladder, the landmark tree and the pooled silhouette, with peak device
+     memory held below the dense matrix's size.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -48,6 +63,7 @@ on every call.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -275,25 +291,53 @@ def _consensus_labels(truth, n_clusters: int):
     return plot_contingency_table(sup, uns)
 
 
-def _card_against_cpu(tag: str, cfg, run):
+def _small_data():
     """2,000 cells × 800 genes × 4 clusters (the reference bench's reduced
-    flagship): ``run(data, cons, device, omega)`` on the card against the
-    same on the CPU, with the same PCA projection handed to both. Checks
-    the union, ARI = 1 and silhouettes per deepSplit; returns both
-    results."""
-    import torch
-
-    from scconsensus_tpu_torch.de.engine import de_gene_union, pairwise_de
+    flagship): the dense numpy matrix and its consensus labels."""
     from scconsensus_tpu_torch.utils.synthetic import synthetic_scrna
 
     n_cells, n_genes, n_clusters = 2000, 800, 4
     data, truth, _ = synthetic_scrna(
         n_genes=n_genes, n_cells=n_cells, n_clusters=n_clusters,
         n_markers_per_cluster=min(40, n_genes // n_clusters), seed=7)
-    cons = _consensus_labels(truth, n_clusters)
+    return data, _consensus_labels(truth, n_clusters)
+
+
+def _same_refine(tag: str, a, b, what: str) -> None:
+    """Union identical, ARI = 1 and silhouettes within 1e-4 per deepSplit
+    between two refine results ``a`` and ``b`` (named in ``what``)."""
+    if not np.array_equal(a.de_gene_union_idx, b.de_gene_union_idx):
+        raise AssertionError(f"[{tag}] {what}: unions differ")
+    for a_info, b_info in zip(a.deep_split_info, b.deep_split_info):
+        key = f"deepsplit: {a_info['deep_split']}"
+        ari = _ari(a.dynamic_labels[key], b.dynamic_labels[key])
+        dsil = abs(a_info["silhouette"] - b_info["silhouette"])
+        log(f"[{tag}] {key}: clusters {a_info['n_clusters']} "
+            f"silhouette {a_info['silhouette']!r} ARI({what}) {ari!r} "
+            f"|dsil| {dsil!r}")
+        if ari != 1.0:
+            raise AssertionError(f"[{tag}] {key}: ARI {ari} != 1")
+        # fp32 sums over the cells' distances in another order on each side
+        if not dsil <= 1e-4:
+            raise AssertionError(f"[{tag}] {key}: silhouettes differ {dsil}")
+
+
+def _card_against_cpu(tag: str, cfg, run, as_input=None):
+    """The 2k data (``as_input(data)`` when given, else the dense matrix):
+    ``run(data, cons, device, omega)`` on the card against the same on the
+    CPU, with the same PCA projection handed to both. Checks the union,
+    ARI = 1 and silhouettes per deepSplit; returns both results and the
+    projection."""
+    import torch
+
+    from scconsensus_tpu_torch.de.engine import de_gene_union, pairwise_de
+
+    data, cons = _small_data()
+    if as_input is not None:
+        data = as_input(data)
     f = de_gene_union(pairwise_de(data, cons, cfg, device="cuda"),
                       cfg.n_top_de_genes).size
-    k = min(cfg.n_pcs + 10, f, n_cells)
+    k = min(cfg.n_pcs + 10, f, data.shape[1])
     omega = torch.randn((f, k), generator=torch.Generator().manual_seed(0))
     t0 = time.perf_counter()
     gpu = run(data, cons, "cuda", omega)
@@ -303,21 +347,8 @@ def _card_against_cpu(tag: str, cfg, run):
     t_cpu = time.perf_counter() - t0
     log(f"[{tag}] refine walls: cuda {t_gpu!r} s, cpu {t_cpu!r} s; "
         f"union {gpu.de_gene_union_idx.size}")
-    if not np.array_equal(gpu.de_gene_union_idx, cpu.de_gene_union_idx):
-        raise AssertionError(f"[{tag}] card and CPU unions differ")
-    for g_info, c_info in zip(gpu.deep_split_info, cpu.deep_split_info):
-        key = f"deepsplit: {g_info['deep_split']}"
-        ari = _ari(gpu.dynamic_labels[key], cpu.dynamic_labels[key])
-        dsil = abs(g_info["silhouette"] - c_info["silhouette"])
-        log(f"[{tag}] {key}: clusters {g_info['n_clusters']} "
-            f"silhouette {g_info['silhouette']!r} ARI(card, cpu) {ari!r} "
-            f"|dsil| {dsil!r}")
-        if ari != 1.0:
-            raise AssertionError(f"[{tag}] {key}: ARI {ari} != 1")
-        # fp32 sums over 2,000 distances in another order on each side
-        if not dsil <= 1e-4:
-            raise AssertionError(f"[{tag}] {key}: silhouettes differ {dsil}")
-    return gpu, cpu
+    _same_refine(tag, gpu, cpu, "card, cpu")
+    return gpu, cpu, omega
 
 
 def phase_small() -> None:
@@ -336,6 +367,9 @@ def phase_small() -> None:
 # log p moves by a whole count's step: at most 1 in 1,000 entries may.
 EDGER_LOGP_ATOL = 2e-3
 EDGER_ROUNDING_SHARE = 1e-3
+# count-scale mode (edger_log_counts=False): the CPU tests' 0.1
+# (tests/test_torch_edger.py; the JAX package's own sensitivity is 0.089)
+EDGER_COUNTSCALE_LOGP_ATOL = 0.1
 EDGER_KW = dict(method="edgeR", q_val_thrs=0.01, fc_thrs=2.0,
                 mean_scaling_factor=2.0)
 
@@ -344,38 +378,42 @@ def phase_small_edger() -> None:
     """The edgeR slow path at the headline's thresholds, card against CPU:
     besides the checks of phase 4, identical DE masks and finite log p
     within the CPU tests' tolerance."""
-    import math
-
     from scconsensus_tpu_torch import ReclusterConfig, recluster_de_consensus
 
     cfg = ReclusterConfig(method="edger", q_val_thrs=0.01,
                           log_fc_thrs=math.log(2.0), mean_scaling_factor=2.0)
-    gpu, cpu = _card_against_cpu(
+    gpu, cpu, _ = _card_against_cpu(
         "edger-small", cfg, lambda data, cons, dev, omega:
         recluster_de_consensus(data, cons, device=dev, omega=omega,
                                **EDGER_KW))
+    _check_edger_card_cpu("edger-small", gpu, cpu, EDGER_LOGP_ATOL)
+
+
+def _check_edger_card_cpu(tag: str, gpu, cpu, atol: float) -> None:
+    """edgeR card against CPU: identical DE masks, the same finite log p,
+    at most one in 1,000 of them more than ``atol`` apart, finite common
+    dispersions."""
     gd, cd = gpu.de, cpu.de
     lp_g, lp_c = gd.log_p.cpu().numpy(), cd.log_p.numpy()
     fin = np.isfinite(lp_c)
     errs = np.abs(lp_g[fin] - lp_c[fin])
-    n_out = int((errs > EDGER_LOGP_ATOL).sum())
+    n_out = int((errs > atol).sum())
     cg = gd.aux["common_dispersion"].cpu().numpy()
     cc = cd.aux["common_dispersion"].numpy()
-    log(f"[edger-small] DE calls {int(gd.de_mask.sum())} / "
+    log(f"[{tag}] DE calls {int(gd.de_mask.sum())} / "
         f"{int(cd.de_mask.sum())}; |dlog p| 99.9th percentile "
         f"{float(np.quantile(errs, 1.0 - EDGER_ROUNDING_SHARE))!r}, max "
         f"{float(errs.max())!r}, {n_out} of {errs.size} above "
-        f"{EDGER_LOGP_ATOL}; common dispersion max |card / cpu - 1| "
+        f"{atol}; common dispersion max |card / cpu - 1| "
         f"{float(np.max(np.abs(cg / cc - 1.0)))!r}")
     if not np.array_equal(gd.de_mask.cpu().numpy(), cd.de_mask.numpy()):
-        raise AssertionError("[edger-small] card and CPU DE masks differ")
+        raise AssertionError(f"[{tag}] card and CPU DE masks differ")
     if not np.array_equal(np.isfinite(lp_g), fin) or \
             n_out > EDGER_ROUNDING_SHARE * errs.size:
-        raise AssertionError(f"[edger-small] {n_out} log p differ by more "
-                             f"than {EDGER_LOGP_ATOL}")
+        raise AssertionError(f"[{tag}] {n_out} log p differ by more "
+                             f"than {atol}")
     if not np.isfinite(cg).all():
-        raise AssertionError("[edger-small] a common dispersion is not "
-                             "finite")
+        raise AssertionError(f"[{tag}] a common dispersion is not finite")
 
 
 def phase_full_data():
@@ -420,6 +458,8 @@ def _run_full(tag: str, call, truth, min_launches: int = 1):
     n_cells = m["n_cells"]
     log(f"[{tag}] refine wall {wall!r} s, peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes")
+    m["wall_s"] = wall
+    m["peak_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[{tag}] stage walls (s): " + json.dumps(m["stage_walls_s"]))
     log(f"[{tag}] union {m['union_size']} genes; tree engine "
         f"{m['tree_engine']}; distance_cluster_sums launches {launches}")
@@ -469,7 +509,7 @@ def phase_full(data, truth, cons) -> dict:
                                                     device="cuda"), truth)
     rec = _measure_main_path(res, "main-path")
     rec["launches"] = launches
-    return rec
+    return rec, res
 
 
 def phase_edger_full(data, truth, cons) -> dict:
@@ -495,7 +535,7 @@ def phase_edger_full(data, truth, cons) -> dict:
         raise AssertionError("[edger-full] a dispersion is not finite")
     rec = _measure_main_path(res, "edger-main-path")
     rec["launches"] = launches
-    return rec
+    return rec, res
 
 
 # the scale branches of phase 9 (the thresholds of the CPU parity tests,
@@ -517,7 +557,7 @@ def phase_scale_small() -> None:
 
     for name, kw in SCALE_VARIANTS.items():
         tag = f"scale-{name}"
-        gpu, cpu = _card_against_cpu(
+        gpu, cpu, _ = _card_against_cpu(
             tag, ReclusterConfig(**kw), lambda data, cons, dev, omega:
             recluster_de_consensus_fast(data, cons, device=dev, omega=omega,
                                         **kw))
@@ -635,6 +675,219 @@ def phase_brain1m() -> dict:
     return rec
 
 
+def _npz_round_trip(m):
+    """``m`` written with ``scipy.sparse.save_npz`` and read back through
+    the port's loader (which returns CSR float32)."""
+    import tempfile
+
+    import scipy.sparse as sp
+
+    from scconsensus_tpu_torch import load_npz
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "x.npz")
+        sp.save_npz(path, sp.csr_matrix(m))
+        return load_npz(path).matrix
+
+
+def phase_small_csr() -> None:
+    """Sparse input at 2k: card against CPU (the checks of phases 4 and
+    5), and the card's CSR result against its dense one: the same union
+    and DE masks."""
+    from scconsensus_tpu_torch import (
+        CompatFlags,
+        ReclusterConfig,
+        recluster_de_consensus,
+        refine,
+    )
+
+    def fast(x, cons, dev, omega):
+        return refine(x, cons, ReclusterConfig(), device=dev, omega=omega)
+
+    def edger(log_counts):
+        def run(x, cons, dev, omega):
+            return recluster_de_consensus(
+                x, cons, device=dev, omega=omega,
+                compat=CompatFlags(edger_log_counts=log_counts), **EDGER_KW)
+        return run
+
+    def edger_cfg(log_counts):
+        return ReclusterConfig(
+            method="edger", q_val_thrs=0.01, log_fc_thrs=math.log(2.0),
+            mean_scaling_factor=2.0,
+            compat=CompatFlags(edger_log_counts=log_counts))
+
+    dense, cons = _small_data()
+    for tag, cfg, run, atol in (
+            ("small-csr", ReclusterConfig(), fast, None),
+            ("edger-small-csr-compat", edger_cfg(True), edger(True),
+             EDGER_LOGP_ATOL),
+            ("edger-small-csr-countscale", edger_cfg(False), edger(False),
+             EDGER_COUNTSCALE_LOGP_ATOL)):
+        gpu, cpu, omega = _card_against_cpu(tag, cfg, run,
+                                            as_input=_npz_round_trip)
+        route = (gpu.metrics["wilcox_ladder"] or {}).get("route")
+        if atol is None and route != "csr-compacted":
+            raise AssertionError(f"[{tag}] the ladder took {route}")
+        if atol is not None:
+            _check_edger_card_cpu(tag, gpu, cpu, atol)
+        ref = run(dense, cons, "cuda", omega)
+        _same_refine(tag, gpu, ref, "csr, dense")
+        n_diff = int((gpu.de.de_mask != ref.de.de_mask).sum())
+        log(f"[{tag}] card: CSR against dense DE-mask differences {n_diff}")
+        if n_diff:
+            raise AssertionError(f"[{tag}] CSR and dense DE masks differ")
+
+
+def _host_csr(t):
+    """A dense (G, N) card tensor as a host ``scipy.sparse.csr_matrix``:
+    its nonzeros found on the card, a block of genes at a time."""
+    import scipy.sparse as sp
+    import torch
+
+    G, N = t.shape
+    counts, cols, vals = [], [], []
+    for g0 in range(0, G, 2048):
+        blk = t[g0:g0 + 2048]
+        rows, c = blk.nonzero(as_tuple=True)
+        counts.append(torch.bincount(rows, minlength=blk.shape[0]).cpu())
+        cols.append(c.to(torch.int32).cpu())
+        vals.append(blk[rows, c].cpu())
+    indptr = np.zeros(G + 1, np.int64)
+    indptr[1:] = np.cumsum(torch.cat(counts).numpy())
+    return sp.csr_matrix((torch.cat(vals).numpy(), torch.cat(cols).numpy(),
+                          indptr), shape=(G, N))
+
+
+def _de_mask_mismatch(tag: str, got, want, q_thr: float,
+                      fc_thr: float) -> None:
+    """Counts the entries where two DE masks differ and prints the
+    largest distance of such an entry from its nearest threshold in
+    ``want`` (log q from log q_thr, |logFC| from fc_thr). At most 1 in
+    10⁵ of P·G may differ: the CSR aggregates' float32 sums run in
+    another order than the dense ones."""
+    import torch
+
+    diff = (got.de_mask != want.de_mask)
+    n_diff, total = int(diff.sum()), diff.numel()
+    dist = None
+    if n_diff:
+        d = torch.minimum(
+            (want.log_q[diff].double()
+             - math.log(np.float32(q_thr))).abs(),
+            (want.log_fc[diff].abs().double() - fc_thr).abs())
+        dist = float(d.max())
+    log(f"[{tag}] DE masks CSR against dense: {n_diff} of {total} entries "
+        f"differ; nearest threshold distance of a differing entry {dist!r}")
+    if n_diff > 1e-5 * total:
+        raise AssertionError(f"[{tag}] {n_diff} DE-mask entries differ")
+
+
+def phase_full_csr(data, truth, cons, dense_fast, dense_edger) -> tuple:
+    """The 26k data as a host CSR through the fast Wilcoxon and the edgeR
+    headline, each held against its dense run; returns the kernel's
+    launches on each path."""
+    import torch
+
+    from scconsensus_tpu_torch import (
+        recluster_de_consensus,
+        recluster_de_consensus_fast,
+    )
+    from scconsensus_tpu_torch.de.engine import as_device_matrix
+    from scconsensus_tpu_torch.io.sparsemat import (
+        column_sums,
+        csr_aggregates,
+    )
+
+    t0 = time.perf_counter()
+    csr = _host_csr(data)
+    log(f"[csr26k] host CSR {csr.shape} nnz {csr.nnz} (fraction "
+        f"{csr.nnz / (csr.shape[0] * csr.shape[1])!r}, "
+        f"{csr.data.nbytes + csr.indices.nbytes} bytes of values and "
+        f"indices) in {time.perf_counter() - t0!r} s")
+    # the CSR aggregates and library sizes: the same bits on a second call
+    holder = as_device_matrix(csr, torch.device("cuda"))
+    cid = torch.as_tensor(np.unique(cons, return_inverse=True)[1],
+                          device="cuda")
+    k = int(cid.max()) + 1
+    a1, a2 = (csr_aggregates(holder, cid, k) for _ in range(2))
+    same = all(torch.equal(getattr(a1, f), getattr(a2, f)) for f in
+               ("sum_log", "sum_expm1", "sum_sq", "nnz", "counts"))
+    same &= torch.equal(column_sums(holder), column_sums(holder))
+    log(f"[csr26k] CSR aggregates and column sums bitwise repeatable: "
+        f"{same}")
+    if not same:
+        raise AssertionError("[csr26k] a second call gave other bits")
+    del holder, a1, a2
+    out = {}
+    # (q, |logFC|) thresholds: the fast path's defaults, the headline's
+    for tag, call, dense, thresholds in (
+            ("full-csr", lambda: recluster_de_consensus_fast(
+                csr, cons, device="cuda"), dense_fast, (0.1, 0.5)),
+            ("edger-full-csr", lambda: recluster_de_consensus(
+                csr, cons, device="cuda", **EDGER_KW), dense_edger,
+             (EDGER_KW["q_val_thrs"], math.log(EDGER_KW["fc_thrs"])))):
+        res, launches = _run_full(tag, call, truth)
+        _same_refine(tag, res, dense, "csr, dense")
+        _de_mask_mismatch(tag, res.de, dense.de, *thresholds)
+        log(f"[{tag}] wall {res.metrics['wall_s']!r} s against dense "
+            f"{dense.metrics['wall_s']!r} s; peak {res.metrics['peak_bytes']}"
+            f" against {dense.metrics['peak_bytes']} bytes")
+        out[tag] = launches
+    return out["full-csr"], out["edger-full-csr"]
+
+
+def phase_sparse_1m() -> int:
+    """The 1M sparse full pipeline; returns the kernel's launches (the
+    pooled silhouette launches none)."""
+    from scconsensus_tpu_torch import (
+        plot_contingency_table,
+        recluster_de_consensus_fast,
+    )
+    from scconsensus_tpu_torch.utils.synthetic import (
+        gen_sparse_scrna_device,
+        noisy_flip,
+    )
+
+    n_cells, n_genes, n_clusters = 1_000_000, 3_000, 16
+    t0 = time.perf_counter()
+    csr, truth = gen_sparse_scrna_device(n_cells, n_genes, n_clusters,
+                                         seed=7, device="cuda")
+    gen_s = time.perf_counter() - t0
+    nnz_frac = csr.nnz / (n_cells * n_genes)
+    t0 = time.perf_counter()
+    sup = noisy_flip(truth, 0.05, n_clusters, 1, "S")
+    uns = noisy_flip(truth, 0.10, n_clusters, 2, "U")
+    cons = plot_contingency_table(sup, uns)
+    cons_s = time.perf_counter() - t0
+    log(f"[sparse1m] CSR {csr.shape} nnz {csr.nnz} (fraction {nnz_frac!r}) "
+        f"drawn on the card in {gen_s!r} s; consensus "
+        f"{np.unique(cons).size} labels in {cons_s!r} s")
+    res, launches = _run_full(
+        "sparse1m", lambda: recluster_de_consensus_fast(
+            csr, cons, q_val_thrs=0.05, approx_threshold=50_000,
+            device="cuda"), truth, min_launches=0)
+    m = res.metrics
+    dense_bytes = n_genes * n_cells * 4
+    ladder = m["wilcox_ladder"]
+    log(f"[sparse1m] {n_cells / m['wall_s']!r} cells/s; peak device memory "
+        f"{m['peak_bytes']} bytes against the dense matrix's {dense_bytes}; "
+        f"ladder {ladder['route']}, {len(ladder['buckets'])} buckets, "
+        f"windows {sorted({b['window'] for b in ladder['buckets']})}")
+    log(f"[sparse1m] tree {json.dumps(m['tree'])}; silhouette "
+        f"{json.dumps(m['silhouette'])}")
+    if ladder["route"] != "csr-compacted":
+        raise AssertionError(f"[sparse1m] the ladder took {ladder['route']}")
+    if not m["tree"]["landmark"] or \
+            m["silhouette"]["method"] != "pooled-estimator":
+        raise AssertionError("[sparse1m] expected the landmark tree and "
+                             "the pooled silhouette")
+    if not m["peak_bytes"] < dense_bytes:
+        raise AssertionError("[sparse1m] peak device memory reached the "
+                             "dense matrix's size")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -652,27 +905,35 @@ def main() -> int:
     phase_kernel()
     phase_small()
     phase_small_edger()
+    phase_small_csr()
     data, truth, cons = phase_full_data()
-    rec = phase_full(data, truth, cons)
-    erec = phase_edger_full(data, truth, cons)
-    del data
+    rec, dense_fast = phase_full(data, truth, cons)
+    erec, dense_edger = phase_edger_full(data, truth, cons)
+    csr_launches, ecsr_launches = phase_full_csr(data, truth, cons,
+                                                 dense_fast, dense_edger)
+    del data, dense_fast, dense_edger
     torch.cuda.empty_cache()
     phase_scale_small()
     tm_launches = phase_tm100k()
     torch.cuda.empty_cache()
     brec = phase_brain1m()
+    torch.cuda.empty_cache()
+    s1m_launches = phase_sparse_1m()
+    by_path = {"wilcox_26k": rec["launches"],
+               "edger_26k": erec["launches"],
+               "wilcox_26k_csr": csr_launches,
+               "edger_26k_csr": ecsr_launches,
+               "tm100k": tm_launches,
+               "brain1m_sample": brec["launches"],
+               "sparse_1m": s1m_launches}
     # times from the Wilcoxon path's inputs; launches from every full path
     log(json.dumps({"kernels": [{
         "name": "distance_cluster_sums",
         "route": "cuda",
         "source": "scconsensus_tpu_torch/csrc/distance_cluster_sums.cu",
         "replaces": "scconsensus_tpu/ops/pallas_kernels.py:51",
-        "launches": (rec["launches"] + erec["launches"] + tm_launches
-                     + brec["launches"]),
-        "launches_by_path": {"wilcox_26k": rec["launches"],
-                             "edger_26k": erec["launches"],
-                             "tm100k": tm_launches,
-                             "brain1m_sample": brec["launches"]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"],
         "plain_ms": rec["plain_ms"],

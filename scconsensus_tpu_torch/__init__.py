@@ -7,14 +7,22 @@ this package imports nothing of it (nor JAX) and is held against it by the
 
 Entry points run on ``cuda`` by default and on the CPU only when called
 with ``device="cpu"``; with no card and no CPU request they raise. So far
-the port covers the dense ``refine()`` end to end with the fast Wilcoxon,
-slow Wilcoxon and edgeR tests, at any cell count: past
-``approx_threshold`` through the pooled, landmark or kNN tree and the
-pooled silhouette estimator.
+the port covers ``refine()`` end to end with the fast Wilcoxon, slow
+Wilcoxon and edgeR tests, at any cell count, on a dense matrix or a
+``scipy.sparse`` one (kept sparse on the device; ``load_mtx``,
+``load_npz`` and ``load_h5ad`` return CSR): past ``approx_threshold``
+through the pooled, landmark or kNN tree and the pooled silhouette
+estimator.
 """
 
 from scconsensus_tpu_torch.config import CompatFlags, ReclusterConfig
 from scconsensus_tpu_torch.consensus.contingency import plot_contingency_table
+from scconsensus_tpu_torch.io.loaders import (
+    load_h5ad,
+    load_mtx,
+    load_npz,
+    log_normalize,
+)
 from scconsensus_tpu_torch.models.pipeline import (
     recluster_de_consensus,
     recluster_de_consensus_fast,
@@ -42,4 +50,8 @@ __all__ = [
     "knn_ward_linkage",
     "mean_cluster_silhouette",
     "pooled_multi_cut_silhouette",
+    "load_mtx",
+    "load_npz",
+    "load_h5ad",
+    "log_normalize",
 ]

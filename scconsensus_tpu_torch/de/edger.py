@@ -24,9 +24,13 @@ exactTest) with per-cluster structures, never a pair × cell tensor:
      total on the device and scattered back.
 
 Each step is a sub-stage of the caller's ``StageClock`` (``edger_setup``
-… ``edger_exact_small``). The reference pads chunks to fixed shapes to
-bound XLA recompiles; eager torch needs no padding, and no result depends
-on the chunking. Every (P, G) result stays on the matrix's device.
+… ``edger_exact_small``). ``counts`` is a dense tensor or the CSR holder
+``io.sparsemat.DeviceCSR`` (``scconsensus_tpu/de/edger.py`` :368-449,
+:552): its library sizes, subsample columns, pass A sums and z1 sweep run
+over gene chunks gathered from the triplet, never the whole matrix. The
+reference pads chunks to fixed shapes to bound XLA recompiles; eager
+torch needs no padding, and no result depends on the chunking. Every
+(P, G) result stays on the matrix's device.
 """
 
 from __future__ import annotations
@@ -38,6 +42,12 @@ import numpy as np
 import torch
 
 from scconsensus_tpu_torch.de.engine import _cid_from_groups, _next_pow2
+from scconsensus_tpu_torch.io.sparsemat import (
+    DeviceCSR,
+    column_sums,
+    columns_dense,
+    row_chunks,
+)
 from scconsensus_tpu_torch.ops.negbin import (
     TAGWISE_GRID_EXPONENTS,
     common_dispersion_grid,
@@ -230,7 +240,7 @@ def _dense_weights(rho: np.ndarray, rho0: float, h: float,
 # --------------------------------------------------------------------------
 
 def run_edger_pairs(
-    counts: torch.Tensor,
+    counts,
     cell_idx_of: List[np.ndarray],
     pair_i: np.ndarray,
     pair_j: np.ndarray,
@@ -240,10 +250,11 @@ def run_edger_pairs(
 ) -> EdgerPairResult:
     """Run the NB pipeline for every cluster pair.
 
-    counts: (G, N) float32 tensor handed to DGEList (the log-normalized
-    matrix in compat mode, the reference's literal behaviour, or expm1 of
-    it); every stage runs on its device. cell_idx_of: per-cluster cell
-    indices (after subsampling); pair_i/pair_j: (P,) cluster indices.
+    counts: (G, N) matrix handed to DGEList (the log-normalized matrix in
+    compat mode, the reference's literal behaviour, or expm1 of it), a
+    float32 tensor or a ``DeviceCSR``; every stage runs on its device.
+    cell_idx_of: per-cluster cell indices (after subsampling);
+    pair_i/pair_j: (P,) cluster indices.
     ``seed`` draws the dispersion subsample."""
     dev = counts.device
     clock = clock or StageClock(dev)
@@ -257,7 +268,7 @@ def run_edger_pairs(
     with clock.stage("edger_setup"):
         cid = _cid_from_groups(cell_idx_of, N)
         kept = cid >= 0
-        lib = counts.sum(dim=0)
+        lib = column_sums(counts)
         lib_all = lib.cpu().numpy()
         libsum_c = np.array([lib_all[ci].sum() for ci in cell_idx_of],
                             np.float32)
@@ -282,7 +293,7 @@ def run_edger_pairs(
         cid_safe = torch.clamp(t_cid, min=0)
         t_kept = _t(kept)
         lib_sub = lib[sub_cells]
-        sub_counts = counts.index_select(1, sub_cells)       # (G, Ns)
+        sub_counts = columns_dense(counts, sub_cells)        # (G, Ns)
         Ns = int(sub_cells.numel())
         # genes in ascending subsample nnz: each table block's gamma window
         # (the gammainc part) hugs its own largest positive count
@@ -295,8 +306,13 @@ def run_edger_pairs(
         t_pj = _t(pair_j, torch.int64)
         t_ns = _t(ns_of)
 
+    gc = max(1, _CHUNK_ELEMS // max(N, 1))
     with clock.stage("edger_pass_a"):
-        Zy = _raw_sums_chunk(counts, onehot)                 # (G, K)
+        if isinstance(counts, DeviceCSR):
+            Zy = torch.cat([_raw_sums_chunk(c, onehot)
+                            for _, _, c in row_chunks(counts, gc)])
+        else:
+            Zy = _raw_sums_chunk(counts, onehot)             # (G, K)
         rates = Zy / torch.clamp(_t(libsum_c), min=1e-30)    # Poisson MLE
 
     def _build_table(phi: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -342,11 +358,10 @@ def run_edger_pairs(
 
     with clock.stage("edger_z1_sweep"):
         Z1 = torch.empty((G, K), device=dev)
-        gc = max(1, _CHUNK_ELEMS // max(N, 1))
-        for g0 in range(0, G, gc):
-            Z1[g0:g0 + gc] = _pseudo_sums_chunk(
-                counts[g0:g0 + gc], onehot, lib, cid_safe, t_kept,
-                rates[g0:g0 + gc], common_lib, phi_req)
+        for g0, g1, chunk in row_chunks(counts, gc):
+            Z1[g0:g1] = _pseudo_sums_chunk(
+                chunk, onehot, lib, cid_safe, t_kept, rates[g0:g1],
+                common_lib, phi_req)
 
     with clock.stage("edger_tagwise"):
         prior_n = (_PRIOR_DF / np.maximum(

@@ -20,11 +20,19 @@ structures.
      entry with n = G (slow paths, ``bh_reference_n``),
   6. the DE call and the top-N union.
 
+The input is a dense (G, N) tensor or a ``scipy.sparse`` matrix, which
+crosses as its CSR triplet (``io.sparsemat.DeviceCSR``) and is never
+densified whole: its aggregates come from gene chunks gathered on the
+device, and its window ladder sorts compacted windows that hold only each
+gene's stored entries (``DeviceCSR.window_rows``), so the rank-sum work
+scales with nnz rather than with N (``scconsensus_tpu/de/engine.py``
+:799-807, :823-890, :923-938).
+
 The (P, G) results stay on the matrix's device; the union fetches only the
-(P, n_top) indices. Left out against the reference: the mesh, sparse
-input, the run-space kernel and its overflow redo, mid-stage checkpoints,
-ladder recovery, the occupancy probe, integrity, quality and
-fault-injection hooks, and the methods bimod, roc and t.
+(P, n_top) indices. Left out against the reference: the mesh, the
+run-space kernel and its overflow redo, mid-stage checkpoints, ladder
+recovery, the occupancy probe, integrity, quality and fault-injection
+hooks, and the methods bimod, roc and t.
 """
 
 from __future__ import annotations
@@ -38,9 +46,13 @@ import torch
 from scconsensus_tpu_torch.config import ReclusterConfig
 from scconsensus_tpu_torch.device import resolve_device
 from scconsensus_tpu_torch.io.sparsemat import (
+    DeviceCSR,
+    csr_aggregates,
     expm1_sparse,
+    is_sparse,
     mean_expm1,
     mean_value,
+    row_chunks,
 )
 from scconsensus_tpu_torch.ops.gates import (
     compute_aggregates_cid,
@@ -86,6 +98,8 @@ class PairwiseDEResult:
     # edgeR: "common_dispersion" (P,) and "tagwise_dispersion" (P, G)
     aux: Optional[Dict[str, torch.Tensor]] = None
     skip_reasons: Optional[List[str]] = None
+    # Wilcoxon: the rank-sum route and its window ladder (see _run_wilcox)
+    ladder: Optional[Dict] = None
 
     def de_counts(self) -> np.ndarray:
         """Per-pair DE gene counts (P ints to the host)."""
@@ -147,31 +161,45 @@ def _window_floor(n_cells: int) -> int:
     return int(min(max(1024, _next_pow2(max(n_cells // 256, 1))), 16384))
 
 
-def as_device_matrix(data, device: torch.device) -> torch.Tensor:
-    """The (G, N) float32 matrix on ``device``: a tensor already there is
-    used as it is, anything else crosses once."""
+def as_device_matrix(data, device: torch.device):
+    """The (G, N) matrix on ``device``: a float32 tensor (a tensor already
+    there is used as it is, a numpy array crosses once), or for
+    ``scipy.sparse`` input (any format, canonicalized to CSR with
+    duplicate entries summed) a ``DeviceCSR`` holding its triplet."""
     if isinstance(data, torch.Tensor):
         return data.to(device=device, dtype=torch.float32)
+    if isinstance(data, DeviceCSR):
+        return data.to(device)
+    if is_sparse(data):
+        return DeviceCSR.from_scipy(data, device)
     if not isinstance(data, np.ndarray):
         raise NotImplementedError(
-            f"input of type {type(data).__name__} is not supported yet "
-            "(dense numpy arrays and tensors only; sparse input waits for "
-            "a later slice)"
+            f"input of type {type(data).__name__} is not supported (numpy "
+            "arrays, tensors and scipy.sparse matrices)"
         )
     return torch.from_numpy(
         np.ascontiguousarray(data, dtype=np.float32)).to(device)
 
 
 def _run_wilcox(
-    data: torch.Tensor,
+    data,
     cell_idx_of: List[np.ndarray],
     pair_i: np.ndarray,
     pair_j: np.ndarray,
+    ladder: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank-sum (log_p, u), each (P, G) on the matrix's device, through
     the window ladder (or full-width gene chunks when any value is
     negative). R's exact branch replaces the normal approximation on the
-    host for pairs with both groups < 50 cells, at their tie-free genes."""
+    host for pairs with both groups < 50 cells, at their tie-free genes.
+
+    ``data``: a dense (G, N) tensor, whose ladder sorts full-N rows per
+    bucket, or a ``DeviceCSR``, whose buckets sort compacted windows of
+    each gene's stored entries (window sizes from the stored-entry counts;
+    explicit zeros take a slot and stay inert). ``ladder``: an optional
+    dict that receives the route ("dense-device", "csr-compacted" or the
+    full-width "dense-chunked" / "csr-chunked") and one record per bucket
+    (window, genes)."""
     G, N = data.shape
     dev = data.device
     K = len(cell_idx_of)
@@ -183,8 +211,20 @@ def _run_wilcox(
 
     # O(G) ints to plan the ladder; the decomposition needs zeros as the
     # minimum, so any negative value sends every gene to full width
-    nnz_g = (data > 0).sum(dim=1).cpu().numpy()
-    windowed = not bool((data < 0).any())
+    compact = isinstance(data, DeviceCSR)
+    if compact:
+        windowed = not bool((data.values < 0).any())
+        nnz_g = data.stored_per_row()
+    else:
+        windowed = not bool((data < 0).any())
+        nnz_g = (data > 0).sum(dim=1).cpu().numpy()
+    if windowed:
+        route = "csr-compacted" if compact else "dense-device"
+    else:
+        route = "csr-chunked" if compact else "dense-chunked"
+    buckets: List[Dict] = []
+    if ladder is not None:
+        ladder.update(route=route, buckets=buckets)
     parts = []  # (gene ids, (log_p, u, tie_sum)), each block (Gb, P)
     if windowed:
         floor = _window_floor(N)
@@ -194,27 +234,38 @@ def _run_wilcox(
         while g0 < G:
             w = int(min(_next_pow2(max(int(nnz_sorted[g0]), floor)),
                         _next_pow2(N)))
-            scan_w = min(w, N)
+            # compacted windows are w wide (even when w > N, from the pow-2
+            # rounding) and sort only the window; dense rows sort full N
+            scan_w = w if compact else min(w, N)
+            sort_w = w if compact else N
             # block size respects both working sets: the (gcb, K, scan_w)
-            # kernel tensors and the (gcb, N) sort buffers
+            # kernel tensors and the (gcb, sort_w) sort buffers
             gcb = max(8, min(ALLPAIRS_ELEM_BUDGET // max(scan_w * K, 1),
-                             (ALLPAIRS_ELEM_BUDGET // 2) // max(N, 1)))
-            gcb = 1 << (int(gcb).bit_length() - 1)
+                             (ALLPAIRS_ELEM_BUDGET // 2) // max(sort_w, 1)))
+            gcb = min(1 << (int(gcb).bit_length() - 1), _next_pow2(G))
             g1 = g0
             while (g1 < G and g1 - g0 < gcb
                    and (w >= N or nnz_sorted[g1] <= w)):
                 g1 += 1
             ids = order[g0:g1]
-            rows = data.index_select(0, torch.as_tensor(ids, device=dev))
-            parts.append((ids, ranksum_body(
-                rows, cid, tn, tpi, tpj, K, window=w if w < N else 0)))
+            if compact:
+                # compacted input always runs zero-block mode at window w
+                vals, wcid = data.window_rows(ids, w, cid)
+                out = ranksum_body(vals, wcid, tn, tpi, tpj, K, window=w)
+            else:
+                rows = data.index_select(0, torch.as_tensor(ids, device=dev))
+                out = ranksum_body(rows, cid, tn, tpi, tpj, K,
+                                   window=w if w < N else 0)
+            parts.append((ids, out))
+            buckets.append({"window": w, "genes": int(ids.size)})
             g0 = g1
     else:
+        # any negative value: full-width gene chunks (a CSR densifies one
+        # chunk at a time on the device)
         gc = min(chunk_genes_for_budget(N, K), _next_pow2(G))
-        for g0 in range(0, G, gc):
-            ids = np.arange(g0, min(g0 + gc, G))
-            parts.append((ids, ranksum_body(data[g0:g0 + gc], cid, tn,
-                                            tpi, tpj, K)))
+        for g0, g1, chunk in row_chunks(data, gc):
+            parts.append((np.arange(g0, g1), ranksum_body(
+                chunk, cid, tn, tpi, tpj, K)))
     inv = torch.as_tensor(
         np.argsort(np.concatenate([ids for ids, _ in parts]), kind="stable"),
         device=dev)
@@ -256,9 +307,10 @@ def pairwise_de(
     """Run the all-pairs DE test of ``config.method``: "wilcox" (the fast
     path), "wilcoxon" (the slow-path Wilcoxon) or "edger".
 
-    data: (G, N) log-normalized expression, a numpy array or a tensor
-    (kept where it is when it already lies on ``device``); labels:
-    per-cell cluster names. Runs on ``cuda`` unless ``device="cpu"``."""
+    data: (G, N) log-normalized expression, a numpy array, a tensor (kept
+    where it is when it already lies on ``device``) or a ``scipy.sparse``
+    matrix (never densified whole); labels: per-cell cluster names. Runs
+    on ``cuda`` unless ``device="cpu"``."""
     dev = resolve_device(device)
     method = config.method.lower()
     if method not in ("wilcox", "wilcoxon", "edger"):
@@ -311,13 +363,17 @@ def pairwise_de(
             )
 
     with clock.stage("aggregates"):
-        agg = compute_aggregates_cid(
-            data, torch.as_tensor(cell_idx, device=dev), K)
+        t_cell_idx = torch.as_tensor(cell_idx, device=dev)
+        if isinstance(data, DeviceCSR):
+            # gene chunks gathered from the triplet; detected = stored ≠ 0
+            agg = csr_aggregates(data, t_cell_idx, K)
+        else:
+            agg = compute_aggregates_cid(data, t_cell_idx, K)
 
     pi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
     pj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
     ok = torch.as_tensor(pair_ok, device=dev)
-    pct1 = pct2 = u = aux = mean_gate = None
+    pct1 = pct2 = u = aux = mean_gate = ladder = None
     if method == "edger":
         from scconsensus_tpu_torch.de.edger import run_edger_pairs
 
@@ -370,7 +426,9 @@ def pairwise_de(
                 )
                 tested = gate & ok[:, None]
         with clock.stage("wilcox_test"):
-            log_p, u = _run_wilcox(data, cell_idx_of, pair_i, pair_j)
+            ladder = {}
+            log_p, u = _run_wilcox(data, cell_idx_of, pair_i, pair_j,
+                                   ladder=ladder)
             # untested entries (skipped pairs on the slow path) surface as
             # NaN and stay out of BH and the call
             log_p = torch.where(tested, log_p,
@@ -399,7 +457,7 @@ def pairwise_de(
         cluster_names=names, pair_i=pair_i, pair_j=pair_j,
         log_p=log_p, log_q=log_q, log_fc=log_fc, tested=tested,
         de_mask=de, pair_skipped=~pair_ok, pct1=pct1, pct2=pct2, u=u,
-        aux=aux, skip_reasons=skip_reasons or None,
+        aux=aux, skip_reasons=skip_reasons or None, ladder=ladder,
     )
 
 

@@ -12,6 +12,13 @@ embed (rSVD PCA on the device, of the DE-gene rows, or with
 ``distance="pearson"`` of the centred unit-norm cell vectors) → tree →
 cuts (dynamic tree cut per deepSplit, host) → silhouette → nodg.
 
+The matrix is dense (a numpy array or a tensor) or ``scipy.sparse`` in
+any format (``_refine_impl`` :238-253). Sparse input crosses once as its
+CSR triplet (``io.sparsemat.DeviceCSR``) and is never densified whole:
+DE reads gene chunks and compacted windows of it, the embed gathers only
+the (|union|, N) rows, and NODG counts its stored nonzeros (negative
+values included, the reference's rule for sparse input).
+
 At or below ``approx_threshold`` cells the tree is exact Ward.D2 (native
 NN-chain on the host) and the silhouette takes all cuts in one pass of
 the CUDA distance × cluster-sum kernel. Above it (``approx``):
@@ -31,16 +38,17 @@ and the silhouette is the pooled O(N·m) estimator on the device, reusing
 the tree stage's pool where there is one.
 
 ``result.metrics`` keys: ``device``, ``stage_walls_s``, ``union_size``,
-``per_pair_de_counts``, ``tree_engine`` (engine of the tree stage's last
-Ward.D2 call, or None), ``n_genes``, ``n_cells``, ``tree`` (``approx``,
+``per_pair_de_counts``, ``wilcox_ladder`` (Wilcoxon methods: the
+rank-sum route and its buckets' windows, else None), ``tree_engine``
+(engine of the tree stage's last Ward.D2 call, or None), ``n_genes``, ``n_cells``, ``tree`` (``approx``,
 ``landmark``, ``landmark_k``), ``landmark`` (None, or ``branch``, ``k``,
 ``sketch``, ``threshold``, ``linkage``, ``occupancy`` per cut and, with
 ``landmark_verify``, ``ari_vs_exact`` per cut) and ``silhouette`` (None
 without silhouettes, else ``method``: "exact" or "pooled-estimator", and
 for the estimator ``n_centroids`` and ``pool_reused``).
 
-Not ported yet, and raising ``NotImplementedError``: sparse input, a
-mesh, the methods bimod, roc and t, and the DE heatmap (``plot_name``).
+Not ported yet, and raising ``NotImplementedError``: a mesh, the
+methods bimod, roc and t, and the DE heatmap (``plot_name``).
 The artifact store, retry, integrity, observability and report wrappers
 are left out.
 """
@@ -116,7 +124,8 @@ def refine(
 
     Args:
       data: (G, N) log-transformed, normalized genes × cells matrix, a
-        numpy array or a tensor (a tensor already on ``device`` stays).
+        numpy array, a tensor (a tensor already on ``device`` stays) or a
+        ``scipy.sparse`` matrix (kept sparse on the device).
       labels: per-cell consensus cluster labels (e.g. from
         ``plot_contingency_table``).
       device: "cuda" by default; "cpu" only when asked for.
@@ -316,6 +325,7 @@ def refine(
             "stage_walls_s": dict(clock.walls),
             "union_size": int(union.size),
             "per_pair_de_counts": de_res.de_counts().tolist(),
+            "wilcox_ladder": de_res.ladder,
             "tree_engine": tree_engine,
             "n_genes": int(G),
             "n_cells": int(N),

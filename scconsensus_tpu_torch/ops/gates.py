@@ -51,11 +51,18 @@ class ClusterAggregates:
 
 def compute_aggregates_cid(data: torch.Tensor, cid: torch.Tensor,
                            n_clusters: int,
-                           form: Optional[str] = None) -> ClusterAggregates:
+                           form: Optional[str] = None,
+                           nonzero: bool = False) -> ClusterAggregates:
     """Aggregates of ``data`` (G, N) over the (N,) cluster ids ``cid``
     (−1 = excluded). ``form``: "segment", "matmul" or None (matmul on
-    cuda, segment on the CPU)."""
+    cuda, segment on the CPU). ``nonzero``: count x ≠ 0 as detected, the
+    rule of sparse input (``io.sparsemat.aggregates_from_sparse``), instead
+    of x > 0."""
     K = n_clusters
+
+    def detected() -> torch.Tensor:
+        return ((data != 0) if nonzero else (data > 0)).to(torch.float32)
+
     if form is None:
         form = "matmul" if data.device.type == "cuda" else "segment"
     cid = cid.to(device=data.device, dtype=torch.int64)
@@ -71,7 +78,7 @@ def compute_aggregates_cid(data: torch.Tensor, cid: torch.Tensor,
 
         return ClusterAggregates(
             seg(data), seg(torch.expm1(data)), seg(data * data),
-            seg((data > 0).to(torch.float32)), counts[:K],
+            seg(detected()), counts[:K],
         )
     if form != "matmul":
         raise ValueError(f"form must be 'segment' or 'matmul', got {form!r}")
@@ -81,7 +88,7 @@ def compute_aggregates_cid(data: torch.Tensor, cid: torch.Tensor,
         data @ onehot,
         torch.expm1(data) @ onehot,
         (data * data) @ onehot,
-        (data > 0).to(torch.float32) @ onehot,
+        detected() @ onehot,
         onehot.sum(dim=0),
     )
 

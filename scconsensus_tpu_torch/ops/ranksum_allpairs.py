@@ -17,10 +17,14 @@ p-value follows from the (K, K) matrices.
 Translation notes: ``lax.sort`` with ``num_keys=1`` becomes
 ``torch.sort(stable=True)`` with the cluster ids gathered by the returned
 indices (the statistics depend only on run membership, never on the order
-inside a tie run); ``lax.cummax`` becomes ``torch.cummax(...).values``; the
-reverse ``cummin`` is a flip, a ``cummin`` and a flip back. Counts are
-exact in float32 (N < 2²⁴) and the contractions run in full fp32
-(``device.py`` keeps TF32 off).
+inside a tie run). The reference fills L and T with a ``cummax`` and a
+reverse ``cummin`` over the (Gc, K, W) counts; here the scans run over the
+(Gc, W) positions of each cell's run start and run end, and L and T are
+gathers of S − C and S at those positions: the same integers, without the
+scans' (Gc, K, W) values and int64 indices (at the 1M-cell ladder's widest
+blocks each such tensor is a gigabyte). Counts are exact in float32
+(N < 2²⁴) and the contractions run in full fp32 (``device.py`` keeps TF32
+off).
 
 ``cpu_forms``: the reference's two contraction forms. True: segment sums
 over the one-hot cluster axis and flat gathers of pair entries, O(W·K)
@@ -51,7 +55,7 @@ def chunk_genes_for_budget(n_cells: int, n_clusters: int) -> int:
 
 def ranksum_body(
     chunk: torch.Tensor,     # (Gc, N) gene rows
-    cid: torch.Tensor,       # (N,) int cluster index, -1 = excluded
+    cid: torch.Tensor,       # (N,) or (Gc, N) int cluster index, -1 = excluded
     n_of: torch.Tensor,      # (K,) cluster sizes
     pair_i: torch.Tensor,    # (P,) cluster index of group 1 per pair
     pair_j: torch.Tensor,    # (P,)
@@ -74,7 +78,11 @@ def ranksum_body(
         B[k,l] = B′[k,l] + z_k²·z_l.
 
     Every gene in the chunk must have ≤ ``window`` positive cells and no
-    negative values; the engine buckets genes by nnz.
+    negative values; the engine buckets genes by nnz. ``window`` may equal
+    (or exceed) the chunk width for pre-compacted input: rows holding only
+    a gene's stored CSR entries with a matching (Gc, W) ``cid`` (padding
+    slots 0 / −1), where every absent cell is an implicit zero the same
+    corrections account for.
     """
     Gc, N = chunk.shape
     K = n_clusters
@@ -84,7 +92,10 @@ def ranksum_body(
     w_eff = min(window, N) if sparse_mode else N
     key = -chunk if sparse_mode else chunk
     sv, perm = torch.sort(key, dim=1, stable=True)
-    scid = cid.to(device=dev, dtype=torch.int64)[perm]   # (Gc, N)
+    cid = cid.to(device=dev, dtype=torch.int64)
+    # a shared (N,) vector, or each gene's own (Gc, N) row of a compacted
+    # window
+    scid = torch.gather(cid, 1, perm) if cid.dim() == 2 else cid[perm]
     if sparse_mode:
         sv = sv[:, :w_eff]
         scid = torch.where(sv < 0, scid[:, :w_eff],
@@ -98,21 +109,26 @@ def ranksum_body(
     new_run = torch.cat(
         [torch.ones((Gc, 1), dtype=torch.bool, device=dev),
          sv[:, 1:] != sv[:, :-1]], dim=1,
-    )[:, None, :]                                        # (Gc, 1, W)
+    )                                                    # (Gc, W)
     is_end = torch.cat(
-        [new_run[:, :, 1:],
-         torch.ones((Gc, 1, 1), dtype=torch.bool, device=dev)], dim=2,
+        [new_run[:, 1:], torch.ones((Gc, 1), dtype=torch.bool, device=dev)],
+        dim=1,
     )
-    # Segmented fills without gathers: cumsum values at run starts (ends)
-    # are monotone along the cells, so a cummax of start values masked to
-    # −1 forward-fills the strictly-below counts, and a reverse cummin of
-    # end values masked to W+1 backward-fills the through-run totals.
-    L = torch.cummax(torch.where(new_run, S - C, torch.full_like(S, -1.0)),
-                     dim=2).values
-    T = torch.where(is_end, S, torch.full_like(S, float(W + 1)))
-    T = torch.flip(torch.cummin(torch.flip(T, [2]), dim=2).values, [2])
+    # Segmented fills: each cell's run start is the last start at or before
+    # it (a cummax of start positions) and its run end the first end at or
+    # after it (a reverse cummin of end positions). L is S − C at the run
+    # start (the cells strictly below), T is S at the run end (the cells at
+    # or below).
+    pos = torch.arange(W, device=dev).expand(Gc, W)
+    start = torch.cummax(torch.where(new_run, pos, 0), dim=1).values
+    end = torch.flip(torch.cummin(torch.flip(
+        torch.where(is_end, pos, W - 1), [1]), dim=1).values, [1])
+    L = torch.gather(S - C, 2, start[:, None, :].expand(Gc, K, W))
+    T = torch.gather(S, 2, end[:, None, :].expand(Gc, K, W))
+    del S
     E = T - L                                            # equal counts
     V = 0.5 * (L + T)                                    # L + E/2
+    del L, T
     own_eq = torch.sum(C * E, dim=1)                     # (Gc, W)
     if use_cpu:
         # C is one-hot along k: row i of u_mat is the segment sum of V's

@@ -8,6 +8,9 @@ structure (SURVEY.md §4 "Integration").
 The numpy generators are copies of ``scconsensus_tpu/utils/synthetic.py``
 (same bytes out for the same seed); ``synthetic_scrna_device`` and
 ``planted_embedding_device`` draw on the card with torch.
+``gen_sparse_scrna`` and ``noisy_flip`` copy the 1M-cell sparse runner's
+data and labelings (``tools/run_sparse_1m.py``); ``gen_sparse_scrna_device``
+draws the same recipe on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ __all__ = [
     "planted_embedding_device",
     "planted_clusters",
     "noisy_labeling",
+    "gen_sparse_scrna",
+    "gen_sparse_scrna_device",
+    "noisy_flip",
 ]
 
 
@@ -243,3 +249,110 @@ def noisy_labeling(
     flip = rng.random(lab.shape[0]) < flip_frac
     lab[flip] = rng.integers(0, k, size=int(flip.sum()))
     return np.array([f"{prefix}{v}" for v in lab])
+
+
+def _sparse_plan(n_cells: int, n_genes: int, n_clusters: int,
+                 rng: np.random.Generator):
+    """The planted structure of ``gen_sparse_scrna``: per-cell clusters,
+    per-gene base rates and the (G, K) marker boost, drawn in the
+    reference runner's order."""
+    cid = rng.integers(0, n_clusters, n_cells).astype(np.int32)
+    base_p = rng.uniform(0.005, 0.05, n_genes)
+    # ~8 marker genes per cluster with strongly elevated expression
+    markers = {
+        k: rng.choice(n_genes, size=8, replace=False)
+        for k in range(n_clusters)
+    }
+    boost = np.ones((n_genes, n_clusters), np.float32)
+    for k, gs in markers.items():
+        boost[gs, k] = rng.uniform(8.0, 15.0, gs.size)
+    return cid, base_p, boost
+
+
+def gen_sparse_scrna(n_cells: int, n_genes: int, n_clusters: int,
+                     seed: int = 0):
+    """Planted-cluster scRNA-like CSR (G, N) built row by row; the dense
+    (G, N) matrix never exists. A copy of ``tools/run_sparse_1m.py``
+    ``gen_sparse_scrna``: per-gene Bernoulli rates ``base_p`` × the
+    cluster boost (clipped at 0.6), values log1p(poisson(1 + 4·marker) +
+    1). Returns (csr_matrix, per-cell cluster ids)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    cid, base_p, boost = _sparse_plan(n_cells, n_genes, n_clusters, rng)
+    indptr = np.zeros(n_genes + 1, np.int64)
+    idx_parts, val_parts = [], []
+    p_cell = np.empty(n_cells, np.float32)
+    for g in range(n_genes):
+        np.take(base_p[g] * boost[g], cid, out=p_cell)
+        np.clip(p_cell, 0.0, 0.6, out=p_cell)
+        mask = rng.random(n_cells, dtype=np.float32) < p_cell
+        pos = np.nonzero(mask)[0].astype(np.int32)
+        lam = 1.0 + 4.0 * (boost[g, cid[pos]] > 1.0)
+        vals = np.log1p(rng.poisson(lam).astype(np.float32) + 1.0)
+        idx_parts.append(pos)
+        val_parts.append(vals)
+        indptr[g + 1] = indptr[g] + pos.size
+    mat = sp.csr_matrix(
+        (np.concatenate(val_parts), np.concatenate(idx_parts), indptr),
+        shape=(n_genes, n_cells),
+    )
+    return mat, cid
+
+
+def gen_sparse_scrna_device(n_cells: int, n_genes: int, n_clusters: int,
+                            seed: int = 0, device=None):
+    """``gen_sparse_scrna``'s recipe drawn on the card: the same planted
+    clusters, rates and boosts (the numpy draws), with the Bernoulli and
+    Poisson draws from a ``torch.Generator`` seeded with ``seed`` (so not
+    the host generator's numbers), a block of genes at a time, straight
+    into the CSR triplet. The triplet comes to the host as a
+    ``scipy.sparse.csr_matrix``, the input users hand to the pipeline.
+    Returns (csr_matrix, per-cell cluster ids)."""
+    import scipy.sparse as sp
+    import torch
+
+    from scconsensus_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    cid, base_p, boost = _sparse_plan(n_cells, n_genes, n_clusters, rng)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    t_cid = torch.as_tensor(cid, dtype=torch.int64, device=dev)
+    rate = torch.as_tensor(base_p[:, None] * boost, dtype=torch.float32,
+                           device=dev)                      # (G, K)
+    marker = torch.as_tensor(boost > 1.0, device=dev)       # (G, K)
+    B = max(1, min(n_genes, 64_000_000 // max(n_cells, 1)))
+    counts, idx_parts, val_parts = [], [], []
+    for g0 in range(0, n_genes, B):
+        p = rate[g0:g0 + B][:, t_cid].clamp_(0.0, 0.6)      # (B, N)
+        mask = torch.rand(p.shape, generator=gen, device=dev) < p
+        del p
+        rows, cols = mask.nonzero(as_tuple=True)            # row-major
+        counts.append(mask.sum(dim=1))
+        del mask
+        lam = 1.0 + 4.0 * marker[g0 + rows, t_cid[cols]].to(torch.float32)
+        val_parts.append(torch.log1p(
+            torch.poisson(lam, generator=gen) + 1.0))
+        idx_parts.append(cols.to(torch.int32))
+    indptr = np.zeros(n_genes + 1, np.int64)
+    indptr[1:] = np.cumsum(torch.cat(counts).cpu().numpy())
+    mat = sp.csr_matrix(
+        (torch.cat(val_parts).cpu().numpy(),
+         torch.cat(idx_parts).cpu().numpy(), indptr),
+        shape=(n_genes, n_cells),
+    )
+    return mat, cid
+
+
+def noisy_flip(labels: np.ndarray, flip: float, k: int, seed: int,
+               prefix: str) -> np.ndarray:
+    """A string labeling with a ``flip`` share of cells relabeled uniformly
+    among ``k`` clusters: a copy of ``tools/run_sparse_1m.py`` ``noisy``,
+    the 1M runner's supervised and unsupervised labelings."""
+    rng = np.random.default_rng(seed)
+    out = labels.copy()
+    n = out.size
+    m = rng.random(n) < flip
+    out[m] = rng.integers(0, k, int(m.sum()))
+    return np.array([f"{prefix}{v}" for v in out])

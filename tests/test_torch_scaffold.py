@@ -176,13 +176,12 @@ def test_config_round_trips_from_the_reference_json():
         config_from_reference('{"not_a_field": 1}')
 
 
-@pytest.mark.parametrize("case", ["method", "sparse", "mesh", "ring_mesh",
-                                  "knn_mesh", "plot", "heatmap"])
+@pytest.mark.parametrize("case", ["method", "sparse_method", "mesh",
+                                  "ring_mesh", "knn_mesh", "plot", "heatmap"])
 def test_what_the_slice_leaves_out_raises(case):
     import scipy.sparse as sp
 
     data, labels = _tiny()
-    cfg = ReclusterConfig()
     run = {
         "method": lambda: port.refine(
             data, labels, ReclusterConfig(method="bimod"), device="cpu"),
@@ -191,8 +190,9 @@ def test_what_the_slice_leaves_out_raises(case):
             data, labels, ReclusterConfig(approx_threshold=100,
                                           approx_method="knn"),
             device="cpu", mesh="auto"),
-        "sparse": lambda: port.refine(
-            sp.csr_matrix(data), labels, cfg, device="cpu"),
+        "sparse_method": lambda: port.refine(
+            sp.csr_matrix(data), labels, ReclusterConfig(method="bimod"),
+            device="cpu"),
         "mesh": lambda: port.recluster_de_consensus_fast(
             data, labels, device="cpu", mesh="auto"),
         "plot": lambda: port.refine(
