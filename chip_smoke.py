@@ -53,7 +53,29 @@ checkout, and exits non-zero on the first phase that fails:
      contingency grammar, ``recluster_de_consensus_fast(csr, consensus,
      q_val_thrs=0.05, approx_threshold=50_000)``: the compacted window
      ladder, the landmark tree and the pooled silhouette, with peak device
-     memory held below the dense matrix's size.
+     memory held below the dense matrix's size;
+ 15. the Seurat tests at 2k, card against CPU: bimod, t and roc on the
+     phase 4 data, dense and as CSR through ``load_npz``, and bimod and t
+     with ``max_cells_per_ident=200``: the checks of phase 4, log p within
+     the CPU tests' tolerance with the entries that change class on one
+     device only counted, roc's AUC and power within 1e-6;
+ 16. bimod, t and roc at the 26k flagship (phase 6's data): walls, stage
+     walls, union, DE calls, −inf count, peak memory and launches; bimod
+     and t held against the port's CPU functions on the same aggregates
+     (every pair for bimod, every 8th for t), roc's union, DE mask and
+     log p against phase 7's Wilcoxon run, which must be identical;
+ 17. the 26k fast Wilcoxon with ``artifact_dir``: the 12 files and their
+     bytes, the store's share of the wall, a resume that computes no DE,
+     embed, tree or cut and gives the same bits, a corrupt ``de.npz``
+     quarantined and recomputed alone, a changed ``q_val_thrs`` refused;
+ 18. the input contract on the 26k matrix: ``preflight``'s time, then a
+     NaN in the dense matrix, an Inf among a CSR's stored values and NaN
+     float labels, each refused by ``refine`` with the reference's check
+     name before any stage runs.
+
+Phases run in the order 1–5, 12, 15, 6–8, 13, 16–18, 9–11, 14, so that
+the 26k data serves phases 7–8, 13 and 16–18 and is freed before the
+larger ones; the line before the kernel record gives the total time.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -62,6 +84,9 @@ on every call.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import io
 import json
 import math
 import os
@@ -438,10 +463,12 @@ def phase_full_data():
     return data, truth, cons
 
 
-def _run_full(tag: str, call, truth, min_launches: int = 1):
+def _run_full(tag: str, call, truth, min_launches: int = 1,
+              engine="native"):
     """One full-size refine with the kernel count reset just before and
     read just after; checks what every path must give (at least
-    ``min_launches`` kernel launches)."""
+    ``min_launches`` kernel launches, the tree stage's Ward engine
+    ``engine``: None where the tree resumes from the artifact store)."""
     import torch
 
     from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
@@ -471,7 +498,7 @@ def _run_full(tag: str, call, truth, min_launches: int = 1):
     if launches < min_launches:
         raise AssertionError(f"[{tag}] the silhouette stage did not launch "
                              "the CUDA kernel")
-    if m["tree_engine"] != "native":
+    if m["tree_engine"] != engine:
         raise AssertionError(f"[{tag}] Ward ran on {m['tree_engine']}")
     if m["union_size"] < 2:
         raise AssertionError(f"[{tag}] union of {m['union_size']} genes")
@@ -786,7 +813,7 @@ def _de_mask_mismatch(tag: str, got, want, q_thr: float,
 def phase_full_csr(data, truth, cons, dense_fast, dense_edger) -> tuple:
     """The 26k data as a host CSR through the fast Wilcoxon and the edgeR
     headline, each held against its dense run; returns the kernel's
-    launches on each path."""
+    launches on each path and the host CSR."""
     import torch
 
     from scconsensus_tpu_torch import (
@@ -834,7 +861,7 @@ def phase_full_csr(data, truth, cons, dense_fast, dense_edger) -> tuple:
             f"{dense.metrics['wall_s']!r} s; peak {res.metrics['peak_bytes']}"
             f" against {dense.metrics['peak_bytes']} bytes")
         out[tag] = launches
-    return out["full-csr"], out["edger-full-csr"]
+    return out["full-csr"], out["edger-full-csr"], csr
 
 
 def phase_sparse_1m() -> int:
@@ -888,6 +915,360 @@ def phase_sparse_1m() -> int:
     return launches
 
 
+# log p of the Seurat tests, one device against another, held as the CPU
+# tests hold the port to the reference (tests/test_torch_seurat.py):
+# finite entries within their tolerance (gammaincc, lgamma and log are
+# different implementations, and the LRT and the Welch prefactor cancel
+# terms of size 1e3–1e4), the −inf positions of the FLT_MIN flush and the
+# DE masks identical, and only Welch at t ≈ 0 may change class: NaN on one
+# device where x = df/(df + t²) rounds past 1, log p = 0 on the other, in
+# at most one entry in 1,000
+SEURAT_LOGP_RTOL, SEURAT_LOGP_ATOL = 2e-4, 1e-2
+SEURAT_NAN_AT_ONE_SHARE = 1e-3
+# refine()'s top-level stages (the others nest inside "de")
+TOP_STAGES = ("de", "de_store", "union", "embed", "tree", "cuts",
+              "silhouette", "nodg")
+# the 12 files of a completed run's artifact store (the reference's)
+STORE_FILES = sorted(["config.json", "robust_state.json"] + [
+    f"{s}.{e}" for s in ("de", "union", "embed", "tree", "cuts")
+    for e in ("npz", "json")])
+
+
+def _seurat_logp_check(tag: str, got, want) -> dict:
+    """log p on the card (``got``) against the CPU (``want``), both numpy:
+    finite entries within the tolerance, the same −inf positions, and NaN
+    on one side only where the other is 0 (Welch at x past 1), within the
+    share. Returns the counts."""
+    crossed = int((np.isneginf(got) != np.isneginf(want)).sum())
+    nan_diff = np.isnan(got) != np.isnan(want)
+    at_one = nan_diff & ((got == 0.0) | (want == 0.0))
+    fin = np.isfinite(got) & np.isfinite(want)
+    err = np.abs(got[fin] - want[fin])
+    n_out = int((err > SEURAT_LOGP_ATOL
+                 + SEURAT_LOGP_RTOL * np.abs(want[fin])).sum())
+    if err.size:
+        worst = np.argsort(err)[-3:]
+        log(f"[{tag}] largest |d log p|: card {got[fin][worst].tolist()} "
+            f"cpu {want[fin][worst].tolist()}")
+    rec = {"entries": int(got.size), "finite_both": int(fin.sum()),
+           "max_abs_diff": float(err.max()) if err.size else 0.0,
+           "beyond_tolerance": n_out,
+           "neginf_card": int(np.isneginf(got).sum()),
+           "neginf_cpu": int(np.isneginf(want).sum()),
+           "flush_crossings": crossed, "nan_differences": int(nan_diff.sum()),
+           "nan_at_one": int(at_one.sum())}
+    log(f"[{tag}] log p card against CPU: " + json.dumps(rec))
+    if (n_out or crossed or (nan_diff & ~at_one).any()
+            or at_one.sum() > SEURAT_NAN_AT_ONE_SHARE * got.size):
+        raise AssertionError(f"[{tag}] log p differs: {rec}")
+    return rec
+
+
+def phase_small_seurat() -> None:
+    """bimod, t and roc at 2k, card against CPU, dense and as CSR through
+    ``load_npz``, and bimod and t with ``max_cells_per_ident=200``: the
+    checks of phase 4, log p within the CPU tests' tolerance, and roc's
+    AUC and power within 1e-6."""
+    from scconsensus_tpu_torch import (
+        ReclusterConfig,
+        recluster_de_consensus_fast,
+    )
+
+    for method, cap in (("bimod", None), ("t", None), ("roc", None),
+                        ("bimod", 200), ("t", 200)):
+        for as_input in (None, _npz_round_trip):
+            tag = (f"{method}-small" + ("-csr" if as_input else "")
+                   + (f"-cap{cap}" if cap else ""))
+            kw = dict(method=method, max_cells_per_ident=cap)
+            gpu, cpu, _ = _card_against_cpu(
+                tag, ReclusterConfig(**kw), lambda data, cons, dev, omega:
+                recluster_de_consensus_fast(data, cons, device=dev,
+                                            omega=omega, **kw),
+                as_input=as_input)
+            gd, cd = gpu.de, cpu.de
+            _seurat_logp_check(tag, gd.log_p.cpu().numpy(), cd.log_p.numpy())
+            n_diff = int((gd.de_mask.cpu() != cd.de_mask).sum())
+            log(f"[{tag}] DE calls {int(gd.de_mask.sum())} / "
+                f"{int(cd.de_mask.sum())}; DE-mask differences {n_diff}")
+            if n_diff:
+                raise AssertionError(f"[{tag}] {n_diff} DE calls differ")
+            if method == "roc":
+                for k in ("auc", "power"):
+                    d = float((gd.aux[k].cpu() - cd.aux[k]).abs().max())
+                    log(f"[{tag}] {k} max |card - cpu| {d!r}")
+                    # U is an exact integer or half on both devices
+                    if d > 1e-6:
+                        raise AssertionError(f"[{tag}] {k} differs by {d}")
+
+
+def phase_full_seurat(data, truth, cons, wilcox_ref) -> dict:
+    """bimod, t and roc at the 26k flagship. bimod and t: the card's
+    (P, G) log p against the port's Seurat functions on the CPU from the
+    same aggregates; roc: union, DE mask and log p identical to phase 7's
+    Wilcoxon run. Returns the kernel's launches per method."""
+    import torch
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.de.engine import filter_clusters
+    from scconsensus_tpu_torch.ops.gates import (
+        ClusterAggregates,
+        compute_aggregates_cid,
+    )
+    from scconsensus_tpu_torch.ops.seurat_tests import (
+        bimod_lrt_pairs,
+        welch_t_pairs,
+    )
+
+    names, cell_idx = filter_clusters(cons, 10)
+    k = len(names)
+    pi, pj = (torch.as_tensor(a, dtype=torch.int64)
+              for a in np.triu_indices(k, 1))
+    launches = {}
+    for method in ("bimod", "t", "roc"):
+        tag = f"{method}-full"
+        res, launches[method] = _run_full(
+            tag, lambda: recluster_de_consensus_fast(
+                data, cons, method=method, device="cuda"), truth)
+        de = res.de
+        log(f"[{tag}] DE calls {int(de.de_mask.sum())} of "
+            f"{int(de.tested.sum())} tested; log p = -inf "
+            f"{int(torch.isneginf(de.log_p).sum())}")
+        if method == "roc":
+            lp, ref_lp = de.log_p.cpu().numpy(), wilcox_ref["log_p"]
+            n_mask = int((de.de_mask.cpu().numpy()
+                          != wilcox_ref["de_mask"]).sum())
+            n_lp = int((~((lp == ref_lp) | (np.isnan(lp)
+                                             & np.isnan(ref_lp)))).sum())
+            same_union = np.array_equal(res.de_gene_union_idx,
+                                        wilcox_ref["union"])
+            log(f"[{tag}] against the Wilcoxon run: union identical "
+                f"{same_union}, DE-mask differences {n_mask}, log p "
+                f"differences {n_lp}")
+            if not same_union or n_mask or n_lp:
+                raise AssertionError(f"[{tag}] roc and wilcox differ")
+            continue
+        fn = bimod_lrt_pairs if method == "bimod" else welch_t_pairs
+        agg = compute_aggregates_cid(
+            data, torch.as_tensor(cell_idx, device="cuda"), k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fn(agg, pi.cuda(), pj.cuda())
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        host = ClusterAggregates(*(getattr(agg, f).cpu() for f in (
+            "sum_log", "sum_expm1", "sum_sq", "nnz", "counts")))
+        # every pair for bimod; every 8th for t, whose betainc runs its
+        # 200 Lentz steps over every entry of the batch (86 s for all 946
+        # pairs on the card machine's host)
+        rows = torch.arange(0, pi.numel(), 1 if method == "bimod" else 8)
+        t0 = time.perf_counter()
+        cpu = fn(host, pi[rows], pj[rows])
+        t_cpu = time.perf_counter() - t0
+        # the run's own log p is this card value wherever it was tested
+        tested = de.tested
+        same_run = torch.equal(card[tested], de.log_p[tested])
+        log(f"[{tag}] {fn.__name__}: card {tuple(card.shape)} in "
+            f"{t_card!r} s, cpu {tuple(cpu.shape)} in {t_cpu!r} s; the "
+            f"run's tested log p bitwise this call's: {same_run}")
+        if not same_run:
+            raise AssertionError(f"[{tag}] the run's log p is not the "
+                                 "card function's")
+        _seurat_logp_check(tag, card[rows.cuda()].cpu().numpy(),
+                           cpu.numpy())
+    return launches
+
+
+@contextlib.contextmanager
+def _counting(module, names):
+    """Count the calls of ``module``'s functions ``names`` (which the
+    pipeline reads from its module) while the block runs."""
+    calls = dict.fromkeys(names, 0)
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def counted(*a, **kw):
+            calls[n] += 1
+            return saved[n](*a, **kw)
+        return counted
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+
+
+def _summary(res) -> dict:
+    """What a later phase holds a full-size run to: the union, the DE
+    mask and log p (host copies), the labels and silhouettes of every
+    deepSplit, the wall."""
+    return {"union": res.de_gene_union_idx,
+            "de_mask": res.de.de_mask.cpu().numpy(),
+            "log_p": res.de.log_p.cpu().numpy(),
+            "labels": dict(res.dynamic_labels),
+            "silhouettes": [i["silhouette"] for i in res.deep_split_info],
+            "wall_s": res.metrics["wall_s"]}
+
+
+def _same_bits(tag: str, res, ref: dict) -> None:
+    """Union, labels at every deepSplit and silhouettes of ``res`` bit
+    for bit those of the summary ``ref``."""
+    if not np.array_equal(res.de_gene_union_idx, ref["union"]):
+        raise AssertionError(f"[{tag}] unions differ")
+    for key, want in ref["labels"].items():
+        if not np.array_equal(res.dynamic_labels[key], want):
+            raise AssertionError(f"[{tag}] {key}: labels differ")
+    if [i["silhouette"] for i in res.deep_split_info] != ref["silhouettes"]:
+        raise AssertionError(f"[{tag}] silhouettes differ")
+    log(f"[{tag}] union, labels and silhouettes: the same bits")
+
+
+def phase_resume(data, truth, cons, wilcox_ref) -> dict:
+    """The fast Wilcoxon at 26k with an artifact store: its 12 files, a
+    resume that runs no DE, tree or cut stage, a corrupt ``de.npz``
+    quarantined and recomputed, a changed config refused. Returns the
+    kernel's launches per run."""
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.models import pipeline
+
+    stages = ("pairwise_de", "pca_scores", "ward_linkage", "cutree_hybrid")
+    root = tempfile.mkdtemp(prefix="scc-store-")
+    launches = {}
+
+    def run(tag, engine, **kw):
+        with _counting(pipeline, stages) as calls:
+            res, launches[tag] = _run_full(
+                tag, lambda: recluster_de_consensus_fast(
+                    data, cons, device="cuda", artifact_dir=root, **kw),
+                truth, engine=engine)
+        log(f"[{tag}] stage computations: {json.dumps(calls)}")
+        return res, calls
+
+    try:
+        stored, _ = run("resume-store", "native")
+        files = sorted(os.listdir(root))
+        sizes = {f: os.path.getsize(os.path.join(root, f)) for f in files}
+        log(f"[resume-store] files (bytes): {json.dumps(sizes)}; total "
+            f"{sum(sizes.values())}; wall {stored.metrics['wall_s']!r} s "
+            f"against phase 7's {wilcox_ref['wall_s']!r} s")
+        if files != STORE_FILES:
+            raise AssertionError(f"[resume-store] files {files}")
+        # the DE save is a stage of its own: the top-level stage walls
+        # still account for the wall with a store on
+        walls = stored.metrics["stage_walls_s"]
+        top = sum(walls.get(k, 0.0) for k in TOP_STAGES)
+        log(f"[resume-store] de_store {walls['de_store']!r} s; top-level "
+            f"stage walls sum {top!r} s of the wall "
+            f"{stored.metrics['wall_s']!r} s")
+        _same_bits("resume-store", stored, wilcox_ref)
+        # the store's own share for DE: the (P, G) fields to the host, the
+        # compressed serialization and its checksum
+        t0 = time.perf_counter()
+        arrays, _ = stored.de.to_store()
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        buf = io.BytesIO()
+        np.savez_compressed(buf, **arrays)
+        t_zip = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hashlib.sha256(buf.getbuffer()).hexdigest()
+        log(f"[resume-store] de artifact: to_store (device to host, "
+            f"{sum(a.nbytes for a in arrays.values())} bytes) {t_host!r} s, "
+            f"savez_compressed ({buf.tell()} bytes) {t_zip!r} s, sha256 "
+            f"{time.perf_counter() - t0!r} s")
+        del arrays, buf
+
+        resumed, calls = run("resume", None)
+        log(f"[resume] wall {resumed.metrics['wall_s']!r} s; stage walls "
+            f"{json.dumps(resumed.metrics['stage_walls_s'])}")
+        walls = resumed.metrics["stage_walls_s"]
+        if any(calls.values()) or "de" in walls or "de_store" in walls:
+            raise AssertionError("[resume] a stage was computed again")
+        _same_bits("resume", resumed, _summary(stored))
+
+        path = os.path.join(root, "de.npz")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            f.write(bytes(64))
+        recomputed, calls = run("resume-corrupt-de", None)
+        quarantined = sorted(n for n in os.listdir(root)
+                             if ".quarantined-" in n)
+        log(f"[resume-corrupt-de] quarantined {quarantined}")
+        if quarantined != ["de.json.quarantined-0",
+                           "de.npz.quarantined-0"] \
+                or calls["pairwise_de"] != 1 \
+                or calls["ward_linkage"] or calls["cutree_hybrid"]:
+            raise AssertionError("[resume-corrupt-de] DE was not "
+                                 "quarantined and recomputed alone")
+        _same_bits("resume-corrupt-de", recomputed, _summary(stored))
+        try:
+            recluster_de_consensus_fast(data, cons, device="cuda",
+                                        artifact_dir=root, q_val_thrs=0.05)
+        except ValueError as e:
+            log(f"[resume-config] a changed q_val_thrs is refused: {e}")
+        else:
+            raise AssertionError("[resume-config] a changed config ran")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_contract(data, cons, csr) -> None:
+    """The input contract on the 26k matrix on the card: preflight's time,
+    then a NaN in the dense matrix, an Inf among a CSR's stored values and
+    NaN float labels, each refused by ``refine`` with the reference's
+    check name before any stage runs."""
+    import scipy.sparse as sp
+    import torch
+
+    from scconsensus_tpu_torch import ReclusterConfig, refine
+    from scconsensus_tpu_torch.models import pipeline
+    from scconsensus_tpu_torch.robust.contract import (
+        InputContractError,
+        preflight,
+    )
+
+    cfg = ReclusterConfig()
+    preflight(data, cons, cfg)
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        preflight(data, cons, cfg)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    finite_ms = _time_ms(lambda: torch.isfinite(data).all())
+    log(f"[contract] preflight on {tuple(data.shape)} with "
+        f"{len(cons)} labels: {ms!r} ms (host clock, {reps} calls); the "
+        f"finite reduction alone {finite_ms!r} ms (device)")
+    bad = data.clone()
+    bad[3, 5] = float("nan")
+    vals = csr.data.copy()
+    vals[len(vals) // 2] = np.inf
+    bad_csr = sp.csr_matrix((vals, csr.indices, csr.indptr), shape=csr.shape)
+    nan_labels = np.unique(cons, return_inverse=True)[1].astype(np.float64)
+    nan_labels[::100] = np.nan
+    with _counting(pipeline, ("pairwise_de",)) as calls:
+        for tag, x, labels, want in (
+                ("dense-nan", bad, cons, "nonfinite_matrix"),
+                ("csr-inf", bad_csr, cons, "nonfinite_matrix"),
+                ("nan-labels", data, nan_labels, "nan_labels")):
+            try:
+                refine(x, labels, cfg, device="cuda")
+            except InputContractError as e:
+                log(f"[contract] {tag}: {e}")
+                if e.check != want:
+                    raise AssertionError(f"[contract] {tag}: {e.check}")
+            else:
+                raise AssertionError(f"[contract] {tag} was accepted")
+    if calls["pairwise_de"]:
+        raise AssertionError("[contract] a DE stage ran")
+
+
 def main() -> int:
     import torch
 
@@ -900,18 +1281,25 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
 
+    t_start = time.perf_counter()
     env = phase_env()
     phase_build()
     phase_kernel()
     phase_small()
     phase_small_edger()
     phase_small_csr()
+    phase_small_seurat()
     data, truth, cons = phase_full_data()
     rec, dense_fast = phase_full(data, truth, cons)
     erec, dense_edger = phase_edger_full(data, truth, cons)
-    csr_launches, ecsr_launches = phase_full_csr(data, truth, cons,
-                                                 dense_fast, dense_edger)
-    del data, dense_fast, dense_edger
+    csr_launches, ecsr_launches, csr = phase_full_csr(
+        data, truth, cons, dense_fast, dense_edger)
+    wilcox_ref = _summary(dense_fast)
+    del dense_fast, dense_edger
+    seurat_launches = phase_full_seurat(data, truth, cons, wilcox_ref)
+    resume_launches = phase_resume(data, truth, cons, wilcox_ref)
+    phase_contract(data, cons, csr)
+    del data, csr, wilcox_ref
     torch.cuda.empty_cache()
     phase_scale_small()
     tm_launches = phase_tm100k()
@@ -923,9 +1311,17 @@ def main() -> int:
                "edger_26k": erec["launches"],
                "wilcox_26k_csr": csr_launches,
                "edger_26k_csr": ecsr_launches,
+               "bimod_26k": seurat_launches["bimod"],
+               "t_26k": seurat_launches["t"],
+               "roc_26k": seurat_launches["roc"],
+               "wilcox_26k_stored": resume_launches["resume-store"],
+               "wilcox_26k_resumed": resume_launches["resume"],
+               "wilcox_26k_de_recomputed":
+                   resume_launches["resume-corrupt-de"],
                "tm100k": tm_launches,
                "brain1m_sample": brec["launches"],
                "sparse_1m": s1m_launches}
+    log(f"[total] every phase in {time.perf_counter() - t_start!r} s")
     # times from the Wilcoxon path's inputs; launches from every full path
     log(json.dumps({"kernels": [{
         "name": "distance_cluster_sums",

@@ -1,21 +1,23 @@
-"""All-pairs differential-expression engine: the dense Wilcoxon and edgeR
-paths.
+"""All-pairs differential-expression engine: every ``method`` of the
+reference.
 
-The torch form of the dense, mesh-free ``method`` ∈ {``wilcox``,
-``wilcoxon``, ``edger``} paths of ``scconsensus_tpu/de/engine.py``: every
-statistic for all K(K−1)/2 cluster pairs at once from per-cluster
-structures.
+The torch form of the mesh-free paths of ``scconsensus_tpu/de/engine.py``
+for ``method`` ∈ {``wilcox``, ``wilcoxon``, ``edger``, ``bimod``, ``t``,
+``roc``}: every statistic for all K(K−1)/2 cluster pairs at once from
+per-cluster structures.
 
   1. cluster filter (count > min_cluster_size, 'grey' dropped),
   2. per-cluster aggregates (``ops.gates``),
   3. per-pair gates from the aggregates (masks): Seurat's pct / mean /
      |logFC| battery on the fast path, the mean-expression gate and the
      difference of log-means on the slow paths,
-  4. the test for every (pair, gene). Wilcoxon: ``ranksum_body`` driven
-     by the window ladder (genes sorted by nonzero count run in buckets
-     whose window is the next power of two of their nnz), with R's exact
-     branch for pairs of small groups on the host. edgeR: the NB engine of
-     ``de.edger``,
+  4. the test for every (pair, gene). Wilcoxon and roc: ``ranksum_body``
+     driven by the window ladder (genes sorted by nonzero count run in
+     buckets whose window is the next power of two of their nnz), with R's
+     exact branch for pairs of small groups on the host; roc adds the AUC
+     and power from U. edgeR: the NB engine of ``de.edger``. bimod and t:
+     ``ops.seurat_tests`` from the aggregates of the post-subsampling
+     groups,
   5. BH: per pair over the tested genes (fast path) or over every finite
      entry with n = G (slow paths, ``bh_reference_n``),
   6. the DE call and the top-N union.
@@ -29,10 +31,11 @@ scales with nnz rather than with N (``scconsensus_tpu/de/engine.py``
 :799-807, :823-890, :923-938).
 
 The (P, G) results stay on the matrix's device; the union fetches only the
-(P, n_top) indices. Left out against the reference: the mesh, the
+(P, n_top) indices, and ``PairwiseDEResult.to_store`` brings them to the
+host for the artifact store. Left out against the reference: the mesh, the
 run-space kernel and its overflow redo, mid-stage checkpoints, ladder
 recovery, the occupancy probe, integrity, quality and fault-injection
-hooks, and the methods bimod, roc and t.
+hooks. An unknown method raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,6 +71,11 @@ from scconsensus_tpu_torch.ops.ranksum_allpairs import (
     chunk_genes_for_budget,
     ranksum_body,
 )
+from scconsensus_tpu_torch.ops.seurat_tests import (
+    auc_from_u,
+    bimod_lrt_pairs,
+    welch_t_pairs,
+)
 from scconsensus_tpu_torch.ops.wilcoxon import (
     EXACT_N_LIMIT,
     wilcoxon_exact_host,
@@ -75,7 +83,7 @@ from scconsensus_tpu_torch.ops.wilcoxon import (
 from scconsensus_tpu_torch.utils.timing import StageClock
 
 __all__ = ["PairwiseDEResult", "pairwise_de", "filter_clusters",
-           "de_gene_union", "as_device_matrix"]
+           "filter_cluster_names", "de_gene_union", "as_device_matrix"]
 
 
 @dataclasses.dataclass
@@ -101,9 +109,81 @@ class PairwiseDEResult:
     # Wilcoxon: the rank-sum route and its window ladder (see _run_wilcox)
     ladder: Optional[Dict] = None
 
+    # what the artifact store keeps: the reference's keys
+    # (scconsensus_tpu/de/engine.py:134-203); u and the ladder are the
+    # port's own and are not stored
+    _ARRAY_FIELDS = ("pair_i", "pair_j", "log_p", "log_q", "log_fc",
+                     "tested", "de_mask", "pair_skipped")
+    _OPT_ARRAY_FIELDS = ("pct1", "pct2")
+
     def de_counts(self) -> np.ndarray:
         """Per-pair DE gene counts (P ints to the host)."""
         return self.de_mask.sum(dim=1).cpu().numpy()
+
+    def to_store(self) -> Tuple[Dict[str, np.ndarray], Dict]:
+        """(arrays, meta) for the ``ArtifactStore``: the same array keys
+        (``aux_<k>`` for each aux field) and meta as the reference's. Each
+        device field crosses to the host here, once."""
+
+        def host(v):
+            return v.cpu().numpy() if isinstance(v, torch.Tensor) \
+                else np.asarray(v)
+
+        arrays = {f: host(getattr(self, f)) for f in self._ARRAY_FIELDS}
+        for f in self._OPT_ARRAY_FIELDS:
+            v = getattr(self, f)
+            if v is not None:
+                arrays[f] = host(v)
+        for k, v in (self.aux or {}).items():
+            arrays[f"aux_{k}"] = host(v)
+        return arrays, {
+            "cluster_names": self.cluster_names,
+            "skip_reasons": self.skip_reasons or [],
+        }
+
+    @classmethod
+    def from_store(cls, arrays: Dict[str, np.ndarray], meta: Dict,
+                   device=None) -> "PairwiseDEResult":
+        """Inverse of ``to_store``, with the (P, G) fields and aux on
+        ``device`` (the CPU when None). Raises ValueError on an incomplete
+        artifact (a missing meta sidecar or array), so callers recompute
+        instead of resuming into a corrupt state."""
+        if "cluster_names" not in meta:
+            raise ValueError(
+                "de artifact incomplete: missing cluster_names meta")
+        missing = [f for f in cls._ARRAY_FIELDS if f not in arrays]
+        if missing:
+            raise ValueError(
+                f"de artifact incomplete: missing arrays {missing}")
+        dev = torch.device("cpu") if device is None else torch.device(device)
+
+        def dev_t(v):
+            return None if v is None else torch.from_numpy(
+                np.ascontiguousarray(v)).to(dev)
+
+        host = {"pair_i", "pair_j", "pair_skipped"}
+        fields = {f: (arrays.get(f) if f in host else dev_t(arrays.get(f)))
+                  for f in cls._ARRAY_FIELDS + cls._OPT_ARRAY_FIELDS}
+        aux = {k[len("aux_"):]: dev_t(v) for k, v in arrays.items()
+               if k.startswith("aux_")}
+        return cls(
+            cluster_names=list(meta["cluster_names"]), **fields,
+            aux=aux or None,
+            skip_reasons=list(meta.get("skip_reasons", [])) or None,
+        )
+
+
+def filter_cluster_names(names: np.ndarray, counts: np.ndarray,
+                         min_cluster_size: int,
+                         drop_grey: bool = True) -> List[str]:
+    """The cluster-survival rule alone (count strictly greater than the
+    floor, §2d-7; 'grey' substring dropped) over ``np.unique(...,
+    return_counts=True)`` of the str-cast labels: shared by
+    ``filter_clusters`` and the input-contract pre-flight."""
+    keep = counts > min_cluster_size
+    if drop_grey:
+        keep &= np.char.find(names, "grey") == -1
+    return [str(n) for n in names[keep]]
 
 
 def filter_clusters(labels: Sequence, min_cluster_size: int,
@@ -113,10 +193,7 @@ def filter_clusters(labels: Sequence, min_cluster_size: int,
     names, −1 for dropped cells)."""
     lab = np.asarray(labels).astype(str)
     names, counts = np.unique(lab, return_counts=True)
-    keep = counts > min_cluster_size
-    if drop_grey:
-        keep &= np.char.find(names, "grey") == -1
-    kept = [str(n) for n in names[keep]]
+    kept = filter_cluster_names(names, counts, min_cluster_size, drop_grey)
     index = {n: i for i, n in enumerate(kept)}
     cell_idx = np.array([index.get(v, -1) for v in lab], dtype=np.int32)
     return kept, cell_idx
@@ -297,6 +374,9 @@ def _run_wilcox(
     return log_p, u_stat
 
 
+_METHODS = ("wilcox", "wilcoxon", "edger", "bimod", "t", "roc")
+
+
 def pairwise_de(
     data,
     labels: Sequence,
@@ -305,7 +385,8 @@ def pairwise_de(
     clock: Optional[StageClock] = None,
 ) -> PairwiseDEResult:
     """Run the all-pairs DE test of ``config.method``: "wilcox" (the fast
-    path), "wilcoxon" (the slow-path Wilcoxon) or "edger".
+    path), "wilcoxon" (the slow-path Wilcoxon), "edger", or the fast-path
+    Seurat tests "bimod", "t" and "roc".
 
     data: (G, N) log-normalized expression, a numpy array, a tensor (kept
     where it is when it already lies on ``device``) or a ``scipy.sparse``
@@ -313,11 +394,12 @@ def pairwise_de(
     on ``cuda`` unless ``device="cpu"``."""
     dev = resolve_device(device)
     method = config.method.lower()
-    if method not in ("wilcox", "wilcoxon", "edger"):
+    if method not in _METHODS:
         raise NotImplementedError(
-            f"DE method {config.method!r} is not ported yet (wilcox, "
-            "wilcoxon and edger only)"
+            f"DE method {config.method!r} is not supported "
+            f"({', '.join(_METHODS)})"
         )
+    fast = method in ("wilcox", "bimod", "t", "roc")
     clock = clock or StageClock(dev)
     data = as_device_matrix(data, dev)
     G, N = data.shape
@@ -334,9 +416,11 @@ def pairwise_de(
             )
         cell_idx_of = [np.nonzero(cell_idx == k)[0].astype(np.int32)
                        for k in range(K)]
+        subsampled = False
         if config.max_cells_per_ident is not None:
             rng = np.random.default_rng(config.random_seed)
             cap = config.max_cells_per_ident
+            subsampled = any(ci.size > cap for ci in cell_idx_of)
             cell_idx_of = [
                 rng.choice(ci, size=cap, replace=False)
                 if ci.size > cap else ci
@@ -362,13 +446,15 @@ def pairwise_de(
                 f"min_cells_group={config.min_cells_group}; nothing to test"
             )
 
-    with clock.stage("aggregates"):
-        t_cell_idx = torch.as_tensor(cell_idx, device=dev)
+    def aggregates(cid: np.ndarray):
+        t_cid = torch.as_tensor(cid, device=dev)
         if isinstance(data, DeviceCSR):
             # gene chunks gathered from the triplet; detected = stored ≠ 0
-            agg = csr_aggregates(data, t_cell_idx, K)
-        else:
-            agg = compute_aggregates_cid(data, t_cell_idx, K)
+            return csr_aggregates(data, t_cid, K)
+        return compute_aggregates_cid(data, t_cid, K)
+
+    with clock.stage("aggregates"):
+        agg = aggregates(cell_idx)
 
     pi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
     pj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
@@ -425,17 +511,43 @@ def pairwise_de(
                     only_pos=config.only_pos,
                 )
                 tested = gate & ok[:, None]
-        with clock.stage("wilcox_test"):
-            ladder = {}
-            log_p, u = _run_wilcox(data, cell_idx_of, pair_i, pair_j,
-                                   ladder=ladder)
-            # untested entries (skipped pairs on the slow path) surface as
-            # NaN and stay out of BH and the call
-            log_p = torch.where(tested, log_p,
-                                torch.full_like(log_p, float("nan")))
+                # per-pair survivors of the full gate battery, as the
+                # reference's aux carries them (de/engine.py:1558-1561)
+                aux = {"funnel_gate_full":
+                       gate.sum(dim=1).to(torch.int32)}
+        if method in ("bimod", "t"):
+            # the moment tests run on the post-subsampling groups; the
+            # gates above took the full clusters (de/engine.py:1418-1448)
+            test_agg = agg
+            if subsampled:
+                with clock.stage("aggregates"):
+                    test_agg = aggregates(_cid_from_groups(cell_idx_of, N))
+            with clock.stage(f"{method}_test"):
+                log_p = (bimod_lrt_pairs if method == "bimod"
+                         else welch_t_pairs)(test_agg, pi, pj)
+            del test_agg
+        else:
+            with clock.stage("wilcox_test" if method != "roc"
+                             else "roc_test"):
+                ladder = {}
+                log_p, u = _run_wilcox(data, cell_idx_of, pair_i, pair_j,
+                                       ladder=ladder)
+                if method == "roc":
+                    # AUC and power from U over the post-subsampling
+                    # groups; significance stays the rank-sum p
+                    n1 = torch.as_tensor(n_of[pair_i].astype(np.float32),
+                                         device=dev)[:, None]
+                    n2 = torch.as_tensor(n_of[pair_j].astype(np.float32),
+                                         device=dev)[:, None]
+                    auc, power = auc_from_u(u, n1, n2)
+                    aux = {"auc": auc, "power": power, **aux}
+        # untested entries (skipped pairs on the slow path) surface as NaN
+        # and stay out of BH and the call
+        log_p = torch.where(tested, log_p,
+                            torch.full_like(log_p, float("nan")))
 
     with clock.stage("bh_adjust"):
-        if method == "wilcox":
+        if fast:
             log_q = bh_adjust_masked(log_p, tested)
         else:
             # slow semantics (§2d-4): BH over every finite entry, n = G
@@ -443,7 +555,7 @@ def pairwise_de(
                 log_p, n=float(G) if config.compat.bh_reference_n else None)
     with clock.stage("de_call"):
         log_thr = float(np.log(np.float32(config.q_val_thrs)))
-        if method == "wilcox":
+        if fast:
             de = tested & (log_q < log_thr)
         elif method == "edger" and config.compat.edger_drop_logfc:
             # §2d-1: the reference's criterion reads a scalar-NA logFC, so

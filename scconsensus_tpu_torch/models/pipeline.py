@@ -7,7 +7,10 @@ The torch form of the dense, mesh-free branches of
 
 Stages, each timed into ``result.metrics["stage_walls_s"]`` (on the card
 every boundary synchronizes): de (cluster filter, aggregates, gates, the
-Wilcoxon ladder or the edgeR sub-stages ``edger_*``, BH, call) → union →
+test: ``wilcox_test``, ``roc_test``, ``bimod_test``, ``t_test`` or the
+edgeR sub-stages ``edger_*``, BH, call; absent when DE resumes from the
+artifact store) → de_store (with an artifact store: the DE result saved)
+→ union →
 embed (rSVD PCA on the device, of the DE-gene rows, or with
 ``distance="pearson"`` of the centred unit-norm cell vectors) → tree →
 cuts (dynamic tree cut per deepSplit, host) → silhouette → nodg.
@@ -47,10 +50,27 @@ rank-sum route and its buckets' windows, else None), ``tree_engine``
 without silhouettes, else ``method``: "exact" or "pooled-estimator", and
 for the estimator ``n_centroids`` and ``pool_reused``).
 
-Not ported yet, and raising ``NotImplementedError``: a mesh, the
-methods bimod, roc and t, and the DE heatmap (``plot_name``).
-The artifact store, retry, integrity, observability and report wrappers
-are left out.
+Every ``method`` of the reference runs: "wilcox" (fast), "wilcoxon"
+(slow), "edger", and the fast-path Seurat tests "bimod", "t" and "roc".
+
+Before the first stage, ``robust.contract.preflight`` rejects a wrong
+shape, NaN labels, a matrix with a NaN or Inf, and a labeling with fewer
+than two clusters that survive the size filter (``InputContractError``).
+
+With ``config.artifact_dir`` set, the run writes the reference's store
+(``utils.artifacts``): ``config.json`` (the config and an input
+fingerprint; another config or other input data raises ValueError),
+``{de,union,embed,tree,cuts}.{npz,json}`` and ``robust_state.json`` at
+completion. A re-run resumes each stage from a readable artifact; a
+corrupt one is quarantined and recomputed. The tree artifact carries the
+branch it took (pool or landmark arrays), and the silhouette and NODG are
+recomputed on resume, as in the reference. Without ``artifact_dir``
+nothing is read or written. Mid-stage Wilcoxon checkpoints and the retry
+budget are not ported yet.
+
+Not ported yet, and raising ``NotImplementedError``: a mesh and the DE
+heatmap (``plot_name``). Retry, integrity, observability and report
+wrappers are left out.
 """
 
 from __future__ import annotations
@@ -87,10 +107,21 @@ from scconsensus_tpu_torch.ops.silhouette import (
     pooled_multi_cut_silhouette,
 )
 from scconsensus_tpu_torch.ops.treecut import cutree_hybrid
+from scconsensus_tpu_torch.robust.contract import preflight
+from scconsensus_tpu_torch.utils.artifacts import (
+    ArtifactStore,
+    input_fingerprint,
+)
 from scconsensus_tpu_torch.utils.timing import StageClock
 
 __all__ = ["ReclusterResult", "refine", "recluster_de_consensus",
            "recluster_de_consensus_fast"]
+
+# the mesh stamp on every stage sidecar: the reference's serial-run shape
+# (scconsensus_tpu/parallel/mesh.py mesh_shape_meta(None)); the port runs
+# on one device
+SERIAL_MESH_SHAPE = {"n_devices": 1, "device_ids": [0], "axis": "cells",
+                     "platform": None}
 
 
 @dataclasses.dataclass
@@ -144,34 +175,68 @@ def refine(
         raise NotImplementedError("the DE heatmap is not ported yet")
     data = as_device_matrix(data, dev)
     G, N = data.shape
-    if len(labels) != N:
-        raise ValueError(f"{len(labels)} labels for {N} cells")
+    # shape, NaN labels, a non-finite matrix and labelings with fewer than
+    # two pairable clusters fail here, typed, before any stage runs
+    preflight(data, labels, config)
+    store = ArtifactStore(config.artifact_dir)
+    if store.enabled:
+        store.check_config(config.to_json(),
+                           inputs=input_fingerprint(data, labels))
     clock = StageClock(dev)
 
-    with clock.stage("de"):
-        de_res = pairwise_de(data, labels, config, device=dev, clock=clock)
+    def _stage_cached(stage, fn):
+        return store.cached(stage, fn,
+                            meta_fn=lambda: {"mesh_shape": SERIAL_MESH_SHAPE})
+
+    de_res = None
+    if store.has("de"):
+        try:
+            de_res = PairwiseDEResult.from_store(*store.load("de"),
+                                                 device=dev)
+        except ValueError:
+            pass  # corrupt (already quarantined) or incomplete: recompute
+    if de_res is None:
+        with clock.stage("de"):
+            de_res = pairwise_de(data, labels, config, device=dev,
+                                 clock=clock)
+        if store.enabled:
+            # the (P, G) fields to the host, compressed and checksummed
+            with clock.stage("de_store"):
+                de_arrays, de_meta = de_res.to_store()
+                store.save("de", de_arrays,
+                           {**de_meta, "mesh_shape": SERIAL_MESH_SHAPE})
 
     with clock.stage("union"):
-        union = de_gene_union(de_res, config.n_top_de_genes)
+        union = _stage_cached("union", lambda: {
+            "idx": de_gene_union(de_res, config.n_top_de_genes)})["idx"]
     if union.size < 2:
         raise ValueError(
             f"DE gene union has {union.size} genes — nothing to re-embed. "
             "Loosen q_val_thrs/log_fc_thrs or check cluster labels."
         )
 
+    scores = None
     with clock.stage("embed"):
         n_pcs = min(union.size, config.n_pcs)
-        cols = rows_dense(data, union)                   # (|U|, N)
-        if config.distance == "pearson":
-            # centred unit-norm cells: euclidean distance between them is
-            # sqrt(2·(1 − r)), monotone in the Pearson distance
-            c = cols - cols.mean(dim=0, keepdim=True)
-            norm = torch.linalg.norm(c, dim=0, keepdim=True)
-            cols = c / torch.clamp(norm, min=1e-12)
-        cells = cols.T.contiguous()                      # (N, |U|)
-        scores = pca_scores(cells, n_pcs, omega=omega)   # device
-        # tree and cuts are host algorithms: the (N, n_pcs) scores cross
-        embedding = scores.cpu().numpy()
+
+        def _embed():
+            nonlocal scores
+            cols = rows_dense(data, union)                   # (|U|, N)
+            if config.distance == "pearson":
+                # centred unit-norm cells: euclidean distance between them
+                # is sqrt(2·(1 − r)), monotone in the Pearson distance
+                c = cols - cols.mean(dim=0, keepdim=True)
+                norm = torch.linalg.norm(c, dim=0, keepdim=True)
+                cols = c / torch.clamp(norm, min=1e-12)
+            cells = cols.T.contiguous()                      # (N, |U|)
+            scores = pca_scores(cells, n_pcs, omega=omega)   # device
+            # tree and cuts are host algorithms: the (N, n_pcs) scores
+            # cross
+            return {"scores": scores.cpu().numpy()}
+
+        embedding = _stage_cached("embed", _embed)["scores"]
+        if scores is None:  # resumed: the stored scores, to the device
+            scores = torch.from_numpy(embedding).to(dev)
 
     with clock.stage("tree"):
         approx = N > config.approx_threshold
@@ -182,28 +247,60 @@ def refine(
             )
         lm_policy = (config.landmark_policy(N)
                      if approx and config.approx_method == "pool" else None)
-        pool_assign = pool_centroids = landmark_info = None
         linkage.LAST_ENGINE = None
-        if approx and config.approx_method == "knn":
-            tree = knn_ward_linkage(scores, k=config.knn_graph_k)
-        elif lm_policy is not None:
-            tree, pool_assign, pool_centroids, lm = landmark_ward_linkage(
-                scores, n_landmarks=lm_policy["k"],
-                sketch=lm_policy["sketch"], seed=config.random_seed,
-                c=lm_policy["c"], k_min=lm_policy["k_min"],
-                k_max=lm_policy["k_max"], linkage=lm_policy["linkage"],
-                knn_k=lm_policy["knn_k"],
-            )
-            landmark_info = {"branch": "landmark", "k": lm["k_used"],
-                             "sketch": lm["sketch"],
-                             "threshold": lm_policy["threshold"],
-                             "linkage": lm["linkage"]}
-        elif approx:
-            tree, pool_assign, pool_centroids = pooled_ward_linkage(
-                scores, n_centroids=config.n_pool_centroids,
-                seed=config.random_seed)
-        else:
-            tree = ward_linkage(embedding)
+
+        def _tree():
+            if approx and config.approx_method == "knn":
+                t = knn_ward_linkage(scores, k=config.knn_graph_k)
+                return {"merge": t.merge, "height": t.height,
+                        "order": t.order}
+            if lm_policy is not None:
+                t, assign, cents, lm = landmark_ward_linkage(
+                    scores, n_landmarks=lm_policy["k"],
+                    sketch=lm_policy["sketch"], seed=config.random_seed,
+                    c=lm_policy["c"], k_min=lm_policy["k_min"],
+                    k_max=lm_policy["k_max"], linkage=lm_policy["linkage"],
+                    knn_k=lm_policy["knn_k"],
+                )
+                return {"merge": t.merge, "height": t.height,
+                        "order": t.order, "pool_assign": assign,
+                        "pool_centroids": cents,
+                        "landmark_k": np.asarray(lm["k_used"]),
+                        "landmark_sketch": np.asarray(lm["sketch"]),
+                        # the linkage as an int code, so a resumed
+                        # artifact names the tree it holds
+                        "landmark_knn_linkage": np.asarray(
+                            1 if lm["linkage"] == "knn" else 0)}
+            if approx:
+                t, assign, cents = pooled_ward_linkage(
+                    scores, n_centroids=config.n_pool_centroids,
+                    seed=config.random_seed)
+                return {"merge": t.merge, "height": t.height,
+                        "order": t.order, "pool_assign": assign,
+                        "pool_centroids": cents}
+            t = ward_linkage(embedding)
+            return {"merge": t.merge, "height": t.height, "order": t.order}
+
+        tree_arrays = _stage_cached("tree", _tree)
+        tree = HClustTree(merge=tree_arrays["merge"],
+                          height=tree_arrays["height"],
+                          order=tree_arrays["order"])
+        pool_assign = tree_arrays.get("pool_assign")
+        pool_centroids = tree_arrays.get("pool_centroids")
+        # the branch taken comes from the artifact (a resumed tree keeps
+        # its own cut semantics), not from the policy alone
+        landmark_info = None
+        if "landmark_k" in tree_arrays:
+            landmark_info = {
+                "branch": "landmark",
+                "k": int(tree_arrays["landmark_k"]),
+                "sketch": int(tree_arrays["landmark_sketch"]),
+                # the run's policy (None when it no longer selects the
+                # landmark branch); linkage describes the stored tree
+                "threshold": (lm_policy or {}).get("threshold"),
+                "linkage": ("knn" if int(tree_arrays.get(
+                    "landmark_knn_linkage", 0)) else "exact"),
+            }
         tree_engine = linkage.LAST_ENGINE
 
     dynamic_colors: Dict[str, np.ndarray] = {}
@@ -227,14 +324,23 @@ def refine(
             cut_points = pool_centroids
             cut_min_size = max(2, int(round(config.min_cluster_size
                                             / avg_pool)))
+
+        def _cuts():
+            out = {}
+            for dsv in config.deep_split_values:
+                cut_labels = cutree_hybrid(
+                    tree, cut_points, deep_split=int(dsv),
+                    min_cluster_size=cut_min_size,
+                    pam_stage=config.pam_stage, weights=cut_weights,
+                )
+                if pool_assign is not None:
+                    cut_labels = cut_labels[pool_assign]
+                out[f"ds{dsv}"] = cut_labels
+            return out
+
+        cut_arrays = _stage_cached("cuts", _cuts)
         for dsv in config.deep_split_values:
-            cut_labels = cutree_hybrid(
-                tree, cut_points, deep_split=int(dsv),
-                min_cluster_size=cut_min_size,
-                pam_stage=config.pam_stage, weights=cut_weights,
-            )
-            if pool_assign is not None:
-                cut_labels = cut_labels[pool_assign]
+            cut_labels = cut_arrays[f"ds{dsv}"]
             key = f"deepsplit: {dsv}"
             dynamic_labels[key] = cut_labels
             dynamic_colors[key] = labels_to_colors(cut_labels)
@@ -310,6 +416,14 @@ def refine(
 
     union_names = (np.asarray(gene_names)[union] if gene_names is not None
                    else union.copy())
+    if store.enabled:
+        # the run completed: the reference resets its persisted retry
+        # budget here (seeding a retry budget from it waits for the port
+        # of robust/retry.py)
+        try:
+            store.save("robust_state", meta={"budget_used": 0})
+        except OSError:
+            pass  # the result stands; only the sidecar is lost
     return ReclusterResult(
         de_gene_union=union_names,
         de_gene_union_idx=union,
@@ -399,7 +513,7 @@ def recluster_de_consensus_fast(
 ) -> ReclusterResult:
     """Reference-shaped fast path (R/reclusterDEConsensusFast.R:22-33).
 
-    ``method``: only ``wilcox`` is ported so far (bimod, roc, t raise). ``device``: "cuda" by
+    ``method``: "wilcox", "bimod", "t" or "roc". ``device``: "cuda" by
     default. ``omega``: see ``refine``."""
     config = ReclusterConfig(
         method=method.lower(),

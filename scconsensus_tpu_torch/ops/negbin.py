@@ -26,6 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from scconsensus_tpu_torch.ops.special import FLT_MIN
+
 __all__ = [
     "lgamma_shift",
     "nb_cond_log_lik",
@@ -47,7 +49,7 @@ __all__ = [
 DEFAULT_DELTA_GRID_SIZE = 64
 _STIRLING_SWITCH = 30.0
 _LOG2 = float(np.float32(np.log(2.0)))
-_TINY = float(np.finfo(np.float32).tiny)
+_TINY = FLT_MIN  # shared with the Seurat tests' log-p flush
 
 
 def _f32_bits(bits) -> np.ndarray:
