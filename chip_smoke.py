@@ -71,11 +71,27 @@ checkout, and exits non-zero on the first phase that fails:
  18. the input contract on the 26k matrix: ``preflight``'s time, then a
      NaN in the dense matrix, an Inf among a CSR's stored values and NaN
      float labels, each refused by ``refine`` with the reference's check
-     name before any stage runs.
+     name before any stage runs;
+ 19. serving at the 26k flagship: ``export_consensus_model`` from phase
+     7's result (its wall, the artifact's bytes, the fingerprint), then
+     the reference bench's ``atlas_query`` stream (300 requests of 64
+     cells, 292 sampled from the 26k matrix and 8 foreign, from 4 client
+     threads) through ``ConsensusServer`` with the default ``ServeConfig``:
+     every request accounted for, the 292 ``ok`` with no degraded
+     response and no breaker trip, the 8 quarantined with ledger rows,
+     each replayed cell on its calibrated landmark's label and on
+     ``classify_host``'s within the reference's tie band; then three
+     injected allocation failures trip the breaker and a probe closes it,
+     a real allocation past the card's memory classifies ``resource``, a
+     corrupt model is refused (in place by the readonly store,
+     quarantined by the default one), and the reference's overhead guard
+     holds guarded over classify wall below 1.02 on the card; latencies,
+     throughput, batches, the classify split and peak memory printed.
 
-Phases run in the order 1–5, 12, 15, 6–8, 13, 16–18, 9–11, 14, so that
-the 26k data serves phases 7–8, 13 and 16–18 and is freed before the
-larger ones; the line before the kernel record gives the total time.
+Phases run in the order 1–5, 12, 15, 6–8, 13, 19, 16–18, 9–11, 14, so
+that the 26k data serves phases 7–8, 13, 19 and 16–18 (phase 19 while
+phase 7's result is alive) and is freed before the larger ones; the line
+before the kernel record gives the total time.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -1269,6 +1285,483 @@ def phase_contract(data, cons, csr) -> None:
         raise AssertionError("[contract] a DE stage ran")
 
 
+# phase 19: the atlas_query request shape of the reference bench
+# (bench.py:1054-1056): 300 requests of 64 cells, 8 of them foreign,
+# from 4 client threads
+SERVE_REQUESTS, SERVE_CELLS, SERVE_OOD, SERVE_CLIENTS = 300, 64, 8, 4
+# the reference's tie band for a replayed classify (robust/integrity.py
+# TOLERANCES["replay_classify_d2"]): a label that differs is a tie when
+# the chosen landmark is no more than 1e-3 further (relative, in d²)
+TIE_BAND = 1e-3
+# the reference's overhead guard (tests/test_serve.py:621-707): guarded
+# wall over classify wall, best of 3
+GUARD_LIMIT = 1.02
+
+
+def _host_proj(model, x) -> np.ndarray:
+    """Float64 projection of the cells x (n, G), as ``classify_host``
+    takes it."""
+    xp = model._gather_panel(x).astype(np.float64)
+    return (xp - model.pca_mean.astype(np.float64)) @ \
+        model.pca_components.astype(np.float64).T
+
+
+def _host_d2(model, x) -> np.ndarray:
+    """Float64 squared distances of the cells x (n, G) to every landmark,
+    as ``classify_host`` takes them."""
+    proj = _host_proj(model, x)
+    c = model.centroids.astype(np.float64)
+    return (np.sum(proj * proj, axis=1, keepdims=True) - 2.0 * proj @ c.T
+            + np.sum(c * c, axis=1)[None, :])
+
+
+def _cancellation_floor(model, x) -> np.ndarray:
+    """Per cell, the float32 floor of a distance taken as
+    sqrt(‖a‖² + ‖b‖² − 2ab): sqrt(4·eps·(‖a‖² + max ‖b‖²)) with a the
+    projected cell and b a landmark. A cell sitting on its landmark (a
+    landmark of one training cell) reads about this much, not 0 (the
+    hazard both packages share, ROADMAP §C)."""
+    proj = _host_proj(model, x)
+    c2 = float(np.max(np.sum(model.centroids.astype(np.float64) ** 2, 1)))
+    eps = float(np.finfo(np.float32).eps)
+    return np.sqrt(4.0 * eps * (np.sum(proj * proj, axis=1) + c2))
+
+
+def _outside_tie_band(model, x, got, ref_d2) -> int:
+    """Cells whose label ``got`` differs from the reference choice by
+    more than the tie band: the nearest landmark carrying ``got`` is
+    further than ``ref_d2`` by more than TIE_BAND relative."""
+    d2 = _host_d2(model, x)
+    clab = model.centroid_labels
+    bad = 0
+    for r in range(got.size):
+        cands = np.nonzero(clab == got[r])[0]
+        chosen = float(d2[r, cands].min()) if cands.size else float("inf")
+        if abs(chosen - ref_d2[r]) > TIE_BAND * max(abs(ref_d2[r]), 1e-9):
+            bad += 1
+    return bad
+
+
+def _serve_traffic(model, data, ledger_path: str):
+    """The request stream through ``ConsensusServer`` from 4 client
+    threads: the in-distribution requests are seeded samples of the 26k
+    matrix's cells, the foreign ones drawn as ``make_requests`` draws
+    them. Returns the requests, their cell indices (None for foreign),
+    the responses, the section and the client-side wall."""
+    import threading
+
+    import torch
+
+    from scconsensus_tpu_torch import ConsensusServer
+    from scconsensus_tpu_torch.serve.driver import ServeConfig
+    from scconsensus_tpu_torch.serve.soak import ood_cells
+
+    rng = np.random.default_rng(19)
+    n_genes, n_cells = data.shape
+    ood_at = set(np.linspace(0, SERVE_REQUESTS - 1, SERVE_OOD)
+                 .astype(int).tolist())
+    requests, cell_idx = [], []
+    for i in range(SERVE_REQUESTS):
+        if i in ood_at:
+            requests.append(ood_cells(rng, SERVE_CELLS, n_genes))
+            cell_idx.append(None)
+        else:
+            idx = rng.choice(n_cells, size=SERVE_CELLS, replace=False)
+            cols = torch.as_tensor(idx, device=data.device)
+            requests.append(
+                data.index_select(1, cols).T.contiguous().cpu().numpy())
+            cell_idx.append(idx)
+    responses = [None] * SERVE_REQUESTS
+    nxt = iter(range(SERVE_REQUESTS))
+    lock = threading.Lock()
+    server = ConsensusServer(model, ServeConfig(quarantine_path=ledger_path),
+                             device="cuda")
+
+    def client():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            responses[i] = server.classify(requests[i], timeout=120.0)
+
+    with server:
+        threads = [threading.Thread(target=client)
+                   for _ in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        section = server.serving_section()
+    return requests, cell_idx, responses, section, wall
+
+
+def _classify_split(model, x, reps: int = 20) -> dict:
+    """Mean ms of each part of ``model.classify(x)``: the host panel
+    gather, host→device, the device part (CUDA events) and device→host."""
+    import torch
+
+    parts = dict.fromkeys(("gather", "h2d", "device", "d2h"), 0.0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    model.classify(x)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        xp = model._gather_panel(x)
+        parts["gather"] += time.perf_counter() - t
+        t = time.perf_counter()
+        xd = model._to_device(xp)
+        torch.cuda.synchronize()
+        parts["h2d"] += time.perf_counter() - t
+        start.record()
+        packed = model._classify_device(xd)
+        end.record()
+        end.synchronize()
+        parts["device"] += start.elapsed_time(end) / 1e3
+        t = time.perf_counter()
+        model._to_host(packed)
+        parts["d2h"] += time.perf_counter() - t
+    return {k: v / reps * 1e3 for k, v in parts.items()}
+
+
+def _wall_ms(fn, reps: int = 20) -> float:
+    """Median host wall of fn() in ms, after a warm-up call."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t)
+    return float(np.median(walls)) * 1e3
+
+
+def _serve_faults(model, root: str, request) -> None:
+    """The breaker, a real allocation failure and a corrupt model (a copy
+    of ``root``/model), each held by an assertion."""
+    import shutil
+
+    import torch
+
+    from scconsensus_tpu_torch import ConsensusServer, load_consensus_model
+    from scconsensus_tpu_torch.robust import faults, record
+    from scconsensus_tpu_torch.robust.retry import (
+        classify_exception,
+        classify_text,
+    )
+    from scconsensus_tpu_torch.serve.driver import ServeConfig
+    from scconsensus_tpu_torch.serve.errors import ModelLoadError
+    from scconsensus_tpu_torch.serve.metrics import validate_serving
+    from scconsensus_tpu_torch.serve.model import MODEL_STAGE
+
+    # three injected allocation failures at the device call trip the
+    # breaker (threshold 3); after the cooldown a probe closes it
+    plan = os.path.join(root, "plan.json")
+    with open(plan, "w") as f:
+        json.dump({"faults": [{"site": "serve_device", "class": "oom",
+                               "times": 3}]}, f)
+    os.environ["SCC_FAULT_PLAN"] = plan
+    faults.reset()
+    record.begin_run()
+    try:
+        cfg = ServeConfig(breaker_cooldown_s=0.2)
+        with ConsensusServer(model, cfg, device="cuda") as srv:
+            r1 = srv.classify(request, timeout=60.0)
+            time.sleep(0.25)
+            r2 = srv.classify(request, timeout=60.0)
+        sec = srv.serving_section()
+    finally:
+        del os.environ["SCC_FAULT_PLAN"]
+        faults.reset()
+    validate_serving(sec)
+    rb = record.section()
+    log(f"[serve-faults] oom x3 at serve_device: first response "
+        f"{r1.outcome} (degraded {r1.degraded}), after the 0.2 s cooldown "
+        f"{r2.outcome}; breaker {json.dumps(sec['breaker'])}; robustness "
+        f"faults {len(rb['faults_injected'])}, degradations "
+        f"{[d['action'] for d in rb['degradations']]}")
+    assert r1.outcome == "degraded" and r1.degraded, r1.outcome
+    assert np.array_equal(r1.labels, model.classify_host(request)[0])
+    assert r2.outcome == "ok" and not r2.degraded, r2.outcome
+    assert sec["breaker"]["state"] == "closed"
+    assert sec["breaker"]["trips"] == 1
+    assert sec["requests"]["degraded"] == 1 and sec["requests"]["ok"] == 1
+    assert len(rb["faults_injected"]) == 3
+    assert rb["degradations"][0]["action"] == "host-fallback"
+
+    # a real allocation past the card's memory
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        torch.empty(total // 4 + (1 << 28), dtype=torch.float32,
+                    device="cuda")
+    except Exception as e:  # noqa: BLE001 - the class is the assertion
+        cls, text_cls = classify_exception(e), classify_text(str(e))
+        log(f"[serve-faults] {type(e).__name__} for {total} bytes + 1 GiB "
+            f"classified {cls!r} (its text alone: {text_cls!r})")
+        assert cls == "resource" and text_cls == "resource", (cls, text_cls)
+    else:
+        raise AssertionError("[serve-faults] an allocation past the card's "
+                             "memory succeeded")
+    torch.cuda.empty_cache()
+
+    # a corrupt model: the readonly store refuses it in place, the
+    # default store quarantines it; neither serves
+    bad_dir = os.path.join(root, "corrupt-model")
+    shutil.copytree(os.path.join(root, "model"), bad_dir)
+    npz = os.path.join(bad_dir, f"{MODEL_STAGE}.npz")
+    with open(npz, "r+b") as f:
+        f.seek(os.path.getsize(npz) // 2)
+        b = f.read(1)
+        f.seek(os.path.getsize(npz) // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    try:
+        load_consensus_model(bad_dir, readonly=True, device="cuda")
+    except ModelLoadError as e:
+        assert not e.quarantined and os.path.exists(npz), "renamed"
+        log(f"[serve-faults] readonly store: refused in place: {e}")
+    else:
+        raise AssertionError("[serve-faults] a corrupt model loaded")
+    try:
+        ConsensusServer(bad_dir, device="cuda")
+    except ModelLoadError as e:
+        moved = sorted(n for n in os.listdir(bad_dir) if "quarantined" in n)
+        assert e.quarantined and not os.path.exists(npz), moved
+        assert f"{MODEL_STAGE}.npz.quarantined-0" in moved, moved
+        log(f"[serve-faults] default store: refused and quarantined "
+            f"{moved}")
+    else:
+        raise AssertionError("[serve-faults] a server started on a "
+                             "corrupt model")
+
+
+def _take_gather(model, cells) -> np.ndarray:
+    """The panel gather as ``np.take(x, panel, axis=1)``, which writes
+    contiguous rows at once (the shipped gather is the reference's
+    ``x[:, panel]``, a transposed view copied before the upload)."""
+    return np.take(np.asarray(cells, np.float32), model.panel_idx, axis=1)
+
+
+def _gather_forms(model, x) -> dict:
+    """Host ms of the shipped gather with its contiguous copy, and of
+    ``np.take``, on the cells x."""
+    x = np.asarray(x, np.float32)
+    return {"shipped": _wall_ms(lambda: np.ascontiguousarray(
+                x[:, model.panel_idx])),
+            "np.take": _wall_ms(lambda: _take_gather(model, x))}
+
+
+def _guard_ratio(take: bool = False) -> float:
+    """The reference's overhead guard (tests/test_serve.py:621-707) on
+    the card: a production-shaped model (2,000 genes, a 1,500-gene
+    panel, 32 PCs, 512 landmarks), eight 2,048-cell requests driven one
+    at a time through the driver's batch path; guarded wall over the
+    driver's own classify wall, best of 3 after a warm-up pass. With
+    ``take`` the model gathers with ``np.take`` (measured, not shipped)."""
+    import types
+
+    from scconsensus_tpu_torch import ConsensusServer
+    from scconsensus_tpu_torch.serve.driver import RequestHandle, ServeConfig
+    from scconsensus_tpu_torch.serve.model import ConsensusModel
+
+    rng = np.random.default_rng(0)
+    G, F, P, K = 2000, 1500, 32, 512
+    model = ConsensusModel(
+        panel_idx=np.sort(rng.choice(G, F, replace=False)).astype(np.int64),
+        pca_mean=rng.normal(size=F).astype(np.float32),
+        pca_components=rng.normal(size=(P, F)).astype(np.float32),
+        centroids=rng.normal(size=(K, P)).astype(np.float32),
+        centroid_labels=rng.integers(1, 9, K).astype(np.int64),
+        centroid_counts=np.ones(K, np.int64),
+        tree_merge=np.zeros((K - 1, 2)), tree_height=np.zeros(K - 1),
+        tree_order=np.arange(K), calib_q=np.array([1.0, 2.0, 3.0, 4.0]),
+        drift_threshold=float("inf"), meta={"n_genes": G, "deep_split": 2},
+        device="cuda")
+    if take:
+        model._gather_panel = types.MethodType(_take_gather, model)
+    rng = np.random.default_rng(1)
+    reqs = [rng.normal(size=(2048, G)).astype(np.float32) for _ in range(8)]
+    model.classify(reqs[0])
+    if take:
+        log(f"[serve-guard] gather ms at 2,048 x 2,000 -> 1,500: "
+            f"{json.dumps(_gather_forms(model, reqs[1]))}")
+    ratios = []
+    # one unmeasured pass first: the host's first passes over fresh
+    # buffers run several times slower than the steady state
+    for rep in range(4):
+        srv = ConsensusServer(model, ServeConfig(
+            max_batch_cells=2048, queue_capacity=64, batch_window_s=0.0,
+            default_deadline_s=10.0, breaker_threshold=3,
+            breaker_cooldown_s=0.2, drift_quarantine_frac=0.5),
+            device="cuda")
+        t0 = time.perf_counter()
+        for i, x in enumerate(reqs):
+            r = RequestHandle(i, x, time.monotonic() + 30.0)
+            srv._process([r])
+            assert r.result(0).outcome == "ok"
+        guarded = time.perf_counter() - t0
+        assert srv.stats.breaker_trips == 0
+        log(f"[serve-guard] {'np.take ' if take else ''}"
+            f"{'warm-up' if rep == 0 else 'measured'}: "
+            f"guarded {guarded!r} s, classify {srv.stats.classify_wall_s!r} "
+            "s")
+        if rep:
+            ratios.append(guarded / srv.stats.classify_wall_s)
+    return min(ratios)
+
+
+def phase_serve(data, res) -> int:
+    """Phase 19: the serving path at the 26k flagship. Export a model from
+    phase 7's result, serve the atlas_query stream through the guarded
+    driver, hold the labels against the calibration and the host mirror,
+    trip the breaker, fail an allocation and refuse a corrupt model,
+    measure the guard's cost; returns the kernel's launches while
+    serving (classify launches none)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from scconsensus_tpu_torch import (
+        ReclusterConfig,
+        export_consensus_model,
+        load_consensus_model,
+    )
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+    from scconsensus_tpu_torch.ops.distance import sq_dists
+    from scconsensus_tpu_torch.ops.pooling import landmark_k_policy
+    from scconsensus_tpu_torch.serve.driver import QUARANTINE_LEDGER_NAME
+    from scconsensus_tpu_torch.serve.metrics import validate_serving
+    from scconsensus_tpu_torch.serve.model import MODEL_STAGE, training_cells
+
+    root = tempfile.mkdtemp(prefix="scc-serve-")
+    model_dir = os.path.join(root, "model")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = export_consensus_model(data, res, ReclusterConfig(),
+                                       model_dir, device="cuda")
+        torch.cuda.synchronize()
+        t_export = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(model_dir, f))
+                     for f in os.listdir(model_dir))
+        t0 = time.perf_counter()
+        loaded = load_consensus_model(model_dir, device="cuda")
+        t_load = time.perf_counter() - t0
+        log(f"[serve] export {t_export!r} s, load {t_load!r} s; artifact "
+            f"{nbytes} bytes; fingerprint {model.fingerprint()}; panel "
+            f"{model.panel_idx.size}, {model.n_pcs} PCs, {model.k} "
+            f"landmarks; drift threshold {model.drift_threshold!r}")
+        assert loaded.fingerprint() == model.fingerprint()
+        assert np.array_equal(model.panel_idx, res.de_gene_union_idx)
+        assert model.k == landmark_k_policy(data.shape[1]), model.k
+        model = loaded
+
+        # each training cell's landmark, by the export's own projection
+        # and nearest-landmark pass on the card
+        mean, comps, cents, _ = model.device_buffers()
+        emb = (training_cells(data, model.panel_idx, mean.device)
+               - mean[None, :]) @ comps.T
+        d2 = sq_dists(emb, cents)
+        assign = torch.argmin(d2, dim=1)
+        calib_d2 = torch.gather(d2, 1, assign[:, None])[:, 0].cpu().numpy()
+        assign = assign.cpu().numpy()
+        del emb, d2
+
+        distance_cluster_sums.launches = 0
+        reqs, cell_idx, resps, sec, wall = _serve_traffic(
+            model, data, os.path.join(root, QUARANTINE_LEDGER_NAME))
+        launches = distance_cluster_sums.launches
+        validate_serving(sec)
+        n_in = sum(i is not None for i in cell_idx)
+        req, lat, bat = sec["requests"], sec["latency_ms"], sec["batches"]
+        log(f"[serve] {SERVE_REQUESTS} requests x {SERVE_CELLS} cells from "
+            f"{SERVE_CLIENTS} clients in {wall!r} s: "
+            f"{SERVE_REQUESTS / wall!r} requests/s, "
+            f"{SERVE_REQUESTS * SERVE_CELLS / wall!r} cells/s; latency ms "
+            f"p50 {lat['p50']!r} p99 {lat['p99']!r} max {lat['max']!r}; "
+            f"batches {bat['count']} of mean {bat['mean_cells']!r} cells "
+            f"(max {bat['max_cells']}); classify wall "
+            f"{sec['classify_wall_s']!r} s in all; outcomes "
+            f"{json.dumps({k: v for k, v in req.items() if v})}; breaker "
+            f"{json.dumps(sec['breaker'])}; kernel launches {launches}")
+        assert req["ok"] == n_in and req["quarantined"] == SERVE_OOD
+        assert req["degraded"] == 0 and sec["breaker"]["trips"] == 0
+        assert req["submitted"] == SERVE_REQUESTS
+        for r, idx in zip(resps, cell_idx):
+            assert r.quarantined == (idx is None), r.outcome
+        with open(os.path.join(root, QUARANTINE_LEDGER_NAME)) as f:
+            rows = [json.loads(ln) for ln in f if ln.strip()]
+        assert len(rows) == SERVE_OOD, len(rows)
+
+        # the replayed cells against their calibration, and the device
+        # against the host mirror, under the reference's tie band
+        x = np.concatenate([q for q, i in zip(reqs, cell_idx)
+                            if i is not None])
+        idx = np.concatenate([i for i in cell_idx if i is not None])
+        got = np.concatenate([r.labels for r, i in zip(resps, cell_idx)
+                              if i is not None])
+        dist = np.concatenate([r.distances for r, i in zip(resps, cell_idx)
+                               if i is not None])
+        want = model.centroid_labels[assign[idx]]
+        off = got != want
+        off_calib = _outside_tie_band(model, x[off], got[off],
+                                      _host_d2(model, x[off])[
+                                          np.arange(int(off.sum())),
+                                          assign[idx][off]])
+        h_lab, h_dist = model.classify_host(x)
+        off_h = got != h_lab
+        hd2 = _host_d2(model, x[off_h])
+        off_host = _outside_tie_band(model, x[off_h], got[off_h],
+                                     hd2.min(axis=1))
+        floor = _cancellation_floor(model, x)
+        err = np.abs(dist - h_dist)
+        above = h_dist > 10.0 * floor
+        n_out = int((err > 1e-3 * h_dist + floor).sum())
+        log(f"[serve] {got.size} replayed cells: {int(off.sum())} off their "
+            f"calibrated landmark's label, {off_calib} of them outside the "
+            f"tie band; against classify_host {int(off_h.sum())} labels "
+            f"differ, {off_host} outside the band; distances: max relative "
+            f"difference {float((err / h_dist)[above].max())!r} over the "
+            f"{int(above.sum())} cells above 10x the float32 cancellation "
+            f"floor (largest floor {float(floor.max())!r}), {n_out} cells "
+            f"outside 1e-3 relative + the floor")
+        assert off_calib == 0 and off_host == 0
+        assert n_out == 0
+
+        # where the classify wall goes, and a bare batch card against CPU
+        mean_cells = max(int(round(bat["mean_cells"])), 1)
+        split = _classify_split(model, x[:mean_cells])
+        x512 = x[:512]
+        cpu_model = model.to("cpu")
+        card_ms = _wall_ms(lambda: model.classify(x512))
+        cpu_ms = _wall_ms(lambda: cpu_model.classify(x512))
+        log(f"[serve] classify split at the mean batch ({mean_cells} "
+            f"cells), ms: {json.dumps(split)}; driver's classify wall per "
+            f"batch {sec['classify_wall_s'] / bat['count'] * 1e3!r} ms; "
+            f"bare 512-cell classify {card_ms!r} ms on the card, "
+            f"{cpu_ms!r} ms on the CPU")
+
+        _serve_faults(model, root, reqs[0 if cell_idx[0] is not None
+                                        else 1])
+        ratio = _guard_ratio()
+        log(f"[serve-guard] guarded / classify wall, best of 3: {ratio!r} "
+            f"(limit {GUARD_LIMIT})")
+        assert ratio < GUARD_LIMIT, ratio
+        # the faster gather, measured for the record: it shortens the
+        # classify, so the same guard is a larger share of it
+        log(f"[serve-guard] with the np.take gather (not shipped): "
+            f"{_guard_ratio(take=True)!r}; gather ms at the mean batch: "
+            f"{json.dumps(_gather_forms(model, x[:mean_cells]))}")
+        log(f"[serve] peak device memory {torch.cuda.max_memory_allocated()}"
+            " bytes")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1294,6 +1787,7 @@ def main() -> int:
     erec, dense_edger = phase_edger_full(data, truth, cons)
     csr_launches, ecsr_launches, csr = phase_full_csr(
         data, truth, cons, dense_fast, dense_edger)
+    serve_launches = phase_serve(data, dense_fast)
     wilcox_ref = _summary(dense_fast)
     del dense_fast, dense_edger
     seurat_launches = phase_full_seurat(data, truth, cons, wilcox_ref)
@@ -1320,9 +1814,11 @@ def main() -> int:
                    resume_launches["resume-corrupt-de"],
                "tm100k": tm_launches,
                "brain1m_sample": brec["launches"],
-               "sparse_1m": s1m_launches}
+               "sparse_1m": s1m_launches,
+               "serve_26k": serve_launches}
     log(f"[total] every phase in {time.perf_counter() - t_start!r} s")
     # times from the Wilcoxon path's inputs; launches from every full path
+    # (serving classifies with plain tensor code: no launch)
     log(json.dumps({"kernels": [{
         "name": "distance_cluster_sums",
         "route": "cuda",

@@ -7,12 +7,15 @@ this package imports nothing of it (nor JAX) and is held against it by the
 
 Entry points run on ``cuda`` by default and on the CPU only when called
 with ``device="cpu"``; with no card and no CPU request they raise. So far
-the port covers ``refine()`` end to end with the fast Wilcoxon, slow
-Wilcoxon and edgeR tests, at any cell count, on a dense matrix or a
-``scipy.sparse`` one (kept sparse on the device; ``load_mtx``,
-``load_npz`` and ``load_h5ad`` return CSR): past ``approx_threshold``
-through the pooled, landmark or kNN tree and the pooled silhouette
-estimator.
+the port covers ``refine()`` end to end with every DE method of the
+reference, at any cell count, on a dense matrix or a ``scipy.sparse``
+one (kept sparse on the device; ``load_mtx``, ``load_npz`` and
+``load_h5ad`` return CSR): past ``approx_threshold`` through the pooled,
+landmark or kNN tree and the pooled silhouette estimator. The serving
+path beside it: ``export_consensus_model`` freezes a finished run,
+``load_consensus_model`` loads it with its checksum verified, and
+``ConsensusServer`` serves ``classify(new_cells)`` through the guarded
+micro-batching driver.
 """
 
 from scconsensus_tpu_torch.config import CompatFlags, ReclusterConfig
@@ -37,6 +40,11 @@ from scconsensus_tpu_torch.ops.silhouette import (
     mean_cluster_silhouette,
     pooled_multi_cut_silhouette,
 )
+from scconsensus_tpu_torch.serve.driver import ConsensusServer
+from scconsensus_tpu_torch.serve.model import (
+    export_consensus_model,
+    load_consensus_model,
+)
 
 __all__ = [
     "plot_contingency_table",
@@ -54,4 +62,7 @@ __all__ = [
     "load_npz",
     "load_h5ad",
     "log_normalize",
+    "export_consensus_model",
+    "load_consensus_model",
+    "ConsensusServer",
 ]

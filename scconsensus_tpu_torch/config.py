@@ -1,9 +1,16 @@
-"""Pipeline configuration: ``CompatFlags`` and ``ReclusterConfig``.
+"""Pipeline configuration and the ``SCC_*`` environment flags.
 
-A mirror of ``scconsensus_tpu/config.py:503-669``: every field with the
-reference's default, ``landmark_policy`` and ``to_json``. The reference's
-environment-flag registry is not part of the port: where the reference
-reads a registered flag, the port takes the flag's registered default.
+A mirror of ``scconsensus_tpu/config.py:503-669``: every field of
+``CompatFlags`` and ``ReclusterConfig`` with the reference's default,
+``landmark_policy`` and ``to_json``. The reference's pipeline flags are
+not read: where ``refine()`` in the reference reads a registered flag,
+the port takes the flag's registered default.
+
+``ENV_FLAGS`` registers only the flags the serving path and the
+robustness core read (``scconsensus_tpu/config.py:32-41,486``), with the
+reference's names, types and defaults: the ``SCC_SERVE_*`` knobs, the
+fault plan, the retry budget and backoff, ``SCC_INTEGRITY``, request
+tracing, the SLO objectives and the tracer's sync policy.
 """
 
 from __future__ import annotations
@@ -11,9 +18,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import Any, Dict, Optional, Tuple
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
 
-__all__ = ["CompatFlags", "ReclusterConfig"]
+__all__ = ["CompatFlags", "ReclusterConfig", "EnvFlag", "ENV_FLAGS",
+           "env_flag"]
 
 # the registered defaults of the reference's landmark flags
 # (scconsensus_tpu/config.py:146-162): SCC_TREE_LANDMARK_THRESHOLD, and
@@ -142,3 +151,109 @@ class ReclusterConfig:
             None if self.min_diff_pct == -float("inf") else self.min_diff_pct
         )
         return json.dumps(d, indent=2, default=str)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvFlag:
+    name: str
+    type: type
+    default: Any
+    doc: str
+
+
+_FALSY = ("", "0", "false", "off", "no", "none")
+
+ENV_FLAGS: Dict[str, EnvFlag] = {
+    f.name: f
+    for f in [
+        # --- tracing (obs/trace.py) ---
+        EnvFlag("SCC_TRACE_SYNC", str, "stage",
+                "Tracer device-sync policy: 'stage' (synchronize the card "
+                "at stage-span boundaries; default), 'all' (every span) or "
+                "'off' (host dispatch intervals)."),
+        EnvFlag("SCC_STAGE_SYNC", bool, False,
+                "Force at least stage-boundary synchronization even when "
+                "SCC_TRACE_SYNC=off."),
+        # --- robustness (robust/) ---
+        EnvFlag("SCC_FAULT_PLAN", str, None,
+                "Path to a JSON fault-injection plan (robust.faults): "
+                "deterministic injection of named fault classes at the "
+                "serving sites and artifact writes. Unset = no injection."),
+        EnvFlag("SCC_ROBUST_BUDGET", int, 16,
+                "Per-run retry budget shared by every robust.retry call "
+                "site; once spent, further failures re-raise."),
+        EnvFlag("SCC_ROBUST_BACKOFF_S", float, 0.05,
+                "Base backoff of robust.retry's exponential ladder (attempt "
+                "n sleeps base*2^(n-1), capped, +0-50% deterministic "
+                "jitter)."),
+        EnvFlag("SCC_INTEGRITY", str, "off",
+                "Computation-integrity sentinels. Only 'off' runs in the "
+                "port: robust.integrity is not ported, and a server "
+                "constructed under another value raises."),
+        # --- serving (serve/) ---
+        EnvFlag("SCC_SERVE_MAX_BATCH", int, 512,
+                "Serving micro-batch cell cap: the worker coalesces queued "
+                "requests up to this many cells; a larger single request "
+                "is rejected typed at admission."),
+        EnvFlag("SCC_SERVE_QUEUE_CAP", int, 256,
+                "Bounded admission queue capacity in requests: a submit at "
+                "capacity raises typed QueueFull with retry_after_s."),
+        EnvFlag("SCC_SERVE_BATCH_WINDOW_S", float, 0.002,
+                "Micro-batch linger window after the first request of a "
+                "batch."),
+        EnvFlag("SCC_SERVE_DEADLINE_S", float, 30.0,
+                "Default per-request deadline; an overrun resolves as "
+                "typed DeadlineExceeded."),
+        EnvFlag("SCC_SERVE_BREAKER_THRESHOLD", int, 3,
+                "Consecutive device-class failures that open the circuit "
+                "breaker and route batches to the flagged host path."),
+        EnvFlag("SCC_SERVE_BREAKER_COOLDOWN_S", float, 5.0,
+                "Seconds an open breaker waits before a half-open probe "
+                "of the device path."),
+        EnvFlag("SCC_SERVE_DRIFT_FRAC", float, 0.5,
+                "Drift-quarantine gate: a request with at least this "
+                "fraction of cells past the model's foreign-cell distance "
+                "gets no labels and a ledger row. Values > 1 disable it."),
+        EnvFlag("SCC_SERVE_DRIFT_MARGIN", float, 1.5,
+                "Export-time drift margin: the foreign-cell threshold is "
+                "the training q99 nearest-landmark distance times this."),
+        EnvFlag("SCC_SERVE_LEDGER_DIR", str, None,
+                "Writable directory for the quarantine ledger and the "
+                "quarantined cells; wins over the model-dir default."),
+        EnvFlag("SCC_SERVE_LEDGER_MAX_CELLS", int, 100_000,
+                "Cap on quarantined cells written beside the ledger per "
+                "server lifetime (ledger lines keep appending)."),
+        # --- telemetry (serve/slo.py) ---
+        EnvFlag("SCC_OBS_TRACE", bool, True,
+                "Request tracing: mint a trace id at admission and carry "
+                "it through the serve_request span, the ledger row and "
+                "the recent-request ring."),
+        EnvFlag("SCC_SLO_AVAIL_TARGET", float, 0.999,
+                "Availability SLO target (good share of non-client-fault "
+                "outcomes)."),
+        EnvFlag("SCC_SLO_P99_MS", float, 250.0,
+                "Tail-latency SLO target (ms)."),
+        EnvFlag("SCC_SLO_WINDOWS_S", str, "300,3600",
+                "Comma-separated trailing windows (s) of the SLO burn "
+                "rates."),
+        EnvFlag("SCC_SLO_BURN_LIMIT", float, 14.4,
+                "Burn-rate threshold stamped on the slo section's "
+                "objectives."),
+    ]
+}
+
+
+def env_flag(name: str, env: Optional[Mapping[str, str]] = None) -> Any:
+    """Typed read of a registered flag (KeyError on an unregistered name).
+    Unset flags give the registered default; reads are dynamic, so tests
+    can set the environment. Bools: unset, "", "0", "false", "off", "no"
+    and "none" are False."""
+    spec = ENV_FLAGS[name]
+    raw = (os.environ if env is None else env).get(name)
+    if raw is None:
+        return spec.default
+    if spec.type is bool:
+        return raw.strip().lower() not in _FALSY
+    if spec.type in (int, float):
+        return spec.type(raw)
+    return raw

@@ -1,7 +1,7 @@
 """Truncated PCA via randomized subspace iteration (matrix products + QR).
 
-The torch form of ``scconsensus_tpu/ops/pca.py`` ``_subspace_basis`` and
-``pca_scores`` (:25-67), replacing ``irlba::prcomp_irlba(x, n, center=TRUE,
+The torch form of ``scconsensus_tpu/ops/pca.py`` ``_subspace_basis``,
+``pca_scores`` and ``pca_basis`` (:25-67, :101-119), replacing ``irlba::prcomp_irlba(x, n, center=TRUE,
 scale.=FALSE)`` (R/reclusterDEConsensus.R:234). Component signs are
 arbitrary, as with irlba; euclidean distances and Ward are sign-invariant.
 
@@ -19,7 +19,7 @@ import torch
 
 from scconsensus_tpu_torch.device import resolve_device
 
-__all__ = ["pca_scores"]
+__all__ = ["pca_scores", "pca_basis"]
 
 _N_OVERSAMPLE = 10  # extra subspace columns beyond n_components
 _N_ITER = 4         # power iterations
@@ -27,7 +27,8 @@ _N_ITER = 4         # power iterations
 
 def _subspace_basis(x: torch.Tensor, n_components: int, seed: int,
                     omega: Optional[torch.Tensor]):
-    """(vt (n_components, F), centered x)."""
+    """(mean (F,), vt (n_components, F), centered x): the one body behind
+    both entry points, so a frozen model's basis reproduces the scores."""
     n, f = x.shape
     k = min(n_components + _N_OVERSAMPLE, f, n)
     mean = torch.mean(x, dim=0)
@@ -51,7 +52,7 @@ def _subspace_basis(x: torch.Tensor, n_components: int, seed: int,
         q, _ = torch.linalg.qr(y)
     b = q.T @ xc                         # (k, F)
     _, _, vt = torch.linalg.svd(b, full_matrices=False)
-    return vt[:n_components], xc
+    return mean, vt[:n_components], xc
 
 
 def pca_scores(
@@ -66,10 +67,35 @@ def pca_scores(
     column signs. A tensor is used on its own device unless ``device``
     says otherwise; a numpy array goes to ``device`` ("cuda" by default).
     """
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            resolve_device(device))
-    elif device is not None:
-        x = x.to(device=resolve_device(device), dtype=torch.float32)
-    vt, xc = _subspace_basis(x, n_components, seed, omega)
+    _, vt, xc = _subspace_basis(_as_rows(x, device), n_components, seed,
+                                omega)
     return xc @ vt.T
+
+
+def pca_basis(
+    x: torch.Tensor,
+    n_components: int,
+    seed: int = 0,
+    omega: Optional[torch.Tensor] = None,
+    device=None,
+):
+    """The explicit projection behind :func:`pca_scores`: ``(mean (F,),
+    components (n_components, F))`` from the same subspace iteration, so
+    ``(x - mean) @ components.T`` reproduces the scores. A frozen
+    consensus model keeps it to project new cells into the space of its
+    landmarks. Devices as :func:`pca_scores`."""
+    mean, vt, _ = _subspace_basis(_as_rows(x, device), n_components, seed,
+                                  omega)
+    return mean, vt
+
+
+def _as_rows(x, device) -> torch.Tensor:
+    """``x`` as a float32 tensor: a tensor on its own device unless
+    ``device`` says otherwise, a numpy array on ``device`` (the card by
+    default)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            resolve_device(device))
+    if device is not None:
+        return x.to(device=resolve_device(device), dtype=torch.float32)
+    return x

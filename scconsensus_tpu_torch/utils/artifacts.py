@@ -13,12 +13,17 @@ or an npz that will not parse, moves the stage's files aside under
 ``*.quarantined-<n>`` names and raises ``ArtifactCorrupt``, and the stage
 recomputes.
 
+A ``readonly`` store (the serving path's frozen model directory, which
+may live on a read-only mount) touches nothing on disk: it refuses
+``save``, and a failed check raises without renaming the files. After
+each write the fault plan's ``artifact:<stage>`` rule may corrupt the
+file (``robust.faults.corrupt_artifact``), and every quarantine is noted
+on the robustness log (``robust.record``).
+
 Left out against the reference until a caller in the port needs them:
-the fault-injection hook (``robust.faults.corrupt_artifact``), the notes
-on the robustness log (``robust.record``) and ``discard_prefix`` (all
-with the port of ``robust/`` and the mid-stage checkpoints), the
-``readonly`` store of the serving path and the ``SCC_ROBUST_CHECKSUM``
-switch (checksums are always written and verified here).
+``discard_prefix`` (with the mid-stage checkpoints, ROADMAP A8) and the
+``SCC_ROBUST_CHECKSUM`` switch (checksums are always written and
+verified here).
 """
 
 from __future__ import annotations
@@ -38,9 +43,11 @@ from scconsensus_tpu_torch.obs.export import (
     ATOMIC_TMP_PREFIX as _TMP_PREFIX,
     atomic_write as _atomic_bytes_writer,
 )
+from scconsensus_tpu_torch.robust import faults as _faults
+from scconsensus_tpu_torch.robust import record as _robust_record
 
 __all__ = ["ArtifactStore", "ArtifactCorrupt", "input_fingerprint",
-           "file_sha256", "quarantine_files"]
+           "config_fingerprint", "file_sha256", "quarantine_files"]
 
 _log = logging.getLogger("scconsensus_tpu_torch")
 
@@ -95,6 +102,15 @@ def input_fingerprint(data, labels) -> Dict[str, Any]:
     }
 
 
+def config_fingerprint(obj: Any, n_hex: int = 12) -> str:
+    """Short, key-order-independent content hash of a JSON-able value
+    (the reference's): a frozen model stamps its config's with it.
+    Non-JSON leaves go through ``str``, so a numpy scalar fingerprints
+    like its value."""
+    blob = json.dumps(obj, sort_keys=True, default=str, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()[:n_hex]
+
+
 def file_sha256(path: str) -> str:
     """Streaming sha256 of a file's bytes: the content checksum of every
     stored artifact."""
@@ -130,10 +146,13 @@ def quarantine_files(paths) -> list:
 
 
 class ArtifactStore:
-    def __init__(self, root: Optional[str]):
-        """``root`` None disables the store (nothing is read or written)."""
+    def __init__(self, root: Optional[str], readonly: bool = False):
+        """``root`` None disables the store (nothing is read or written).
+        ``readonly=True`` opens it without touching the filesystem (no
+        mkdir, no sweep of stale temps)."""
         self.root = root
-        if root is not None:
+        self.readonly = bool(readonly)
+        if root is not None and not self.readonly:
             os.makedirs(root, exist_ok=True)
             self._sweep_stale_tmp()
 
@@ -222,6 +241,11 @@ class ArtifactStore:
         ride the sidecar (``_integrity``)."""
         if not self.enabled:
             return
+        if self.readonly:
+            raise RuntimeError(
+                f"artifact store {self.root!r} is readonly — a frozen "
+                "model directory is never written by the serving path"
+            )
         npz, js = self._paths(stage)
 
         def _write_sidecar(integrity: Optional[Dict[str, Any]]) -> None:
@@ -255,10 +279,25 @@ class ArtifactStore:
                             "size": os.path.getsize(tmp)})
 
         _atomic_bytes_writer(npz, _wz, inspect_fn=_seal)
+        # the fault plan's post-write corruption (artifact:<stage>): a
+        # disk or transport fault after the replace, which the load-time
+        # checksum exists for
+        _faults.corrupt_artifact(stage, npz)
 
     def _quarantine(self, stage: str, reason: str) -> None:
-        """Move the stage's files aside under ``*.quarantined-<n>`` names."""
+        """Move the stage's files aside under ``*.quarantined-<n>`` names
+        and note it on the robustness log. A readonly store leaves the
+        files where they are: the load still raises, nothing is served."""
+        if self.readonly:
+            _robust_record.note_degradation(
+                f"artifact:{stage}", "quarantine", reason + " (readonly)")
+            _log.warning("artifact %r failed verification (%s); store is "
+                         "readonly, files left in place and load refused",
+                         stage, reason)
+            return
         quarantine_files(self._paths(stage))
+        _robust_record.note_degradation(f"artifact:{stage}", "quarantine",
+                                        reason)
         _log.warning("artifact %r quarantined (%s); stage will recompute",
                      stage, reason)
 
