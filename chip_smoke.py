@@ -34,7 +34,8 @@ checkout, and exits non-zero on the first phase that fails:
  10. Tabula Muris 100k: 100,000 cells × 12,000 genes × 40 planted clusters
      drawn on the card (the 26k data freed first), refined with
      ``approx_threshold=50_000`` as the reference bench runs it: the pool
-     branch and the pooled silhouette, which launches no kernel;
+     branch and the pooled silhouette, which launches no kernel; the
+     ``quality`` stage under 2 % of the wall;
  11. the 1M landmark tree: the reference bench's 1,000,000 × 15 planted
      embedding, ``landmark_ward_linkage``, the weighted cut propagated to
      the cells, and the silhouette of a seeded 50,000-cell sample through
@@ -53,7 +54,8 @@ checkout, and exits non-zero on the first phase that fails:
      contingency grammar, ``recluster_de_consensus_fast(csr, consensus,
      q_val_thrs=0.05, approx_threshold=50_000)``: the compacted window
      ladder, the landmark tree and the pooled silhouette, with peak device
-     memory held below the dense matrix's size;
+     memory held below the dense matrix's size and the ``quality`` stage
+     under 2 % of the wall;
  15. the Seurat tests at 2k, card against CPU: bimod, t and roc on the
      phase 4 data, dense and as CSR through ``load_npz``, and bimod and t
      with ``max_cells_per_ident=200``: the checks of phase 4, log p within
@@ -86,12 +88,35 @@ checkout, and exits non-zero on the first phase that fails:
      corrupt model is refused (in place by the readonly store,
      quarantined by the default one), and the reference's overhead guard
      holds guarded over classify wall below 1.02 on the card; latencies,
-     throughput, batches, the classify split and peak memory printed.
+     throughput, batches, the classify split and peak memory printed;
+     then (phase 21 f) the stream again under ``SCC_INTEGRITY=audit``
+     with 0 replay mismatches, and a ``serve_classify`` corruption the
+     replay catches;
+ 20. the guard rails at 2k, card against CPU, fast Wilcoxon and edgeR:
+     the ``quality`` sections agree (funnel counts exactly, ARIs within
+     1e-12, silhouettes within 1e-4); under ``SCC_INTEGRITY=audit`` both
+     devices run the same checks and ghost replays with 0 mismatches;
+     under ``enforce`` a ``wilcox_bucket_out`` corruption (edgeR: a
+     ``bh_logq`` one, its DE having no rank-sum ladder) is detected and
+     recomputed to the unfaulted run's bits;
+ 21. the guarded 26k flagship (phase 6's data, fast Wilcoxon), every run
+     held to phase 7's bits with one kernel launch: (a) ``audit`` with
+     ``SCC_OBS_NUMERIC=1``, best of 2, the integrity and quality layers
+     each under 2 % of the wall with every check passed, and each run's
+     ``quality`` stage too; (b) a
+     ``stage:embed`` OOM and a ``stage:tree`` transient fault, both
+     recovered; (c) ``enforce`` with a ``wilcox_bucket_out`` and a
+     ``bh_logq`` corruption, both detected and recomputed; (d) a child
+     process killed at ``wilcox_bucket`` after half the ladder's buckets,
+     resumed here from the finished ones (the fault point's hits count
+     the rest), its blocks gone once ``de`` saves and
+     ``robust_state.json`` at 0; (e) the robustness layer under 2 % of
+     that stored run's wall.
 
-Phases run in the order 1–5, 12, 15, 6–8, 13, 19, 16–18, 9–11, 14, so
-that the 26k data serves phases 7–8, 13, 19 and 16–18 (phase 19 while
-phase 7's result is alive) and is freed before the larger ones; the line
-before the kernel record gives the total time.
+Phases run in the order 1–5, 12, 15, 20, 6–8, 13, 19, 16–18, 21, 9–11,
+14, so that the 26k data serves phases 7–8, 13, 19, 16–18 and 21 (phase
+19 while phase 7's result is alive) and is freed before the larger ones;
+the line before the kernel record gives the total time.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -529,6 +554,25 @@ def _run_full(tag: str, call, truth, min_launches: int = 1,
     return res, launches
 
 
+# the guard rails: each layer, measured by itself, costs under 2 % of the
+# refine() wall (the reference's contracts: tests/test_robust_integrity.py:
+# 811-845, tests/test_robust_faults.py:624-650, tests/test_obs_quality.py:
+# 550-580)
+LAYER_SHARE_LIMIT = 0.02
+
+
+def _quality_share(tag: str, m: dict) -> float:
+    """The ``quality`` stage's wall over the refine() wall, held to the
+    reference's < 2 % contract (tests/test_obs_quality.py:550-580)."""
+    share = m["stage_walls_s"]["quality"] / m["wall_s"]
+    log(f"[{tag}] quality stage {m['stage_walls_s']['quality']!r} s, "
+        f"{share!r} of the wall (limit {LAYER_SHARE_LIMIT})")
+    if not share < LAYER_SHARE_LIMIT:
+        raise AssertionError(f"[{tag}] the quality stage costs 2 % or more "
+                             "of the wall")
+    return share
+
+
 def _measure_main_path(res, label: str) -> dict:
     """The kernel at the inputs the main path gave it."""
     import torch
@@ -646,6 +690,8 @@ def phase_tm100k() -> int:
             data, cons, approx_threshold=50_000, device="cuda"), truth,
         min_launches=0)
     m = res.metrics
+    log(f"[tm100k] {n_cells / m['wall_s']!r} cells/s")
+    _quality_share("tm100k", m)
     log(f"[tm100k] tree {json.dumps(m['tree'])}; silhouette "
         f"{json.dumps(m['silhouette'])}")
     if not m["tree"]["approx"] or m["tree"]["landmark"]:
@@ -917,6 +963,7 @@ def phase_sparse_1m() -> int:
         f"{m['peak_bytes']} bytes against the dense matrix's {dense_bytes}; "
         f"ladder {ladder['route']}, {len(ladder['buckets'])} buckets, "
         f"windows {sorted({b['window'] for b in ladder['buckets']})}")
+    _quality_share("sparse1m", m)
     log(f"[sparse1m] tree {json.dumps(m['tree'])}; silhouette "
         f"{json.dumps(m['silhouette'])}")
     if ladder["route"] != "csr-compacted":
@@ -1755,8 +1802,393 @@ def phase_serve(data, res) -> int:
         log(f"[serve-guard] with the np.take gather (not shipped): "
             f"{_guard_ratio(take=True)!r}; gather ms at the mean batch: "
             f"{json.dumps(_gather_forms(model, x[:mean_cells]))}")
+        _serve_audited(model, data, root)
         log(f"[serve] peak device memory {torch.cuda.max_memory_allocated()}"
             " bytes")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _serve_audited(model, data, root: str) -> None:
+    """Phase 21 (f): the stream again under SCC_INTEGRITY=audit, with 0
+    replay mismatches, then a serve_classify corruption the replay
+    catches."""
+    from scconsensus_tpu_torch import ConsensusServer
+    from scconsensus_tpu_torch.robust import integrity
+    from scconsensus_tpu_torch.serve.driver import QUARANTINE_LEDGER_NAME
+
+    with _env(SCC_INTEGRITY="audit"):
+        integrity.begin_run()
+        reqs, cell_idx, resps, sec, wall = _serve_traffic(
+            model, data, os.path.join(root, "audit-" +
+                                      QUARANTINE_LEDGER_NAME))
+        ig = integrity.section()
+        log(f"[serve-audit] {SERVE_REQUESTS} requests in {wall!r} s "
+            f"({SERVE_REQUESTS * SERVE_CELLS / wall!r} cells/s); latency "
+            f"ms p50 {sec['latency_ms']['p50']!r} p99 "
+            f"{sec['latency_ms']['p99']!r}; ghost replays "
+            f"{json.dumps({k: ig['ghost'][k] for k in ('planned', 'run', 'passed')})}"
+            f", integrity consumed {ig['consumed_s']!r} s")
+        if not ig["all_checks_passed"] or ig["ghost"]["mismatches"] \
+                or ig["ghost"]["run"] < 1 \
+                or sec["requests"]["submitted"] != SERVE_REQUESTS:
+            raise AssertionError("[serve-audit] a replay disagreed")
+    request = reqs[0 if cell_idx[0] is not None else 1]
+    plan = _write_plan(root, [{"site": "serve_classify",
+                               "class": "corruption"}])
+    with _env(SCC_INTEGRITY="audit", SCC_FAULT_PLAN=plan):
+        integrity.begin_run()
+        with ConsensusServer(model, device="cuda") as srv:
+            srv.classify(request, timeout=60.0)
+        ig = integrity.section()
+    log(f"[serve-audit] a serve_classify corruption: detected by "
+        f"{_detected_by(ig)}")
+    if _detected_by(ig) != ["replay_classify_d2"]:
+        raise AssertionError("[serve-audit] the corruption went unseen")
+
+
+
+@contextlib.contextmanager
+def _consumed_by_site():
+    """The robustness layer's ``consumed_s`` split by the line of each
+    timed block, for the block's duration (a dict filled as it runs)."""
+    import traceback
+
+    from scconsensus_tpu_torch.robust import record as robust_record
+
+    by_site: dict = {}
+    real = robust_record.add_consumed
+
+    def add(dt):
+        frame = traceback.extract_stack(limit=3)[0]
+        key = f"{os.path.basename(frame.filename)}:{frame.lineno}"
+        by_site[key] = by_site.get(key, 0.0) + dt
+        real(dt)
+
+    robust_record.add_consumed = add
+    try:
+        yield by_site
+    finally:
+        robust_record.add_consumed = real
+
+
+@contextlib.contextmanager
+def _env(**kw):
+    """Set environment flags for the block; the fault plan's cache starts
+    fresh."""
+    from scconsensus_tpu_torch.robust import faults
+
+    saved = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    faults.reset()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+
+
+def _write_plan(root: str, rules, name: str = "plan.json") -> str:
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        json.dump({"faults": rules}, f)
+    return path
+
+
+def _detected_by(section) -> list:
+    """The check names that caught something on an integrity section."""
+    return sorted({v["check"] for v in section["violations"]}
+                  | {m["check"] for m in section["ghost"]["mismatches"]})
+
+
+def _same_quality(tag: str, a: dict, b: dict) -> None:
+    """Two ``quality`` sections, card against CPU: the funnel, the
+    ladder, the numeric health and the cluster sizes identical, ARIs and
+    entropies within 1e-12, silhouettes within 1e-4."""
+    if a["de_funnel"] != b["de_funnel"]:
+        raise AssertionError(f"[{tag}] DE funnels differ")
+    if a.get("wilcox_ladder") != b.get("wilcox_ladder"):
+        raise AssertionError(f"[{tag}] window ladders differ")
+    if a["numeric_health"] != b["numeric_health"]:
+        raise AssertionError(f"[{tag}] numeric health differs")
+    ca, cb = a["cluster_structure"], b["cluster_structure"]
+    for ka, kb in ((ca.get("ari_vs_input"), cb.get("ari_vs_input")),
+                   ({str(i): c["ari"] for i, c in enumerate(ca["churn"])},
+                    {str(i): c["ari"] for i, c in enumerate(cb["churn"])})):
+        if ka.keys() != kb.keys() or any(abs(ka[k] - kb[k]) > 1e-12
+                                         for k in ka):
+            raise AssertionError(f"[{tag}] ARIs differ: {ka} {kb}")
+    for x, y in zip(ca["cuts"], cb["cuts"], strict=True):
+        for k in ("n_clusters", "n_unassigned", "sizes"):
+            if x[k] != y[k]:
+                raise AssertionError(f"[{tag}] {x['cut']}: {k} differs")
+        if abs(x["contingency_entropy"] - y["contingency_entropy"]) > 1e-12 \
+                or abs(x["silhouette"] - y["silhouette"]) > 1e-4:
+            raise AssertionError(f"[{tag}] {x['cut']}: entropy or "
+                                 "silhouette differs")
+    log(f"[{tag}] quality sections agree: funnel "
+        f"{json.dumps(a['de_funnel']['total'])}, ARI vs input "
+        f"{json.dumps(ca.get('ari_vs_input'))}")
+
+
+def phase_guard_small() -> None:
+    """Phase 20: the guard rails at 2k, card against CPU, fast Wilcoxon
+    and edgeR: the quality sections agree; under SCC_INTEGRITY=audit both
+    devices run the same checks and replays with 0 mismatches; under
+    enforce a corruption on each path's DE (the Wilcoxon ladder's
+    wilcox_bucket_out, edgeR's bh_logq) is detected and recomputed to the
+    unfaulted run's bits."""
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch import (
+        ReclusterConfig,
+        recluster_de_consensus,
+        refine,
+    )
+
+    fast_cfg = ReclusterConfig()
+    edger_cfg = ReclusterConfig(method="edger", q_val_thrs=0.01,
+                                log_fc_thrs=math.log(2.0),
+                                mean_scaling_factor=2.0)
+    # each path with the corruption site its DE runs through: the
+    # Wilcoxon ladder's bucket output, edgeR's BH
+    runs = {
+        "guard-small": (fast_cfg, lambda data, cons, dev, omega: refine(
+            data, cons, fast_cfg, device=dev, omega=omega),
+            "wilcox_bucket_out"),
+        "guard-small-edger": (edger_cfg, lambda data, cons, dev, omega:
+                              recluster_de_consensus(
+                                  data, cons, device=dev, omega=omega,
+                                  **EDGER_KW), "bh_logq"),
+    }
+    root = tempfile.mkdtemp(prefix="scc-guard-")
+    try:
+        for tag, (cfg, run, site) in runs.items():
+            with _env(SCC_INTEGRITY="audit", SCC_OBS_NUMERIC="1"):
+                gpu, cpu, omega = _card_against_cpu(tag, cfg, run)
+            _same_quality(tag, gpu.metrics["quality"],
+                          cpu.metrics["quality"])
+            ig, ic = gpu.metrics["integrity"], cpu.metrics["integrity"]
+            for k in ("checks", "per_check"):
+                if ig[k] != ic[k]:
+                    raise AssertionError(f"[{tag}] integrity {k} differ")
+            for k in ("planned", "run", "passed"):
+                if ig["ghost"][k] != ic["ghost"][k]:
+                    raise AssertionError(f"[{tag}] ghost {k} differ")
+            if not (ig["all_checks_passed"] and ic["all_checks_passed"]) \
+                    or ig["ghost"]["mismatches"] or ic["ghost"]["mismatches"]:
+                raise AssertionError(f"[{tag}] an integrity check failed")
+            log(f"[{tag}] audit on both devices: checks "
+                f"{json.dumps(ig['checks'])}, ghost replays "
+                f"{ig['ghost']['run']} with 0 mismatches; "
+                f"{json.dumps(ig['per_check'])}")
+            plan = _write_plan(root, [{"site": site,
+                                       "class": "corruption",
+                                       "mode": "signflip"}])
+            data, cons = _small_data()
+            with _env(SCC_INTEGRITY="enforce", SCC_FAULT_PLAN=plan):
+                faulted = run(data, cons, "cuda", omega)
+            fig = faulted.metrics["integrity"]
+            rb = faulted.metrics["robustness"]
+            recovered = [r for r in rb["retries"]
+                         if r["error_class"] == "silent_corruption"
+                         and r["recovered"]]
+            log(f"[{tag}] enforce with a {site} corruption: "
+                f"detected by {_detected_by(fig)}, recomputes "
+                f"{fig['ghost']['recomputes']}, retries "
+                f"{json.dumps(recovered)}")
+            if not _detected_by(fig) or not recovered \
+                    or fig["ghost"]["recomputes"] < 1:
+                raise AssertionError(f"[{tag}] the corruption was not "
+                                     "detected and recomputed")
+            _same_bits(f"{tag}-enforce", faulted, {
+                "union": gpu.de_gene_union_idx,
+                "labels": dict(gpu.dynamic_labels),
+                "silhouettes": [i["silhouette"]
+                                for i in gpu.deep_split_info]})
+            if not np.array_equal(faulted.de.de_mask.cpu().numpy(),
+                                  gpu.de.de_mask.cpu().numpy()):
+                raise AssertionError(f"[{tag}-enforce] DE masks differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+_KILL_CHILD = """
+import sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+from scconsensus_tpu_torch import recluster_de_consensus_fast
+
+data, truth, cons = chip_smoke.phase_full_data()
+recluster_de_consensus_fast(data, cons, device="cuda",
+                            artifact_dir={store!r})
+print("UNEXPECTED: the run survived a kill fault")
+"""
+
+
+def phase_guarded(data, truth, cons, wilcox_ref, n_buckets: int) -> dict:
+    """Phase 21: the guarded 26k flagship (fast Wilcoxon), each run held
+    to phase 7's bits: (a) audit with the numeric sentinels, best of 2,
+    each layer's share of the wall; (b) a stage:embed OOM and a
+    stage:tree transient fault, both recovered; (c) enforce with a
+    wilcox_bucket_out and a bh_logq corruption, both detected and
+    recomputed; (d) a child process killed at wilcox_bucket after half
+    the ladder, resumed here from its finished buckets; (e) the
+    robustness layer's share of that stored run. Returns the kernel's
+    launches per run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.obs import quality
+    from scconsensus_tpu_torch.robust import faults, integrity
+    from scconsensus_tpu_torch.robust import record as robust_record
+    from scconsensus_tpu_torch.utils.artifacts import ArtifactStore
+
+    launches = {}
+    root = tempfile.mkdtemp(prefix="scc-guarded-")
+
+    def run(tag, **kw):
+        res, launches[tag] = _run_full(
+            tag, lambda: recluster_de_consensus_fast(
+                data, cons, device="cuda", **kw), truth)
+        if launches[tag] != 1:
+            raise AssertionError(f"[{tag}] {launches[tag]} kernel launches")
+        _same_bits(tag, res, wilcox_ref)
+        return res
+
+    try:
+        # (a) audit + numeric sentinels, best of 2
+        shares = []
+        with _env(SCC_INTEGRITY="audit", SCC_OBS_NUMERIC="1"):
+            for i in range(2):
+                quality.reset_cpu()
+                res = run(f"guarded-audit-{i}")
+                wall = res.metrics["wall_s"]
+                ig, q = res.metrics["integrity"], res.metrics["quality"]
+                ig_s = integrity.current().consumed_s
+                q_s = quality.consumed_cpu_s()
+                shares.append((ig_s / wall, q_s / wall))
+                log(f"[guarded-audit-{i}] wall {wall!r} s; integrity "
+                    f"consumed {ig_s!r} s ({ig_s / wall!r} of the wall), "
+                    f"quality {q_s!r} s ({q_s / wall!r}); checks "
+                    f"{json.dumps(ig['checks'])}, ghost replays "
+                    f"{ig['ghost']['run']} ({json.dumps(ig['per_check'])});"
+                    f" numeric checks {q['numeric_health']['checks']}, "
+                    f"trips {len(q['numeric_health']['trips'])}; funnel "
+                    f"{json.dumps(q['de_funnel']['total'])}")
+                if not ig["all_checks_passed"] or \
+                        q["numeric_health"]["trips"]:
+                    raise AssertionError(f"[guarded-audit-{i}] a check "
+                                         "failed")
+                _quality_share(f"guarded-audit-{i}", res.metrics)
+        ig_share = min(s[0] for s in shares)
+        q_share = min(s[1] for s in shares)
+        log(f"[guarded-audit] best of 2: integrity {ig_share!r}, quality "
+            f"{q_share!r} of the wall (limit {LAYER_SHARE_LIMIT})")
+        if not (ig_share < LAYER_SHARE_LIMIT and q_share < LAYER_SHARE_LIMIT):
+            raise AssertionError("[guarded-audit] a layer costs 2 % or "
+                                 "more of the wall")
+
+        # (b) two stage faults, recovered in the process
+        plan = _write_plan(root, [
+            {"site": "stage:embed", "class": "oom"},
+            {"site": "stage:tree", "class": "transient"}])
+        with _env(SCC_FAULT_PLAN=plan):
+            res = run("guarded-faults")
+        rb = res.metrics["robustness"]
+        log(f"[guarded-faults] retries {json.dumps(rb['retries'])}; "
+            f"degradations {json.dumps(rb['degradations'])}")
+        if sorted((r["site"], r["error_class"]) for r in rb["retries"]
+                  if r["recovered"]) != [("stage:embed", "resource"),
+                                         ("stage:tree", "transient")]:
+            raise AssertionError("[guarded-faults] the two faults were not "
+                                 "both recovered")
+
+        # (c) enforce: two corruptions, both detected and recomputed
+        plan = _write_plan(root, [
+            {"site": "wilcox_bucket_out", "class": "corruption",
+             "mode": "signflip"},
+            {"site": "bh_logq", "class": "corruption", "mode": "signflip"}])
+        with _env(SCC_INTEGRITY="enforce", SCC_FAULT_PLAN=plan):
+            res = run("guarded-enforce")
+        ig = res.metrics["integrity"]
+        rb = res.metrics["robustness"]
+        sites = sorted(r["site"] for r in rb["retries"]
+                       if r["error_class"] == "silent_corruption"
+                       and r["recovered"])
+        log(f"[guarded-enforce] detected by {_detected_by(ig)}; recovered "
+            f"silent_corruption retries at {sites}; recomputes "
+            f"{ig['ghost']['recomputes']}")
+        if "bh_monotonic" not in _detected_by(ig) or len(
+                _detected_by(ig)) < 2 or sites != ["stage:de",
+                                                   "wilcox_bucket"] \
+                or ig["ghost"]["recomputes"] < 2:
+            raise AssertionError("[guarded-enforce] a corruption was not "
+                                 "detected and recomputed")
+
+        # (d) kill a child at wilcox_bucket after half the ladder, then
+        # resume here from the finished buckets
+        store = os.path.join(root, "store")
+        killed_at = n_buckets // 2
+        plan = _write_plan(root, [{"site": "wilcox_bucket",
+                                   "class": "kill", "after": killed_at}],
+                           name="kill.json")
+        env = dict(os.environ, SCC_FAULT_PLAN=plan)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             _KILL_CHILD.format(repo=REPO, store=store)],
+            env=env, capture_output=True, text=True, timeout=600)
+        t_child = time.perf_counter() - t0
+        blocks = sorted(n for n in os.listdir(store)
+                        if n.startswith("de_wilcox_") and n.endswith(".npz"))
+        log(f"[guarded-kill] child exit {proc.returncode} after "
+            f"{t_child!r} s; {len(blocks)} of {n_buckets} buckets stored "
+            f"({sum(os.path.getsize(os.path.join(store, b)) for b in blocks)}"
+            " bytes)")
+        if proc.returncode != -9 or len(blocks) != killed_at:
+            raise AssertionError(
+                f"[guarded-kill] rc {proc.returncode}, {len(blocks)} blocks;"
+                f" stderr {proc.stderr[-800:]}")
+        count = _write_plan(root, [{"site": "wilcox_bucket",
+                                    "class": "stall", "after": 10 ** 9}],
+                            name="count.json")
+        with _env(SCC_FAULT_PLAN=count), _consumed_by_site() as by_site:
+            res = run("guarded-resume", artifact_dir=store)
+            hits = faults._HITS.get(0, 0)
+        rb = res.metrics["robustness"]
+        rb_s = robust_record.current_run().consumed_s
+        wall = res.metrics["wall_s"]
+        left = sorted(n for n in os.listdir(store)
+                      if n.startswith("de_wilcox_"))
+        budget = ArtifactStore(store).load("robust_state")[1]["budget_used"]
+        log(f"[guarded-resume] wall {wall!r} s; {hits} buckets computed of "
+            f"{n_buckets}; resume points {json.dumps(rb['resume_points'])};"
+            f" blocks left {len(left)}; robust_state budget_used {budget}; "
+            f"stage walls {json.dumps(res.metrics['stage_walls_s'])}")
+        if hits != n_buckets - killed_at or rb["resume_points"] != [{
+                "stage": "wilcox_test", "unit": "bucket",
+                "completed": killed_at, "total": n_buckets}] \
+                or left or budget != 0:
+            raise AssertionError("[guarded-resume] the resume did not "
+                                 "pick up the finished buckets alone")
+        # (e) the robustness layer's share of the stored run
+        log(f"[guarded-resume] robustness consumed {rb_s!r} s "
+            f"({rb_s / wall!r} of the wall, limit {LAYER_SHARE_LIMIT}); "
+            f"by site {json.dumps(by_site)}")
+        if not rb_s / wall < LAYER_SHARE_LIMIT:
+            raise AssertionError("[guarded-resume] the robustness layer "
+                                 "costs 2 % or more of the wall")
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -1782,6 +2214,7 @@ def main() -> int:
     phase_small_edger()
     phase_small_csr()
     phase_small_seurat()
+    phase_guard_small()
     data, truth, cons = phase_full_data()
     rec, dense_fast = phase_full(data, truth, cons)
     erec, dense_edger = phase_edger_full(data, truth, cons)
@@ -1789,9 +2222,12 @@ def main() -> int:
         data, truth, cons, dense_fast, dense_edger)
     serve_launches = phase_serve(data, dense_fast)
     wilcox_ref = _summary(dense_fast)
+    n_buckets = len(dense_fast.metrics["wilcox_ladder"]["buckets"])
     del dense_fast, dense_edger
     seurat_launches = phase_full_seurat(data, truth, cons, wilcox_ref)
     resume_launches = phase_resume(data, truth, cons, wilcox_ref)
+    guarded_launches = phase_guarded(data, truth, cons, wilcox_ref,
+                                     n_buckets)
     phase_contract(data, cons, csr)
     del data, csr, wilcox_ref
     torch.cuda.empty_cache()
@@ -1815,7 +2251,13 @@ def main() -> int:
                "tm100k": tm_launches,
                "brain1m_sample": brec["launches"],
                "sparse_1m": s1m_launches,
-               "serve_26k": serve_launches}
+               "serve_26k": serve_launches,
+               "wilcox_26k_audit": (guarded_launches["guarded-audit-0"]
+                                    + guarded_launches["guarded-audit-1"]),
+               "wilcox_26k_faulted": guarded_launches["guarded-faults"],
+               "wilcox_26k_enforce": guarded_launches["guarded-enforce"],
+               "wilcox_26k_killed_resumed":
+                   guarded_launches["guarded-resume"]}
     log(f"[total] every phase in {time.perf_counter() - t_start!r} s")
     # times from the Wilcoxon path's inputs; launches from every full path
     # (serving classifies with plain tensor code: no launch)

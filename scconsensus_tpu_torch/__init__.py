@@ -11,11 +11,13 @@ the port covers ``refine()`` end to end with every DE method of the
 reference, at any cell count, on a dense matrix or a ``scipy.sparse``
 one (kept sparse on the device; ``load_mtx``, ``load_npz`` and
 ``load_h5ad`` return CSR): past ``approx_threshold`` through the pooled,
-landmark or kNN tree and the pooled silhouette estimator. The serving
-path beside it: ``export_consensus_model`` freezes a finished run,
-``load_consensus_model`` loads it with its checksum verified, and
-``ConsensusServer`` serves ``classify(new_cells)`` through the guarded
-micro-batching driver.
+landmark or kNN tree and the pooled silhouette estimator, under the
+reference's guard rails (the ``quality`` section, the fault plan and the
+typed retry, mid-stage Wilcoxon resume, ``SCC_INTEGRITY``) and with its
+heatmaps. The serving path beside it: ``export_consensus_model`` freezes
+a finished run, ``load_consensus_model`` loads it with its checksum
+verified, and ``ConsensusServer`` serves ``classify(new_cells)`` through
+the guarded micro-batching driver.
 """
 
 from scconsensus_tpu_torch.config import CompatFlags, ReclusterConfig

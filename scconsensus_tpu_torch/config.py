@@ -186,10 +186,37 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "Base backoff of robust.retry's exponential ladder (attempt "
                 "n sleeps base*2^(n-1), capped, +0-50% deterministic "
                 "jitter)."),
+        EnvFlag("SCC_ROBUST_DE_CKPT", bool, True,
+                "Mid-stage wilcox checkpointing: with an artifact store "
+                "active, each completed window-ladder bucket persists "
+                "its (log_p, u, ties) block so a kill mid-stage resumes "
+                "from completed buckets instead of recomputing the whole "
+                "DE stage. Set 0 to disable (store-less runs are always "
+                "unaffected)."),
+        # --- integrity (robust/integrity.py) ---
         EnvFlag("SCC_INTEGRITY", str, "off",
-                "Computation-integrity sentinels. Only 'off' runs in the "
-                "port: robust.integrity is not ported, and a server "
-                "constructed under another value raises."),
+                "Computation-integrity sentinels (robust.integrity): "
+                "'off' (default), 'audit' (algebraic invariant checks at "
+                "stage boundaries and a seeded ghost-replay sample "
+                "recomputed through the float64 host oracle, recorded on "
+                "the validated integrity section) or 'enforce' (a "
+                "violation or replay mismatch raises typed "
+                "silent_corruption and the unit recomputes)."),
+        EnvFlag("SCC_INTEGRITY_TOL_SCALE", float, 1.0,
+                "Scale factor on every integrity tolerance band "
+                "(robust.integrity.TOLERANCES). Tests shrink it to force "
+                "detections."),
+        EnvFlag("SCC_INTEGRITY_EVICT_THRESHOLD", int, 2,
+                "Consecutive silent-corruption detections at one site "
+                "before the retry policy escalates to its device-loss "
+                "hook (a device that computes wrong is treated like one "
+                "that died)."),
+        # --- quality telemetry (obs/quality.py) ---
+        EnvFlag("SCC_OBS_NUMERIC", bool, False,
+                "Numeric-health sentinels (obs.quality): NaN/Inf guards "
+                "at stage boundaries in the pipeline, the DE engine and "
+                "the NB driver. A trip records the stage, the array and "
+                "the counts on the quality section's numeric_health."),
         # --- serving (serve/) ---
         EnvFlag("SCC_SERVE_MAX_BATCH", int, 512,
                 "Serving micro-batch cell cap: the worker coalesces queued "

@@ -3,8 +3,10 @@
 Reproduces the *behavior* of the reference's consensus entry point
 (``R/plotContingencyTable.R:15-116``) with a host-side numpy implementation —
 this stage is O(N) once per run, so it stays on host by design (SURVEY.md §3 E1).
-A copy of ``scconsensus_tpu/consensus/contingency.py`` without its integrity
-hooks; the heatmap waits for the port's report layer.
+A copy of ``scconsensus_tpu/consensus/contingency.py``: the table passes the
+``contingency_table`` corruption site and the conservation check of
+``robust.integrity``, and ``filename`` draws the heatmap through the
+port's report layer (host matplotlib, imported only then).
 
 Semantics implemented (anchors into the reference for parity checking):
   * contingency table = cross-tab of two label vectors, rows/cols in sorted
@@ -76,6 +78,17 @@ def contingency_table(labels_1: Sequence, labels_2: Sequence) -> ContingencyResu
     k1, k2 = row_labels.size, col_labels.size
     mat = np.zeros((k1, k2), dtype=np.int64)
     np.add.at(mat, (ridx, cidx), 1)
+    # the integrity tier: the injected corruption site and conservation
+    # (row sums = the first labeling's cluster sizes, column sums the
+    # second's, total N)
+    from scconsensus_tpu_torch.robust import integrity as robust_integrity
+    from scconsensus_tpu_torch.robust.faults import corrupt_value
+
+    mat = corrupt_value("contingency_table", mat)
+    if robust_integrity.enabled():
+        robust_integrity.check_contingency(
+            "contingency_table", mat, ridx, cidx
+        )
     return ContingencyResult(mat, row_labels, col_labels)
 
 
@@ -150,18 +163,17 @@ def plot_contingency_table(
 ) -> Optional[np.ndarray]:
     """Reference-shaped entry point (plotContingencyTable.R:15).
 
-    When ``automate_consensus`` is set, returns the automated consensus label
-    vector. Drawing the heatmap (``filename``) is not ported yet and raises
-    ``NotImplementedError``.
+    Renders the contingency heatmap to ``filename`` when given (PDF/PNG via
+    the report layer; needs matplotlib) and, when ``automate_consensus`` is
+    set, returns the automated consensus label vector.
     """
     if cluster_labels_1 is None or cluster_labels_2 is None:
         raise ValueError("Incomplete parameters provided.")
     ctg = contingency_table(cluster_labels_1, cluster_labels_2)
     if filename is not None:
-        raise NotImplementedError(
-            "drawing the contingency heatmap is not ported yet; pass "
-            "filename=None"
-        )
+        from scconsensus_tpu_torch.report import plot_contingency_heatmap
+
+        plot_contingency_heatmap(ctg, filename)
     if automate_consensus:
         return automated_consensus(
             cluster_labels_1, cluster_labels_2, min_clust_size=min_clust_size, ctg=ctg

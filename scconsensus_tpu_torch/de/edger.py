@@ -30,7 +30,9 @@ Each step is a sub-stage of the caller's ``StageClock`` (``edger_setup``
 over gene chunks gathered from the triplet, never the whole matrix. The
 reference pads chunks to fixed shapes to bound XLA recompiles; eager
 torch needs no padding, and no result depends on the chunking. Every
-(P, G) result stays on the matrix's device.
+(P, G) result stays on the matrix's device. Under ``SCC_OBS_NUMERIC`` the
+common and tagwise dispersions and the exact test's log p pass the
+numeric sentinels (``obs.quality``), as in the reference.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from scconsensus_tpu_torch.de.engine import _cid_from_groups, _next_pow2
+from scconsensus_tpu_torch.obs import quality as obs_quality
 from scconsensus_tpu_torch.io.sparsemat import (
     DeviceCSR,
     column_sums,
@@ -350,6 +353,11 @@ def run_edger_pairs(
         t_common = torch.cat(parts)
         common = t_common.cpu().numpy()
     del table0, zs0
+    if obs_quality.enabled():
+        # a NaN/Inf dispersion here poisons every tagwise grid and exact
+        # test downstream
+        obs_quality.check_array("common_dispersion", common,
+                                where="edger_nb")
 
     # re-equalize at the median common dispersion
     phi_req = float(np.median(common))
@@ -382,6 +390,9 @@ def run_edger_pairs(
                 _t(prior_n[p0:p0 + _PAIR_CHUNK])))
         tagwise = torch.cat(parts)                           # (P, G)
     del table1, zs1
+    if obs_quality.enabled():
+        obs_quality.check_array("tagwise_dispersion", tagwise,
+                                where="edger_nb")
 
     with clock.stage("edger_exact_normal"):
         t_n_of = _t(n_of)
@@ -425,5 +436,8 @@ def run_edger_pairs(
                 flat_lp[f] = nb_exact_test_logp(
                     s1f[f], s2f[f], n1[rows], n2[rows], twf[f], s_max=sb)
 
+    if obs_quality.enabled():
+        obs_quality.check_array("exact_test_log_p", log_p, kinds=("nan",),
+                                where="edger_nb")
     return EdgerPairResult(log_p=log_p, log_fc=log_fc,
                            common_disp=t_common, tagwise_disp=tagwise)

@@ -32,10 +32,27 @@ scales with nnz rather than with N (``scconsensus_tpu/de/engine.py``
 
 The (P, G) results stay on the matrix's device; the union fetches only the
 (P, n_top) indices, and ``PairwiseDEResult.to_store`` brings them to the
-host for the artifact store. Left out against the reference: the mesh, the
-run-space kernel and its overflow redo, mid-stage checkpoints, ladder
-recovery, the occupancy probe, integrity, quality and fault-injection
-hooks. An unknown method raises ``NotImplementedError``.
+host for the artifact store.
+
+The reference's guard rails ride the ladder: each bucket enters at the
+fault plan's ``wilcox_bucket`` site and runs under ``_LadderRecovery`` (a
+resource fault halves the element budget and re-enters from the last
+finished bucket; a transient or silent-corruption fault retries the
+bucket); with an artifact store each finished bucket persists as a
+``de_wilcox_<sha>`` block (``_WilcoxCkpt``, the reference's keys and
+arrays), so a killed run resumes from its finished buckets. Under
+``SCC_INTEGRITY`` each bucket's output passes the rank-sum conservation
+check and one bucket per window rung is ghost-replayed against the
+float64 oracle; BH passes the monotonicity check (``robust.integrity``,
+with the ``wilcox_bucket_out`` and ``bh_logq`` corruption sites before
+them). Under ``SCC_OBS_NUMERIC`` the test's ``log_p`` and BH's ``log_q``
+pass the numeric sentinels (``obs.quality``). The ladder's occupancy
+record (``PairwiseDEResult.ladder``) carries the reference's probe keys.
+
+Left out against the reference: the mesh and the run-space kernel with
+its overflow redo (an XLA:CPU form; the port runs the scan body, as the
+reference does on the card, so its checkpoint variant is ``scan``). An
+unknown method raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,8 +83,9 @@ from scconsensus_tpu_torch.ops.multipletests import (
     bh_adjust,
     bh_adjust_masked,
 )
+from scconsensus_tpu_torch.obs import quality as obs_quality
+from scconsensus_tpu_torch.ops import ranksum_allpairs as _ranksum
 from scconsensus_tpu_torch.ops.ranksum_allpairs import (
-    ALLPAIRS_ELEM_BUDGET,
     chunk_genes_for_budget,
     ranksum_body,
 )
@@ -80,10 +98,15 @@ from scconsensus_tpu_torch.ops.wilcoxon import (
     EXACT_N_LIMIT,
     wilcoxon_exact_host,
 )
+from scconsensus_tpu_torch.robust import faults
+from scconsensus_tpu_torch.robust import integrity as robust_integrity
+from scconsensus_tpu_torch.robust import record as robust_record
+from scconsensus_tpu_torch.robust import retry as robust_retry
 from scconsensus_tpu_torch.utils.timing import StageClock
 
-__all__ = ["PairwiseDEResult", "pairwise_de", "filter_clusters",
-           "filter_cluster_names", "de_gene_union", "as_device_matrix"]
+__all__ = ["PairwiseDEResult", "pairwise_de", "encode_labels",
+           "filter_clusters", "filter_cluster_names", "de_gene_union",
+           "as_device_matrix"]
 
 
 @dataclasses.dataclass
@@ -108,10 +131,13 @@ class PairwiseDEResult:
     skip_reasons: Optional[List[str]] = None
     # Wilcoxon: the rank-sum route and its window ladder (see _run_wilcox)
     ladder: Optional[Dict] = None
+    # (N,) each cell's code into the sorted str-cast input labels, dropped
+    # clusters included (encode_labels); the quality section reads it
+    cell_codes: Optional[np.ndarray] = None
 
     # what the artifact store keeps: the reference's keys
-    # (scconsensus_tpu/de/engine.py:134-203); u and the ladder are the
-    # port's own and are not stored
+    # (scconsensus_tpu/de/engine.py:134-203); u, the ladder and the cell
+    # codes are the port's own and are not stored
     _ARRAY_FIELDS = ("pair_i", "pair_j", "log_p", "log_q", "log_fc",
                      "tested", "de_mask", "pair_skipped")
     _OPT_ARRAY_FIELDS = ("pct1", "pct2")
@@ -186,17 +212,29 @@ def filter_cluster_names(names: np.ndarray, counts: np.ndarray,
     return [str(n) for n in names[keep]]
 
 
+def encode_labels(labels: Sequence
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(sorted distinct names, each cell's code into them, counts) of the
+    str-cast labels: one sort."""
+    lab = np.asarray(labels).astype(str)
+    names, codes, counts = np.unique(lab, return_inverse=True,
+                                     return_counts=True)
+    return names, codes.ravel(), counts
+
+
 def filter_clusters(labels: Sequence, min_cluster_size: int,
-                    drop_grey: bool = True) -> Tuple[List[str], np.ndarray]:
+                    drop_grey: bool = True, encoded=None,
+                    ) -> Tuple[List[str], np.ndarray]:
     """Clusters with count > min_cluster_size (strictly greater, §2d-7),
     'grey' substring dropped; returns (sorted names, per-cell index into
-    names, −1 for dropped cells)."""
-    lab = np.asarray(labels).astype(str)
-    names, counts = np.unique(lab, return_counts=True)
+    names, −1 for dropped cells). ``encoded``: the labels'
+    :func:`encode_labels`, when the caller has it."""
+    names, codes, counts = (encoded if encoded is not None
+                            else encode_labels(labels))
     kept = filter_cluster_names(names, counts, min_cluster_size, drop_grey)
     index = {n: i for i, n in enumerate(kept)}
-    cell_idx = np.array([index.get(v, -1) for v in lab], dtype=np.int32)
-    return kept, cell_idx
+    remap = np.array([index.get(str(n), -1) for n in names], np.int32)
+    return kept, remap[codes]
 
 
 def _all_pairs(k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -242,20 +280,226 @@ def as_device_matrix(data, device: torch.device):
     """The (G, N) matrix on ``device``: a float32 tensor (a tensor already
     there is used as it is, a numpy array crosses once), or for
     ``scipy.sparse`` input (any format, canonicalized to CSR with
-    duplicate entries summed) a ``DeviceCSR`` holding its triplet."""
-    if isinstance(data, torch.Tensor):
-        return data.to(device=device, dtype=torch.float32)
-    if isinstance(data, DeviceCSR):
-        return data.to(device)
-    if is_sparse(data):
-        return DeviceCSR.from_scipy(data, device)
-    if not isinstance(data, np.ndarray):
+    duplicate entries summed) a ``DeviceCSR`` holding its triplet.
+
+    The upload runs at the fault plan's ``input_staging`` site under the
+    retry policy: an allocation failure frees the caching allocator's
+    blocks and uploads once more (the reference's evict-devcache retry).
+    """
+    dev = torch.device(device)
+
+    def _on_dev(d: torch.device) -> bool:
+        return d.type == dev.type and dev.index in (None, d.index)
+
+    if isinstance(data, torch.Tensor) and _on_dev(data.device):
+        return data.to(dtype=torch.float32)
+    if isinstance(data, DeviceCSR) and _on_dev(data.device):
+        return data
+    if not isinstance(data, (torch.Tensor, DeviceCSR, np.ndarray)) \
+            and not is_sparse(data):
         raise NotImplementedError(
             f"input of type {type(data).__name__} is not supported (numpy "
             "arrays, tensors and scipy.sparse matrices)"
         )
-    return torch.from_numpy(
-        np.ascontiguousarray(data, dtype=np.float32)).to(device)
+
+    def _upload():
+        if isinstance(data, torch.Tensor):
+            return data.to(device=dev, dtype=torch.float32)
+        if isinstance(data, DeviceCSR):
+            return data.to(dev)
+        if is_sparse(data):
+            return DeviceCSR.from_scipy(data, dev)
+        return torch.from_numpy(
+            np.ascontiguousarray(data, dtype=np.float32)).to(dev)
+
+    def _evict(_attempt):
+        free_device_cache(dev)
+        robust_record.note_degradation(
+            "input_staging", "evict-devcache",
+            "freed the caching allocator's blocks before re-upload",
+        )
+
+    return robust_retry.RetryPolicy(max_attempts=2).call(
+        _upload, site="input_staging", degrade=_evict)
+
+
+def free_device_cache(dev: torch.device) -> None:
+    """Hand the caching allocator's unused blocks back to the card (the
+    port's counterpart of the reference's devcache eviction)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+class _WilcoxCkpt:
+    """Mid-stage checkpoint handle for the Wilcoxon window ladder.
+
+    Each finished bucket persists its (log_p, u, ties) block into the
+    run's ArtifactStore under a content-addressed stage name
+    (``de_wilcox_<sha>``: gene ids, window and kernel variant), so a run
+    killed inside ``de`` resumes from its finished buckets. The keys,
+    arrays (``lp``, ``u``, ``ts``) and ``mesh_shape`` meta are the
+    reference's (``scconsensus_tpu/de/engine.py:426-539``), so a
+    half-finished store crosses between the packages wherever both run
+    the same kernel variant. The pipeline deletes the blocks once the
+    covering ``de`` artifact lands. Gated by ``SCC_ROBUST_DE_CKPT``."""
+
+    PREFIX = "de_wilcox_"
+
+    def __init__(self, store):
+        self.store = store
+        self.resumed = 0
+        self._found = None  # stage -> (arrays, meta) or None, on a resume
+
+    def key(self, ids: np.ndarray, window: int, variant: str) -> str:
+        import hashlib
+
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(ids, np.int64).tobytes())
+        h.update(f":{window}:{variant}".encode())
+        return f"{self.PREFIX}{h.hexdigest()[:16]}"
+
+    def load(self, key: str, device: torch.device):
+        """(lp, u, ts) on ``device``, or None (absent, incomplete or
+        quarantined: recompute either way)."""
+        from scconsensus_tpu_torch.utils.artifacts import ArtifactCorrupt
+
+        if self._found is None:
+            # a resume reads and checks every stored block at once, in
+            # parallel, rather than one hash at a time between buckets
+            self._found = self.store.load_many(
+                self.store.stages_with_prefix(self.PREFIX))
+        if not self.store.has(key):
+            return None
+        got = self._found.pop(key, None)
+        if got is None:
+            # not read above, or failed its check: load() quarantines it
+            try:
+                got = self.store.load(key)
+            except ArtifactCorrupt:
+                return None
+        arrays, _meta = got
+        if not all(k in arrays for k in ("lp", "u", "ts")):
+            return None
+        self.resumed += 1
+        return tuple(torch.from_numpy(np.ascontiguousarray(arrays[k])).to(
+            device) for k in ("lp", "u", "ts"))
+
+    def save(self, key: str, n_rows: int, out) -> None:
+        """Persist one finished bucket (its real gene rows), stamped with
+        the serial mesh shape. Uncompressed: float32 log p, U and ties
+        barely shrink under zlib, which would cost the stored run seconds
+        of host time for nothing."""
+        from scconsensus_tpu_torch.utils.artifacts import SERIAL_MESH_SHAPE
+
+        arrays = {k: o[:n_rows].cpu().numpy()
+                  for k, o in zip(("lp", "u", "ts"), out)}
+        self.store.save(key, arrays,
+                        meta={"mesh_shape": dict(SERIAL_MESH_SHAPE)},
+                        compress=False)
+
+
+class _LadderRecovery:
+    """Loop-level typed recovery for the Wilcoxon window ladder
+    (``scconsensus_tpu/de/engine.py:542-659``).
+
+    Used as ``with recover:`` around one bucket. On an Exception escaping
+    the bucket it classifies (``robust.retry``) and, when admissible,
+    suppresses it and sets ``retry`` (the loop re-enters at the same
+    gene offset, i.e. from the last finished bucket); a resource-class
+    failure (an injected OOM or a real ``torch.cuda.OutOfMemoryError``)
+    doubles ``budget_div``, halving every later block's element budget.
+    Fatal errors, exhausted per-bucket attempts and an exhausted per-run
+    budget re-raise; ``KeyboardInterrupt``/``SystemExit`` pass through.
+    """
+
+    MAX_BUCKET_ATTEMPTS = 4
+    MAX_BUDGET_DIV = 64
+
+    def __init__(self, site: str = "wilcox_bucket"):
+        self.site = site
+        self.budget_div = 1
+        self.attempt = 0          # retries consumed by the current bucket
+        self.backoff_total = 0.0
+        self.retry = False
+        self.err_class: Optional[str] = None
+        self._policy = robust_retry.default_policy()
+
+    def bucket_done(self) -> None:
+        """Close out the finished bucket's retry bookkeeping (a recovered
+        bucket records one aggregated entry)."""
+        if self.attempt:
+            robust_record.note_retry(
+                self.site, self.err_class or "transient", self.attempt + 1,
+                recovered=True, backoff_s=self.backoff_total,
+            )
+            if self.err_class == "silent_corruption":
+                # the corrupted bucket recomputed clean: the recovery's
+                # evidence on the integrity section
+                robust_integrity.current().note_recompute()
+                robust_integrity.current().reset_streak(self.site)
+        self.attempt = 0
+        self.backoff_total = 0.0
+
+    def __enter__(self):
+        self.retry = False
+        return self
+
+    def __exit__(self, et, ev, tb) -> bool:
+        import time as _time
+
+        from scconsensus_tpu_torch.obs import trace as obs_trace
+
+        if et is None or not issubclass(et, Exception):
+            return False
+        err_class = robust_retry.classify_exception(ev)
+        run = robust_record.current_run()
+        if err_class == "device_lost":
+            return False  # the stage-level guard owns a lost device
+        if (err_class == "silent_corruption"
+                and robust_integrity.should_evict(self.site)):
+            return False  # repeated miscompute: the stage guard decides
+        if (err_class == "fatal"
+                or self.attempt >= self.MAX_BUCKET_ATTEMPTS
+                or not run.budget_take()):
+            if err_class != "fatal":
+                robust_record.note_retry(
+                    self.site, err_class, self.attempt + 1,
+                    recovered=False, backoff_s=self.backoff_total,
+                )
+            return False
+        self.attempt += 1
+        self.err_class = err_class
+        if (err_class == "resource"
+                and self.budget_div < self.MAX_BUDGET_DIV):
+            self.budget_div *= 2
+            robust_record.note_degradation(
+                self.site, "halve-chunk-budget",
+                f"element budget /{self.budget_div} after "
+                f"{et.__name__}; re-entering from the last completed "
+                "bucket",
+            )
+        backoff = self._policy.backoff_s(self.site, self.attempt)
+        self.backoff_total += backoff
+        sp = obs_trace.current_span()
+        if sp is not None:
+            sp.metrics.counter("robust_retries").add(1)
+        with obs_trace.span(
+            "robust_retry", site=self.site, error_class=err_class,
+            attempt=self.attempt, backoff_s=round(backoff, 4),
+        ):
+            _time.sleep(backoff)
+        self.retry = True
+        return True
+
+
+def _wilcox_ckpt_for(store) -> Optional[_WilcoxCkpt]:
+    """The ladder's checkpoint handle: a store present and the flag on."""
+    from scconsensus_tpu_torch.config import env_flag
+
+    if (store is not None and getattr(store, "enabled", False)
+            and env_flag("SCC_ROBUST_DE_CKPT")):
+        return _WilcoxCkpt(store)
+    return None
 
 
 def _run_wilcox(
@@ -264,6 +508,7 @@ def _run_wilcox(
     pair_i: np.ndarray,
     pair_j: np.ndarray,
     ladder: Optional[Dict] = None,
+    ckpt: Optional[_WilcoxCkpt] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank-sum (log_p, u), each (P, G) on the matrix's device, through
     the window ladder (or full-width gene chunks when any value is
@@ -273,10 +518,20 @@ def _run_wilcox(
     ``data``: a dense (G, N) tensor, whose ladder sorts full-N rows per
     bucket, or a ``DeviceCSR``, whose buckets sort compacted windows of
     each gene's stored entries (window sizes from the stored-entry counts;
-    explicit zeros take a slot and stay inert). ``ladder``: an optional
-    dict that receives the route ("dense-device", "csr-compacted" or the
-    full-width "dense-chunked" / "csr-chunked") and one record per bucket
-    (window, genes)."""
+    explicit zeros take a slot and stay inert).
+
+    ``ladder``: an optional dict that receives the route
+    ("dense-device", "csr-compacted" or the full-width "dense-chunked" /
+    "csr-chunked") and the reference's occupancy-probe keys (``windowed``,
+    ``input``, ``kernel``, ``n_genes``, ``n_cells``, ``n_clusters``,
+    ``window_floor`` and one record per bucket: window, scan and sort
+    widths, genes, rows run, real and padded elements, nnz range). The
+    port runs each bucket on its own rows, so ``padded_rows`` is the
+    bucket's gene count where the reference pads to a power of two.
+
+    ``ckpt``: an optional :class:`_WilcoxCkpt`; each finished bucket
+    persists, and a bucket found in the store is loaded instead of run.
+    """
     G, N = data.shape
     dev = data.device
     K = len(cell_idx_of)
@@ -285,6 +540,7 @@ def _run_wilcox(
     tn = torch.as_tensor(n_of, device=dev)
     tpi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
     tpj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
+    n1_pairs, n2_pairs = n_of[pair_i], n_of[pair_j]
 
     # O(G) ints to plan the ladder; the decomposition needs zeros as the
     # minimum, so any negative value sends every gene to full width
@@ -301,14 +557,42 @@ def _run_wilcox(
         route = "csr-chunked" if compact else "dense-chunked"
     buckets: List[Dict] = []
     if ladder is not None:
-        ladder.update(route=route, buckets=buckets)
+        ladder.update(
+            route=route, windowed=bool(windowed),
+            input=("sparse-chunked" if compact and not windowed
+                   else "csr-compacted" if compact else "dense-device"),
+            kernel="scan", n_genes=int(G), n_cells=int(N),
+            n_clusters=int(K), buckets=buckets)
+
+    def _audit(out, unit_key, unit, vals, cids, n_rows, full_rows):
+        """The integrity tier on one bucket's fresh output: the injected
+        corruption site, the conservation check and, on the seeded
+        sample unit, the float64 ghost replay. Inside the recovery
+        context, so a detection recomputes the bucket."""
+        out = faults.corrupt_value("wilcox_bucket_out", out)
+        if robust_integrity.enabled():
+            robust_integrity.check_wilcox_bucket(
+                "wilcox_bucket", out[0], out[1], out[2],
+                n1_pairs, n2_pairs)
+            if robust_integrity.current().want_replay("wilcox", unit_key):
+                robust_integrity.replay_wilcox_window(
+                    "wilcox_bucket", unit, vals, cids, n_of, pair_i,
+                    pair_j, out[0], out[1], n_rows, full_rows=full_rows)
+        return out
+
     parts = []  # (gene ids, (log_p, u, tie_sum)), each block (Gb, P)
     if windowed:
         floor = _window_floor(N)
+        if ladder is not None:
+            ladder["window_floor"] = floor
         order = np.argsort(nnz_g, kind="stable").astype(np.int64)
         nnz_sorted = nnz_g[order]
+        # typed recovery re-enters the loop at the last finished bucket
+        recover = _LadderRecovery()
         g0 = 0
         while g0 < G:
+            elem_budget = max(
+                _ranksum.ALLPAIRS_ELEM_BUDGET // recover.budget_div, 1 << 12)
             w = int(min(_next_pow2(max(int(nnz_sorted[g0]), floor)),
                         _next_pow2(N)))
             # compacted windows are w wide (even when w > N, from the pow-2
@@ -317,32 +601,80 @@ def _run_wilcox(
             sort_w = w if compact else N
             # block size respects both working sets: the (gcb, K, scan_w)
             # kernel tensors and the (gcb, sort_w) sort buffers
-            gcb = max(8, min(ALLPAIRS_ELEM_BUDGET // max(scan_w * K, 1),
-                             (ALLPAIRS_ELEM_BUDGET // 2) // max(sort_w, 1)))
+            gcb = max(8, min(elem_budget // max(scan_w * K, 1),
+                             (elem_budget // 2) // max(sort_w, 1)))
             gcb = min(1 << (int(gcb).bit_length() - 1), _next_pow2(G))
             g1 = g0
             while (g1 < G and g1 - g0 < gcb
                    and (w >= N or nnz_sorted[g1] <= w)):
                 g1 += 1
             ids = order[g0:g1]
-            if compact:
-                # compacted input always runs zero-block mode at window w
-                vals, wcid = data.window_rows(ids, w, cid)
-                out = ranksum_body(vals, wcid, tn, tpi, tpj, K, window=w)
-            else:
-                rows = data.index_select(0, torch.as_tensor(ids, device=dev))
-                out = ranksum_body(rows, cid, tn, tpi, tpj, K,
-                                   window=w if w < N else 0)
+            weff = w if compact else (w if w < N else 0)
+            ck_key = None
+            if ckpt is not None:
+                # content-addressed: a re-entry with other block bounds
+                # can only hit blocks holding exactly these genes
+                ck_key = ckpt.key(ids, weff, "scan")
+                out = ckpt.load(ck_key, dev)
+                if out is not None:
+                    parts.append((ids, out))
+                    g0 = g1
+                    recover.bucket_done()
+                    continue
+            with recover:
+                faults.fault_point("wilcox_bucket")
+                if compact:
+                    # compacted input always runs zero-block mode
+                    vals, kcid = data.window_rows(ids, w, cid)
+                else:
+                    vals = data.index_select(
+                        0, torch.as_tensor(ids, device=dev))
+                    kcid = cid
+                out = _audit(
+                    ranksum_body(vals, kcid, tn, tpi, tpj, K, window=weff),
+                    int(w), f"window:{int(w)}", vals, kcid, int(ids.size),
+                    full_rows=not compact)
+                real = int(nnz_sorted[g0:g1].sum())
+                padded = int(ids.size) * int(scan_w)
+                buckets.append({
+                    "window": w, "scan_width": int(scan_w),
+                    "sort_width": int(sort_w), "n_genes": int(ids.size),
+                    "padded_rows": int(ids.size), "real_elems": real,
+                    "padded_elems": padded,
+                    "pad_ratio": round(padded / max(real, 1), 3),
+                    "nnz_min": int(nnz_sorted[g0]),
+                    "nnz_max": int(nnz_sorted[g1 - 1]),
+                    "overflow_genes": 0,
+                })
+            if recover.retry:
+                continue  # re-enter at g0 with the (maybe halved) budget
+            if ckpt is not None:
+                try:
+                    ckpt.save(ck_key, int(ids.size), out)
+                except Exception as e:
+                    # durability must not become a fatal failure mode: a
+                    # full disk skips this block's checkpoint
+                    robust_record.note_degradation(
+                        "wilcox_bucket", "ckpt-skip",
+                        f"bucket checkpoint write failed ({e!r}); "
+                        "continuing without mid-stage durability for "
+                        "this block",
+                    )
             parts.append((ids, out))
-            buckets.append({"window": w, "genes": int(ids.size)})
             g0 = g1
+            recover.bucket_done()
+        if ckpt is not None and ckpt.resumed:
+            robust_record.note_resume_point(
+                "wilcox_test", "bucket", ckpt.resumed, len(parts))
     else:
         # any negative value: full-width gene chunks (a CSR densifies one
         # chunk at a time on the device)
         gc = min(chunk_genes_for_budget(N, K), _next_pow2(G))
         for g0, g1, chunk in row_chunks(data, gc):
-            parts.append((np.arange(g0, g1), ranksum_body(
-                chunk, cid, tn, tpi, tpj, K)))
+            out = _audit(ranksum_body(chunk, cid, tn, tpi, tpj, K),
+                         "chunk", f"chunk:{int(g0)}", chunk, cid,
+                         int(g1 - g0), full_rows=True)
+            parts.append((np.arange(g0, g1), out))
     inv = torch.as_tensor(
         np.argsort(np.concatenate([ids for ids, _ in parts]), kind="stable"),
         device=dev)
@@ -383,6 +715,7 @@ def pairwise_de(
     config: ReclusterConfig,
     device=None,
     clock: Optional[StageClock] = None,
+    store=None,
 ) -> PairwiseDEResult:
     """Run the all-pairs DE test of ``config.method``: "wilcox" (the fast
     path), "wilcoxon" (the slow-path Wilcoxon), "edger", or the fast-path
@@ -391,7 +724,10 @@ def pairwise_de(
     data: (G, N) log-normalized expression, a numpy array, a tensor (kept
     where it is when it already lies on ``device``) or a ``scipy.sparse``
     matrix (never densified whole); labels: per-cell cluster names. Runs
-    on ``cuda`` unless ``device="cpu"``."""
+    on ``cuda`` unless ``device="cpu"``. ``store``: an optional
+    ``ArtifactStore``; with one enabled (and ``SCC_ROBUST_DE_CKPT`` on)
+    the Wilcoxon ladder persists each finished bucket, so a run killed
+    inside DE resumes from its finished buckets."""
     dev = resolve_device(device)
     method = config.method.lower()
     if method not in _METHODS:
@@ -405,8 +741,10 @@ def pairwise_de(
     G, N = data.shape
 
     with clock.stage("cluster_filter"):
+        encoded = encode_labels(labels)
         names, cell_idx = filter_clusters(
-            labels, config.min_cluster_size, config.drop_grey
+            labels, config.min_cluster_size, config.drop_grey,
+            encoded=encoded,
         )
         K = len(names)
         if K < 2:
@@ -485,6 +823,13 @@ def pairwise_de(
             )
         log_p = _expand_rows(nb.log_p, ok_rows, P)
         log_fc = _expand_rows(nb.log_fc, ok_rows, P)
+        if obs_quality.enabled():
+            # rows of group-size-skipped pairs are legitimate NaN
+            obs_quality.check_array(
+                "nb_log_p", log_p, kinds=("nan",),
+                expected_nan=int(P - ok_rows.size) * G, where="edger_nb")
+            obs_quality.check_array("nb_log_fc", log_fc, kinds=("inf",),
+                                    where="edger_nb")
         tested = ok[:, None].expand(P, G).contiguous()
         aux = {
             "common_dispersion": _expand_rows(nb.common_disp, ok_rows, P),
@@ -515,6 +860,8 @@ def pairwise_de(
                 # reference's aux carries them (de/engine.py:1558-1561)
                 aux = {"funnel_gate_full":
                        gate.sum(dim=1).to(torch.int32)}
+        test_stage = ("wilcox_test" if method in ("wilcox", "wilcoxon")
+                      else f"{method}_test")
         if method in ("bimod", "t"):
             # the moment tests run on the post-subsampling groups; the
             # gates above took the full clusters (de/engine.py:1418-1448)
@@ -522,16 +869,16 @@ def pairwise_de(
             if subsampled:
                 with clock.stage("aggregates"):
                     test_agg = aggregates(_cid_from_groups(cell_idx_of, N))
-            with clock.stage(f"{method}_test"):
+            with clock.stage(test_stage):
                 log_p = (bimod_lrt_pairs if method == "bimod"
                          else welch_t_pairs)(test_agg, pi, pj)
             del test_agg
         else:
-            with clock.stage("wilcox_test" if method != "roc"
-                             else "roc_test"):
+            with clock.stage(test_stage):
                 ladder = {}
                 log_p, u = _run_wilcox(data, cell_idx_of, pair_i, pair_j,
-                                       ladder=ladder)
+                                       ladder=ladder,
+                                       ckpt=_wilcox_ckpt_for(store))
                 if method == "roc":
                     # AUC and power from U over the post-subsampling
                     # groups; significance stays the rank-sum p
@@ -545,6 +892,20 @@ def pairwise_de(
         # and stay out of BH and the call
         log_p = torch.where(tested, log_p,
                             torch.full_like(log_p, float("nan")))
+        if obs_quality.enabled():
+            # the legitimate NaN budget: untested entries, plus tested
+            # entries whose pooled variance is ~0 (all-zero or constant
+            # genes), which NaN the rank test and Welch t by contract
+            npool = torch.clamp(agg.counts[pi] + agg.counts[pj],
+                                min=1.0)[:, None]
+            pmean = (agg.sum_log[:, pi].T + agg.sum_log[:, pj].T) / npool
+            pvar = ((agg.sum_sq[:, pi].T + agg.sum_sq[:, pj].T) / npool
+                    - pmean * pmean)
+            degen = pvar <= 1e-4 * torch.clamp(pmean * pmean, min=1e-6)
+            obs_quality.check_array(
+                "log_p", log_p, kinds=("nan",),
+                expected_nan=log_p.numel() - (tested & ~degen).sum(),
+                where=test_stage)
 
     with clock.stage("bh_adjust"):
         if fast:
@@ -553,6 +914,19 @@ def pairwise_de(
             # slow semantics (§2d-4): BH over every finite entry, n = G
             log_q = bh_adjust(
                 log_p, n=float(G) if config.compat.bh_reference_n else None)
+        log_q = faults.corrupt_value("bh_logq", log_q)
+        if robust_integrity.enabled():
+            # BH monotonicity (q >= p, q <= 1) at the stage boundary: an
+            # enforce-mode violation recomputes the DE stage
+            robust_integrity.check_bh("bh_adjust", log_p, log_q)
+        if obs_quality.enabled():
+            # BH leaves non-finite p out, so the legitimate NaN budget is
+            # everything outside tested-and-finite
+            obs_quality.check_array(
+                "log_q", log_q, kinds=("nan",),
+                expected_nan=log_q.numel() - (
+                    tested & torch.isfinite(log_p)).sum(),
+                where="bh_adjust")
     with clock.stage("de_call"):
         log_thr = float(np.log(np.float32(config.q_val_thrs)))
         if fast:
@@ -570,6 +944,7 @@ def pairwise_de(
         log_p=log_p, log_q=log_q, log_fc=log_fc, tested=tested,
         de_mask=de, pair_skipped=~pair_ok, pct1=pct1, pct2=pct2, u=u,
         aux=aux, skip_reasons=skip_reasons or None, ladder=ladder,
+        cell_codes=encoded[1],
     )
 
 

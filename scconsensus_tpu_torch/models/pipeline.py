@@ -13,7 +13,9 @@ artifact store) → de_store (with an artifact store: the DE result saved)
 → union →
 embed (rSVD PCA on the device, of the DE-gene rows, or with
 ``distance="pearson"`` of the centred unit-norm cell vectors) → tree →
-cuts (dynamic tree cut per deepSplit, host) → silhouette → nodg.
+cuts (dynamic tree cut per deepSplit, host) → silhouette → nodg →
+quality (the ``quality`` section; never fails the run) → report (with
+``plot_name``: the DE heatmap, host matplotlib).
 
 The matrix is dense (a numpy array or a tensor) or ``scipy.sparse`` in
 any format (``_refine_impl`` :238-253). Sparse input crosses once as its
@@ -42,40 +44,62 @@ the tree stage's pool where there is one.
 
 ``result.metrics`` keys: ``device``, ``stage_walls_s``, ``union_size``,
 ``per_pair_de_counts``, ``wilcox_ladder`` (Wilcoxon methods: the
-rank-sum route and its buckets' windows, else None), ``tree_engine``
-(engine of the tree stage's last Ward.D2 call, or None), ``n_genes``, ``n_cells``, ``tree`` (``approx``,
-``landmark``, ``landmark_k``), ``landmark`` (None, or ``branch``, ``k``,
-``sketch``, ``threshold``, ``linkage``, ``occupancy`` per cut and, with
-``landmark_verify``, ``ari_vs_exact`` per cut) and ``silhouette`` (None
-without silhouettes, else ``method``: "exact" or "pooled-estimator", and
-for the estimator ``n_centroids`` and ``pool_reused``).
+rank-sum route and its buckets' occupancy, else None), ``tree_engine``
+(engine of the tree stage's last Ward.D2 call, or None), ``n_genes``,
+``n_cells``, ``tree`` (``approx``, ``landmark``, ``landmark_k``),
+``landmark`` (None, or ``branch``, ``k``, ``sketch``, ``threshold``,
+``linkage``, ``occupancy`` per cut and, with ``landmark_verify``,
+``ari_vs_exact`` per cut), ``silhouette`` (None without silhouettes,
+else ``method``: "exact" or "pooled-estimator", and for the estimator
+``n_centroids`` and ``pool_reused``), ``quality`` (``obs.quality``: the DE
+gate funnel, the ladder's occupancy, the cluster structure and the
+numeric sentinels' health), and, only when something happened,
+``robustness`` (``robust.record``: injected faults, retries,
+degradations, resume points) and ``integrity`` (``robust.integrity``,
+present under ``SCC_INTEGRITY=audit|enforce``).
 
 Every ``method`` of the reference runs: "wilcox" (fast), "wilcoxon"
 (slow), "edger", and the fast-path Seurat tests "bimod", "t" and "roc".
 
-Before the first stage, ``robust.contract.preflight`` rejects a wrong
+Before the first stage the matrix upload runs at the fault plan's
+``input_staging`` site, and ``robust.contract.preflight`` rejects a wrong
 shape, NaN labels, a matrix with a NaN or Inf, and a labeling with fewer
 than two clusters that survive the size filter (``InputContractError``).
+
+The guard rails (``scconsensus_tpu/models/pipeline.py:118-163,
+:270-341``): each of the seven stages runs under ``robust.retry.call``
+with site ``stage:<name>`` (de, union, embed, tree, cuts, silhouette,
+nodg), so a transient or resource fault, injected by ``SCC_FAULT_PLAN``
+or real (a ``torch.cuda.OutOfMemoryError``), retries; a resource fault in
+embed first frees the caching allocator's blocks (recorded as the
+reference's ``evict-devcache``). Inside DE the Wilcoxon ladder recovers
+bucket by bucket. Under ``SCC_INTEGRITY`` the embed is audited
+(``pca_scores_audited``, the ``embed_scores`` corruption site, the basis
+check and a sampled float64 replay), and DE, the landmark assignment and
+the cut boundary carry their checks.
 
 With ``config.artifact_dir`` set, the run writes the reference's store
 (``utils.artifacts``): ``config.json`` (the config and an input
 fingerprint; another config or other input data raises ValueError),
-``{de,union,embed,tree,cuts}.{npz,json}`` and ``robust_state.json`` at
-completion. A re-run resumes each stage from a readable artifact; a
-corrupt one is quarantined and recomputed. The tree artifact carries the
-branch it took (pool or landmark arrays), and the silhouette and NODG are
-recomputed on resume, as in the reference. Without ``artifact_dir``
-nothing is read or written. Mid-stage Wilcoxon checkpoints and the retry
-budget are not ported yet.
+``{de,union,embed,tree,cuts}.{npz,json}`` and ``robust_state.json``. A
+re-run resumes each stage from a readable artifact; a corrupt one is
+quarantined and recomputed. The tree artifact carries the branch it
+took (pool or landmark arrays), and the silhouette and NODG are
+recomputed on resume, as in the reference. Inside ``de`` the Wilcoxon
+ladder writes a ``de_wilcox_*`` block per finished bucket, so a run
+killed there resumes from its finished buckets; the blocks are deleted
+once ``de`` is saved. The retry budget is seeded from
+``robust_state.json`` and every later take is mirrored into it; a run
+that completes resets it to 0. Without ``artifact_dir`` nothing is read
+or written.
 
-Not ported yet, and raising ``NotImplementedError``: a mesh and the DE
-heatmap (``plot_name``). Retry, integrity, observability and report
-wrappers are left out.
+Not ported yet, and raising ``NotImplementedError``: a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -87,17 +111,21 @@ from scconsensus_tpu_torch.de.engine import (
     PairwiseDEResult,
     as_device_matrix,
     de_gene_union,
+    encode_labels,
+    free_device_cache,
     pairwise_de,
 )
 from scconsensus_tpu_torch.device import resolve_device
 from scconsensus_tpu_torch.io.sparsemat import nodg as count_detected
 from scconsensus_tpu_torch.io.sparsemat import rows_dense
+from scconsensus_tpu_torch.obs import quality as obs_quality
+from scconsensus_tpu_torch.obs import trace as obs_trace
 from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
 from scconsensus_tpu_torch.ops import linkage
 from scconsensus_tpu_torch.ops.colors import labels_to_colors
 from scconsensus_tpu_torch.ops.knn_linkage import knn_ward_linkage
 from scconsensus_tpu_torch.ops.linkage import HClustTree, ward_linkage
-from scconsensus_tpu_torch.ops.pca import pca_scores
+from scconsensus_tpu_torch.ops.pca import pca_scores, pca_scores_audited
 from scconsensus_tpu_torch.ops.pooling import (
     landmark_ward_linkage,
     pooled_ward_linkage,
@@ -107,8 +135,13 @@ from scconsensus_tpu_torch.ops.silhouette import (
     pooled_multi_cut_silhouette,
 )
 from scconsensus_tpu_torch.ops.treecut import cutree_hybrid
+from scconsensus_tpu_torch.robust import faults
+from scconsensus_tpu_torch.robust import integrity as robust_integrity
+from scconsensus_tpu_torch.robust import record as robust_record
+from scconsensus_tpu_torch.robust import retry as robust_retry
 from scconsensus_tpu_torch.robust.contract import preflight
 from scconsensus_tpu_torch.utils.artifacts import (
+    SERIAL_MESH_SHAPE,
     ArtifactStore,
     input_fingerprint,
 )
@@ -117,11 +150,7 @@ from scconsensus_tpu_torch.utils.timing import StageClock
 __all__ = ["ReclusterResult", "refine", "recluster_de_consensus",
            "recluster_de_consensus_fast"]
 
-# the mesh stamp on every stage sidecar: the reference's serial-run shape
-# (scconsensus_tpu/parallel/mesh.py mesh_shape_meta(None)); the port runs
-# on one device
-SERIAL_MESH_SHAPE = {"n_devices": 1, "device_ids": [0], "axis": "cells",
-                     "platform": None}
+_log = logging.getLogger("scconsensus_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -164,24 +193,60 @@ def refine(
         DE-gene union size, k = min(n_pcs + 10, F, N)); see ``carry``.
       mesh: must be None; the multi-device path is not ported yet.
 
-    See the module docstring for the branches past ``approx_threshold``
-    and the keys of ``result.metrics``.
+    See the module docstring for the branches past ``approx_threshold``,
+    the guard rails and the keys of ``result.metrics``.
     """
     if mesh is not None:
         raise NotImplementedError("the multi-device (mesh) path is not "
                                   "ported yet; pass mesh=None")
     dev = resolve_device(device)
-    if config.plot_name:
-        raise NotImplementedError("the DE heatmap is not ported yet")
+    # fresh robustness and integrity trails for this run: retries,
+    # degradations, resume points and injections land on
+    # metrics["robustness"]; checks and ghost replays on
+    # metrics["integrity"] (absent with SCC_INTEGRITY=off)
+    robust_record.begin_run()
+    robust_integrity.begin_run()
+    # the run's tracer keys the numeric sentinels' trips (obs.quality);
+    # its root span never synchronizes the card
+    tracer = obs_trace.Tracer(sync="off", sample_device=False)
+    with tracer.span("refine", kind="run"):
+        result = _refine_impl(data, labels, config, gene_names, dev, omega,
+                              tracer)
+    rb_section = robust_record.section()
+    if rb_section is not None:
+        # absent on healthy unfaulted runs: absence is the healthy signal
+        result.metrics["robustness"] = rb_section
+    ig_section = robust_integrity.section()
+    if ig_section is not None:
+        result.metrics["integrity"] = ig_section
+    return result
+
+
+def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
+                 omega, tracer) -> ReclusterResult:
+    # the matrix upload runs at the input_staging fault site
     data = as_device_matrix(data, dev)
     G, N = data.shape
     # shape, NaN labels, a non-finite matrix and labelings with fewer than
     # two pairable clusters fail here, typed, before any stage runs
-    preflight(data, labels, config)
+    with robust_record.timed():
+        preflight(data, labels, config)
     store = ArtifactStore(config.artifact_dir)
+    run_log = robust_record.current_run()
     if store.enabled:
         store.check_config(config.to_json(),
                            inputs=input_fingerprint(data, labels))
+        # the retry budget survives a kill: seed it from the store's
+        # robust_state sidecar and mirror every later take into it
+        try:
+            _, rb_meta = store.load("robust_state")
+            if rb_meta.get("budget_used"):
+                run_log.restore_budget(int(rb_meta["budget_used"]))
+        except ValueError:
+            pass  # quarantined sidecar: the budget restarts, the run goes on
+        run_log.set_budget_persist(
+            lambda used: store.save("robust_state",
+                                    meta={"budget_used": used}))
     clock = StageClock(dev)
 
     def _stage_cached(stage, fn):
@@ -197,18 +262,25 @@ def refine(
             pass  # corrupt (already quarantined) or incomplete: recompute
     if de_res is None:
         with clock.stage("de"):
-            de_res = pairwise_de(data, labels, config, device=dev,
-                                 clock=clock)
+            de_res = robust_retry.call(
+                lambda: pairwise_de(data, labels, config, device=dev,
+                                    clock=clock, store=store),
+                site="stage:de")
         if store.enabled:
             # the (P, G) fields to the host, compressed and checksummed
             with clock.stage("de_store"):
                 de_arrays, de_meta = de_res.to_store()
                 store.save("de", de_arrays,
                            {**de_meta, "mesh_shape": SERIAL_MESH_SHAPE})
+                # the covering artifact landed: the ladder's mid-stage
+                # blocks have served their purpose
+                store.discard_prefix("de_wilcox_")
 
     with clock.stage("union"):
-        union = _stage_cached("union", lambda: {
-            "idx": de_gene_union(de_res, config.n_top_de_genes)})["idx"]
+        union = robust_retry.call(
+            lambda: _stage_cached("union", lambda: {
+                "idx": de_gene_union(de_res, config.n_top_de_genes)}),
+            site="stage:union")["idx"]
     if union.size < 2:
         raise ValueError(
             f"DE gene union has {union.size} genes — nothing to re-embed. "
@@ -229,14 +301,44 @@ def refine(
                 norm = torch.linalg.norm(c, dim=0, keepdim=True)
                 cols = c / torch.clamp(norm, min=1e-12)
             cells = cols.T.contiguous()                      # (N, |U|)
-            scores = pca_scores(cells, n_pcs, omega=omega)   # device
+            if robust_integrity.enabled():
+                # the audited embed: the same scores, plus the basis
+                # residual and the mean and components the sampled
+                # float64 replay checks score rows against; a detection
+                # raises here, inside the stage guard and before the
+                # store saves
+                sc, ortho, pmean, pcomp = pca_scores_audited(
+                    cells, n_pcs, omega=omega)
+                sc = faults.corrupt_value("embed_scores", sc)
+                robust_integrity.check_pca_basis("stage:embed", ortho)
+                if robust_integrity.current().want_replay("pca", 0):
+                    robust_integrity.replay_pca_rows(
+                        "stage:embed", cells, pmean, pcomp, sc,
+                        n_rows=int(cells.shape[0]))
+            else:
+                sc = pca_scores(cells, n_pcs, omega=omega)   # device
+            scores = sc
             # tree and cuts are host algorithms: the (N, n_pcs) scores
             # cross
-            return {"scores": scores.cpu().numpy()}
+            return {"scores": sc.cpu().numpy()}
 
-        embedding = _stage_cached("embed", _embed)["scores"]
+        def _embed_degrade(_attempt):
+            # an allocation failure in embed: hand the allocator's cached
+            # blocks back before the PCA retry (the reference evicts its
+            # device upload cache here, under the same action name)
+            free_device_cache(dev)
+            robust_record.note_degradation(
+                "stage:embed", "evict-devcache",
+                "freed the caching allocator's blocks before PCA retry")
+
+        embedding = robust_retry.call(
+            lambda: _stage_cached("embed", _embed), site="stage:embed",
+            degrade=_embed_degrade)["scores"]
         if scores is None:  # resumed: the stored scores, to the device
             scores = torch.from_numpy(embedding).to(dev)
+        if obs_quality.enabled():
+            # a NaN/Inf score corrupts every distance, tree and cut below
+            obs_quality.check_array("embedding", embedding, where="embed")
 
     with clock.stage("tree"):
         approx = N > config.approx_threshold
@@ -281,7 +383,8 @@ def refine(
             t = ward_linkage(embedding)
             return {"merge": t.merge, "height": t.height, "order": t.order}
 
-        tree_arrays = _stage_cached("tree", _tree)
+        tree_arrays = robust_retry.call(
+            lambda: _stage_cached("tree", _tree), site="stage:tree")
         tree = HClustTree(merge=tree_arrays["merge"],
                           height=tree_arrays["height"],
                           order=tree_arrays["order"])
@@ -317,6 +420,10 @@ def refine(
             cut_weights = np.bincount(
                 pool_assign, minlength=pool_centroids.shape[0]
             ).astype(np.float64)
+            # occupancy conservation at the cut boundary: the weights the
+            # size floor runs in account for every cell exactly once
+            robust_integrity.check_landmark_occupancy(
+                "stage:cuts", pool_assign, pool_centroids.shape[0], N)
         else:
             # cuts on the pool: the size floor scaled by the average
             # occupancy
@@ -338,7 +445,8 @@ def refine(
                 out[f"ds{dsv}"] = cut_labels
             return out
 
-        cut_arrays = _stage_cached("cuts", _cuts)
+        cut_arrays = robust_retry.call(
+            lambda: _stage_cached("cuts", _cuts), site="stage:cuts")
         for dsv in config.deep_split_values:
             cut_labels = cut_arrays[f"ds{dsv}"]
             key = f"deepsplit: {dsv}"
@@ -397,29 +505,93 @@ def refine(
                                     else config.silhouette_pool_centroids),
                     "pool_reused": pool_centroids is not None,
                 }
-                sils = pooled_multi_cut_silhouette(
-                    scores, labs,
-                    n_centroids=config.silhouette_pool_centroids,
-                    seed=config.random_seed, centroids=pool_centroids,
-                    assign=pool_assign, sample=config.silhouette_sample,
-                )
             else:
                 sil_info = {"method": "exact"}
-                sils = multi_cut_silhouette(scores, labs)
+
+            def _silhouette():
+                if approx:
+                    return pooled_multi_cut_silhouette(
+                        scores, labs,
+                        n_centroids=config.silhouette_pool_centroids,
+                        seed=config.random_seed, centroids=pool_centroids,
+                        assign=pool_assign, sample=config.silhouette_sample,
+                    )
+                return multi_cut_silhouette(scores, labs)
+
+            sils = robust_retry.call(_silhouette, site="stage:silhouette")
             for info, (si, _per) in zip(deep_split_info, sils):
                 info["silhouette"] = si
                 if approx:
                     info["silhouette_method"] = "pooled-estimator"
 
     with clock.stage("nodg"):
-        nodg = count_detected(data)
+        nodg = robust_retry.call(lambda: count_detected(data),
+                                 site="stage:nodg")
+
+    # quality telemetry: the DE gate funnel, the window ladder's
+    # occupancy, the cluster structure against the input labeling and the
+    # numeric sentinels' trips. Never fatal: a quality failure must not
+    # cost the result it describes
+    quality_section = None
+    with clock.stage("quality"):
+        try:
+            if config.compat.return_silhouette and obs_quality.enabled():
+                sils = np.array([
+                    d["silhouette"] for d in deep_split_info
+                    if d.get("silhouette") is not None
+                ], np.float64)
+                obs_quality.check_array("silhouette", sils,
+                                        where="silhouette")
+            quality_section = obs_quality.build_quality_section(
+                de_result=de_res, config=config,
+                dynamic_labels=dynamic_labels,
+                deep_split_info=deep_split_info,
+                input_labels=(de_res.cell_codes
+                              if de_res.cell_codes is not None
+                              else encode_labels(labels)[1]),
+                occupancy=de_res.ladder, landmark=landmark_info,
+                tracer=tracer,
+            )
+        except Exception as e:
+            _log.warning("quality telemetry failed: %r", e)
 
     union_names = (np.asarray(gene_names)[union] if gene_names is not None
                    else union.copy())
+    if config.plot_name:
+        with clock.stage("report"):
+            from scconsensus_tpu_torch.report.de_heatmap import (
+                cell_type_de_plot,
+            )
+
+            cell_type_de_plot(
+                data_matrix=rows_dense(data, union).cpu().numpy(),
+                nodg=nodg,
+                cell_tree=tree,
+                cluster_labels=np.asarray(labels).astype(str),
+                dynamic_colors_list=dynamic_colors,
+                gene_labels=union_names.astype(str),
+                filename=config.plot_name,
+            )
+    metrics = {
+        "device": str(dev),
+        "stage_walls_s": dict(clock.walls),
+        "union_size": int(union.size),
+        "per_pair_de_counts": de_res.de_counts().tolist(),
+        "wilcox_ladder": de_res.ladder,
+        "tree_engine": tree_engine,
+        "n_genes": int(G),
+        "n_cells": int(N),
+        "tree": {"approx": bool(approx),
+                 "landmark": landmark_info is not None,
+                 "landmark_k": (landmark_info or {}).get("k")},
+        "landmark": landmark_info,
+        "silhouette": sil_info,
+    }
+    if quality_section is not None:
+        metrics["quality"] = quality_section
     if store.enabled:
-        # the run completed: the reference resets its persisted retry
-        # budget here (seeding a retry budget from it waits for the port
-        # of robust/retry.py)
+        # the run completed: reset the persisted retry budget (a failed
+        # run never gets here, so its count stands for the next attempt)
         try:
             store.save("robust_state", meta={"budget_used": 0})
         except OSError:
@@ -434,21 +606,7 @@ def refine(
         nodg=nodg,
         embedding=embedding,
         de=de_res,
-        metrics={
-            "device": str(dev),
-            "stage_walls_s": dict(clock.walls),
-            "union_size": int(union.size),
-            "per_pair_de_counts": de_res.de_counts().tolist(),
-            "wilcox_ladder": de_res.ladder,
-            "tree_engine": tree_engine,
-            "n_genes": int(G),
-            "n_cells": int(N),
-            "tree": {"approx": bool(approx),
-                     "landmark": landmark_info is not None,
-                     "landmark_k": (landmark_info or {}).get("k")},
-            "landmark": landmark_info,
-            "silhouette": sil_info,
-        },
+        metrics=metrics,
     )
 
 

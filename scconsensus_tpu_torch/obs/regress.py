@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["adjusted_rand_index"]
+__all__ = ["adjusted_rand_index", "ari_from_table"]
 
 
 def adjusted_rand_index(a, b) -> float:
@@ -26,9 +26,16 @@ def adjusted_rand_index(a, b) -> float:
         raise ValueError("label arrays differ in length")
     _, ai = np.unique(a, return_inverse=True)
     _, bi = np.unique(b, return_inverse=True)
-    n = a.size
     c = np.zeros((ai.max() + 1, bi.max() + 1), np.int64)
     np.add.at(c, (ai, bi), 1)
+    return ari_from_table(c)
+
+
+def ari_from_table(c: np.ndarray) -> float:
+    """ARI from the (Ka, Kb) int64 contingency table of two labelings:
+    the same integer pair counts, and so the same float, as
+    :func:`adjusted_rand_index` of the labelings themselves."""
+    n = int(c.sum())
 
     def comb2(x):
         return (x * (x - 1)) // 2

@@ -1,7 +1,8 @@
 """Truncated PCA via randomized subspace iteration (matrix products + QR).
 
 The torch form of ``scconsensus_tpu/ops/pca.py`` ``_subspace_basis``,
-``pca_scores`` and ``pca_basis`` (:25-67, :101-119), replacing ``irlba::prcomp_irlba(x, n, center=TRUE,
+``pca_scores``, ``pca_scores_audited`` and ``pca_basis`` (:25-119),
+replacing ``irlba::prcomp_irlba(x, n, center=TRUE,
 scale.=FALSE)`` (R/reclusterDEConsensus.R:234). Component signs are
 arbitrary, as with irlba; euclidean distances and Ward are sign-invariant.
 
@@ -19,7 +20,7 @@ import torch
 
 from scconsensus_tpu_torch.device import resolve_device
 
-__all__ = ["pca_scores", "pca_basis"]
+__all__ = ["pca_scores", "pca_scores_audited", "pca_basis"]
 
 _N_OVERSAMPLE = 10  # extra subspace columns beyond n_components
 _N_ITER = 4         # power iterations
@@ -70,6 +71,29 @@ def pca_scores(
     _, vt, xc = _subspace_basis(_as_rows(x, device), n_components, seed,
                                 omega)
     return xc @ vt.T
+
+
+def pca_scores_audited(
+    x: torch.Tensor,
+    n_components: int,
+    seed: int = 0,
+    omega: Optional[torch.Tensor] = None,
+    device=None,
+):
+    """:func:`pca_scores` plus what the integrity layer verifies, from the
+    same subspace iteration and the same draw: ``(scores,
+    ortho_residual, mean, components)``, where ``ortho_residual`` =
+    ‖V·Vᵀ − I‖∞ of the basis (a device scalar) and ``mean`` /
+    ``components`` feed the sampled float64 ghost replay of score rows.
+    The scores are the bits :func:`pca_scores` gives; the extra work is
+    one (k, k) gram."""
+    mean, vt, xc = _subspace_basis(_as_rows(x, device), n_components, seed,
+                                   omega)
+    scores = xc @ vt.T
+    g = vt @ vt.T
+    resid = torch.max(torch.abs(
+        g - torch.eye(g.shape[0], dtype=g.dtype, device=g.device)))
+    return scores, resid, mean, vt
 
 
 def pca_basis(

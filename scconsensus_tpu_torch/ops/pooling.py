@@ -20,8 +20,10 @@ one-hot. The seeded numpy draws (initial centroids, sketch) are the
 reference's call for call, and each distance tile sums its terms in the
 reference's order, so argmins agree. On the card ``index_add_`` adds in
 an unspecified order, so centroids may differ from run to run in the last
-bits. The reference's integrity checks, fault injection and graph
-passports are left out.
+bits. The landmark assignment carries the reference's integrity tier
+(the ``landmark_assign`` corruption site, occupancy conservation and a
+sampled ghost replay, ``robust.integrity``); its graph passports are
+left out.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import torch
 from scconsensus_tpu_torch.device import as_points
 from scconsensus_tpu_torch.ops.distance import sq_dists
 from scconsensus_tpu_torch.ops.linkage import HClustTree, ward_linkage
+from scconsensus_tpu_torch.robust import faults
+from scconsensus_tpu_torch.robust import integrity as robust_integrity
 
 __all__ = [
     "kmeans_pool",
@@ -86,12 +90,16 @@ def _assign(points: torch.Tensor, cent: torch.Tensor, argmin) -> torch.Tensor:
                       for s in range(0, points.shape[0], _LLOYD_BLOCK)])
 
 
-def _used(cent: torch.Tensor, assign: torch.Tensor, m: int
+def _host(cent: torch.Tensor, assign: torch.Tensor
           ) -> Tuple[np.ndarray, np.ndarray]:
-    """The (m', d) float64 centroids that own a point, and the assignment
+    """Centroids (float64) and assignment on the host."""
+    return cent.cpu().numpy().astype(np.float64), assign.cpu().numpy()
+
+
+def _used(cent: np.ndarray, assign: np.ndarray, m: int
+          ) -> Tuple[np.ndarray, np.ndarray]:
+    """The (m', d) centroids that own a point, and the assignment
     renumbered onto them."""
-    cent = cent.cpu().numpy().astype(np.float64)
-    assign = assign.cpu().numpy()
     used = np.unique(assign)
     remap = -np.ones(m, np.int64)
     remap[used] = np.arange(used.size)
@@ -112,7 +120,7 @@ def kmeans_pool(x, n_centroids: int, n_iter: int = 10, seed: int = 0,
     cent = init
     for _ in range(n_iter):
         cent = _update(xd, cent, _lloyd_argmin)
-    return _used(cent, _assign(xd, cent, _lloyd_argmin), m)
+    return _used(*_host(cent, _assign(xd, cent, _lloyd_argmin)), m)
 
 
 def pooled_ward_linkage(x, n_centroids: int = 4096, n_iter: int = 10,
@@ -170,7 +178,22 @@ def landmark_pool(x, n_landmarks: Optional[int] = None,
     cent = sk[torch.as_tensor(init_idx, device=xd.device)]
     for _ in range(n_iter):
         cent = _update(sk, cent, _nearest)
-    cent, assign = _used(cent, _assign(xd, cent, _nearest), k)
+    cent, assign = _host(cent, _assign(xd, cent, _nearest))
+    # the integrity tier: the injected corruption site, occupancy
+    # conservation, and once per run the float64 ghost replay of a seeded
+    # 256-row block against the fetched landmarks; a detection raises
+    # typed silent_corruption inside the tree stage's guard
+    assign = faults.corrupt_value("landmark_assign", assign)
+    if robust_integrity.enabled():
+        robust_integrity.check_landmark_occupancy(
+            "landmark_assign", assign, k, n)
+        if robust_integrity.current().want_replay("landmark", 0):
+            blk = robust_integrity._sample_idx(n, 256)
+            robust_integrity.replay_landmark_block(
+                "landmark_assign",
+                xd[torch.as_tensor(blk, device=xd.device)], cent,
+                assign[blk], unit="block0")
+    cent, assign = _used(cent, assign, k)
     info = {
         "k_requested": int(k),
         "k_used": int(cent.shape[0]),

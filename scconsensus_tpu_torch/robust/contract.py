@@ -27,9 +27,9 @@ failed. It rejects NaN or ±Inf anywhere and nothing else, the rule of the
 reference's numpy path (a float64 sum that no finite float32 matrix can
 overflow).
 
-``preflight`` returns the repair records as the reference does. The
-reference also notes them on its robustness log; that waits for the port
-of ``robust/record.py``.
+``preflight`` returns the repair records as the reference does and notes
+each one as an ``input_contract`` degradation on the run's robustness log
+(``robust.record``).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from scconsensus_tpu_torch.io.sparsemat import DeviceCSR, is_sparse
+from scconsensus_tpu_torch.robust import record as robust_record
 
 __all__ = ["InputContractError", "CHECKS", "preflight"]
 
@@ -174,4 +175,8 @@ def preflight(data, labels, config) -> List[Dict[str, Any]]:
                       f"cluster(s) before DE: {', '.join(dropped[:8])}"
                       + (" …" if len(dropped) > 8 else ""),
         })
+    for r in repairs:
+        robust_record.note_degradation(
+            "input_contract", f"repair:{r['check']}", r["detail"]
+        )
     return repairs

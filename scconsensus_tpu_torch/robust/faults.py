@@ -5,29 +5,33 @@ a JSON file::
 
     {"seed": 1,
      "faults": [
-       {"site": "serve_device", "class": "oom",      "times": 3},
-       {"site": "serve_batch",  "class": "stall",    "stall_s": 0.5},
-       {"site": "serve_batch",  "class": "kill",     "after": 1},
-       {"site": "artifact:consensus_model", "class": "corrupt"}
+       {"site": "stage:embed", "class": "oom",       "times": 1},
+       {"site": "wilcox_bucket", "class": "transient", "after": 2},
+       {"site": "stage:cuts",  "class": "kill"},
+       {"site": "artifact:tree", "class": "corrupt", "mode": "truncate"},
+       {"site": "wilcox_bucket_out", "class": "corruption"}
      ]}
 
 Each rule fires on hits ``after <= n < after + times`` of its site
 (0-based; ``after`` defaults to 0, ``times`` to 1), so a test can assert
-exact recovery behaviour. The sites the port has: the serving driver's
-``serve_load`` (model load), ``serve_batch`` (micro-batch assembly) and
-``serve_device`` (inside the device classify call); artifact writes
-(``artifact:<stage>``, consumed by :func:`corrupt_artifact` after the
-store's atomic replace); the in-computation corruption site
-``serve_classify`` (consumed by :func:`corrupt_value`); and any site a
-caller names to ``robust.retry.call``.
+exact recovery behaviour. The sites the port has: ``refine()``'s stage
+boundaries (``stage:de``, ``stage:union``, ``stage:embed``,
+``stage:tree``, ``stage:cuts``, ``stage:silhouette``, ``stage:nodg``), the
+DE ladder's buckets (``wilcox_bucket``), the matrix upload
+(``input_staging``), the serving driver's ``serve_load`` (model load),
+``serve_batch`` (micro-batch assembly) and ``serve_device`` (inside the
+device classify call), artifact writes (``artifact:<stage>``, consumed
+by :func:`corrupt_artifact` after the store's atomic replace), the
+in-computation corruption sites consumed by :func:`corrupt_value`
+(``wilcox_bucket_out``, ``embed_scores``, ``bh_logq``,
+``landmark_assign``, ``contingency_table``, ``serve_classify``), and any
+site a caller names to ``robust.retry.call``.
 
 A plan naming a site of the reference the port does not have yet raises
-``NotImplementedError`` when it is read: the pipeline's ``stage:<name>``
-boundaries and ``wilcox_bucket`` (``refine()`` does not run under the
-plan yet, ROADMAP A8), ``input_staging``, ``refine_step``, the mesh
+``NotImplementedError`` when it is read: ``refine_step``, the mesh
 engines' ``sharded:*`` and ``ring:*``, the streaming layer's
-``stream_*``, the serving fleet's ``wire_request`` and ``fleet_*``, and
-the corruption sites other than ``serve_classify``.
+``stream_*`` (and its ``stream_block`` corruption site), and the serving
+fleet's ``wire_request`` and ``fleet_*``.
 
 Fault classes and what they do at a compute site:
 
@@ -44,10 +48,12 @@ Fault classes and what they do at a compute site:
   disk       raise :class:`InjectedDiskFault` (``No space left on
              device``)
   corruption no-op at :func:`fault_point`; consumed by
-             :func:`corrupt_value` at ``serve_classify``: a seeded
-             perturbation of freshly computed values (scale, sign-bit
-             flip, index shift). ``robust.integrity``, which detects it
-             in the reference, is not ported.
+             :func:`corrupt_value` at the in-computation sites: a
+             deterministic perturbation of freshly computed values
+             (scale, sign flip of the largest entry, index shift), the
+             reference's, so both packages corrupt the same positions.
+             ``robust.integrity`` must detect each one and recompute
+             the unit.
 
 With ``SCC_FAULT_PLAN`` unset every entry point is one registry lookup.
 """
@@ -108,12 +114,11 @@ class InjectedDiskFault(InjectedFault):
 
 # sites of the reference the port does not have yet: a plan naming one is
 # refused when read, so a chaos run cannot pass by injecting nowhere
-_UNPORTED_PREFIXES = ("stage:", "sharded:", "ring:", "stream_", "fleet_")
-_UNPORTED_SITES = ("wilcox_bucket", "input_staging", "refine_step",
-                   "wire_request", "wilcox_bucket_out", "embed_scores",
-                   "bh_logq", "landmark_assign", "contingency_table")
+_UNPORTED_PREFIXES = ("sharded:", "ring:", "stream_", "fleet_")
+_UNPORTED_SITES = ("refine_step", "wire_request")
 # the in-computation corruption sites the port has
-_VALUE_SITES = ("serve_classify",)
+_VALUE_SITES = ("wilcox_bucket_out", "embed_scores", "bh_logq",
+                "landmark_assign", "contingency_table", "serve_classify")
 
 
 def _check_site(path: str, i: int, rule: Dict[str, Any]) -> None:
@@ -124,8 +129,9 @@ def _check_site(path: str, i: int, rule: Dict[str, Any]) -> None:
         raise NotImplementedError(
             f"SCC_FAULT_PLAN {path!r}: faults[{i}] names site {site!r} "
             f"(class {rule['class']!r}), which the port does not have "
-            "yet; it has serve_load, serve_batch, serve_device, "
-            "artifact:<stage> and serve_classify"
+            "yet; it has stage:<name>, wilcox_bucket, input_staging, "
+            "serve_load, serve_batch, serve_device, artifact:<stage> and "
+            f"the corruption sites {', '.join(_VALUE_SITES)}"
         )
 
 

@@ -20,10 +20,13 @@ log becomes the section::
 
 :func:`validate_robustness` rejects ``recovered: true`` without evidence
 (a recovered retry, a resume point or a mesh transition) and a mesh
-transition whose device set does not shrink. ``refine()`` does not write
-to the log yet, and the retry budget's persistence across a resume
-(``set_budget_persist``, ``restore_budget``) and the live summary wait
-for it (ROADMAP A8).
+transition whose device set does not shrink.
+
+Budget persistence: with an artifact store active, ``refine()`` arms
+``set_budget_persist`` so every consumed retry lands in the store's
+``robust_state`` sidecar, and a resumed run re-seeds ``budget_used``
+from it (``restore_budget``) instead of refreshing the allowance. The
+heartbeat's ``live_summary`` waits for the live recorder.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ class RunLog:
         self.budget_used = 0
         self.consumed_s = 0.0
         self._n_dropped = 0
+        self._budget_persist = None  # set_budget_persist
         self._lock = threading.Lock()
 
     def _append(self, lst: List[Dict[str, Any]], item: Dict[str, Any]):
@@ -78,12 +82,32 @@ class RunLog:
 
     def budget_take(self) -> bool:
         """Consume one retry from the per-run budget; False = exhausted
-        (the caller must re-raise instead of retrying)."""
+        (the caller must re-raise instead of retrying). Every take is
+        mirrored through the persist hook (when armed), so a killed run
+        cannot come back with a fresh allowance."""
         with self._lock:
             if self.budget_used >= self.budget_limit:
                 return False
             self.budget_used += 1
+            used, persist = self.budget_used, self._budget_persist
+        if persist is not None:
+            try:  # durability must not become a new failure mode
+                persist(used)
+            except Exception:
+                pass
         return True
+
+    def restore_budget(self, used: int) -> None:
+        """Seed ``budget_used`` from a persisted resume checkpoint; takes
+        the max, so a restore can never lower the count."""
+        with self._lock:
+            self.budget_used = max(self.budget_used, int(used))
+
+    def set_budget_persist(self, fn) -> None:
+        """Arm ``fn(used)`` to run after every budget take (the pipeline
+        points it at the artifact store's robust_state sidecar)."""
+        with self._lock:
+            self._budget_persist = fn
 
     def empty(self) -> bool:
         return not (self.faults or self.retries or self.degradations

@@ -26,9 +26,11 @@ device-side assert), after which no retry in the process can succeed,
 and "no CUDA GPUs are available" are ``device_lost``, which the serving
 driver's breaker answers with flagged degraded serving.
 
-Left out against the reference: the type check of ``robust.integrity``'s
-errors and the eviction of a device that keeps miscomputing (integrity
-and the elastic mesh are not ported). ``KeyboardInterrupt`` and
+``robust.integrity``'s typed errors classify as ``silent_corruption``
+by type. A site that keeps miscomputing past
+``SCC_INTEGRITY_EVICT_THRESHOLD`` runs the caller's device-loss hook
+before the recompute; the port's callers pass none (there is no mesh to
+shrink), so the recompute ladder goes on. ``KeyboardInterrupt`` and
 ``SystemExit`` are never caught.
 """
 
@@ -154,6 +156,11 @@ def classify_exception(exc: BaseException) -> str:
     """Error class of an exception: type first (MemoryError, the CUDA
     allocator's OutOfMemoryError, the injected fault types, OSError errno
     for the disk family), then message text, else fatal."""
+    from scconsensus_tpu_torch.robust import integrity as _integrity
+
+    # the typed integrity errors classify before their message is read
+    if isinstance(exc, _integrity.IntegrityError):
+        return "silent_corruption"
     if isinstance(exc, faults.InjectedDeviceLoss):
         return "device_lost"
     if isinstance(exc, faults.InjectedDiskFault):
@@ -233,6 +240,15 @@ class RetryPolicy:
                     record.note_retry(site, err_class, attempt,
                                       recovered=True,
                                       backoff_s=backoff_total)
+                    if err_class == "silent_corruption":
+                        # the corrupted unit was recomputed clean: the
+                        # integrity section's recovery evidence
+                        from scconsensus_tpu_torch.robust import (
+                            integrity as _integrity,
+                        )
+
+                        _integrity.current().note_recompute()
+                        _integrity.current().reset_streak(site)
                 return out
             except Exception as e:
                 err_class = classify(e)
@@ -260,6 +276,42 @@ class RetryPolicy:
                         # the adaptation IS the recovery here: shrink the
                         # mesh onto survivors before re-entering the stage
                         on_device_loss(attempt)
+                    elif err_class == "silent_corruption":
+                        # recompute-the-unit: a plain retry, unless the
+                        # site keeps miscomputing: past the eviction
+                        # threshold the device-loss hook runs, so a device
+                        # that computes wrong is treated like one that died
+                        from scconsensus_tpu_torch.robust import (
+                            integrity as _integrity,
+                        )
+
+                        # the streak is keyed on the detection's own site
+                        # (the ladder bucket, the serving device call),
+                        # which a propagated error carries
+                        det_site = getattr(e, "site", "") or site
+                        if (on_device_loss is not None
+                                and _integrity.should_evict(det_site)):
+                            _integrity.current().reset_streak(det_site)
+                            try:
+                                on_device_loss(attempt)
+                                record.note_degradation(
+                                    det_site,
+                                    "evict-miscomputing-device",
+                                    "repeated silent-corruption "
+                                    "detections — mesh shrunk off the "
+                                    "suspect chip before the recompute",
+                                )
+                            except Exception:
+                                # nothing smaller to move to: the bounded
+                                # recompute ladder is the best remaining
+                                # move, so keep retrying
+                                record.note_degradation(
+                                    det_site, "eviction-unavailable",
+                                    "repeated silent-corruption "
+                                    "detections but no smaller mesh to "
+                                    "shrink to; continuing recompute "
+                                    "attempts",
+                                )
                     elif degrade is not None and err_class in ("resource",
                                                                "disk"):
                         # both classes demand a DIFFERENT retry: resource

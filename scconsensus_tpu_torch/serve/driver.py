@@ -29,12 +29,16 @@ Fault sites (``robust.faults``): ``serve_load`` (model load),
 ``serve_batch`` (micro-batch assembly), ``serve_device`` (inside the
 device call). Every request rides a back-dated ``serve_request`` span.
 
+Under ``SCC_INTEGRITY`` (``audit`` or ``enforce``) the injected
+``serve_classify`` corruption site may perturb the device labels, and
+the first batch of every 64 is ghost-replayed against the model's
+float64 host mirror (``robust.integrity.replay_classify``); in enforce
+mode a mismatch raises typed silent_corruption, which the in-batch retry
+recomputes and the breaker counts.
+
 Against the reference: batches are not padded to a power of two (that
 bounds XLA's compile cache; eager PyTorch compiles nothing, and rows are
-independent, so labels do not change), and ``SCC_INTEGRITY`` other than
-``off`` raises ``NotImplementedError`` at construction, where the
-reference would ghost-replay batches (``robust.integrity`` is not
-ported).
+independent, so labels do not change).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from scconsensus_tpu_torch.config import env_flag
 from scconsensus_tpu_torch.device import resolve_device
 from scconsensus_tpu_torch.obs import trace as obs_trace
 from scconsensus_tpu_torch.robust import faults
+from scconsensus_tpu_torch.robust import integrity as robust_integrity
 from scconsensus_tpu_torch.robust import record as rb_record
 from scconsensus_tpu_torch.robust import retry as robust_retry
 from scconsensus_tpu_torch.serve import metrics as serve_metrics
@@ -261,12 +266,6 @@ class ConsensusServer:
                  config: Optional[ServeConfig] = None,
                  readonly: bool = False,
                  device=None):
-        if env_flag("SCC_INTEGRITY") != "off":
-            raise NotImplementedError(
-                f"SCC_INTEGRITY={env_flag('SCC_INTEGRITY')!r}: the "
-                "integrity sentinels are not ported yet; serve with "
-                "SCC_INTEGRITY=off"
-            )
         dev = resolve_device(device)
         if isinstance(model, str):
             # typed refusal path: ModelLoadError propagates — a server
@@ -515,10 +514,20 @@ class ConsensusServer:
 
     def _device_classify(self, x: np.ndarray):
         """One guarded device call (fault site ``serve_device``); the
-        ``serve_classify`` corruption site may perturb its labels."""
+        ``serve_classify`` corruption site may perturb its labels, and
+        under ``SCC_INTEGRITY`` the first batch of every 64 is
+        ghost-replayed against the model's float64 host mirror."""
         faults.fault_point("serve_device")
         labels, dist = self.model.classify(x)
-        return faults.corrupt_value("serve_classify", labels), dist
+        labels = faults.corrupt_value("serve_classify", labels)
+        if robust_integrity.enabled() and \
+                robust_integrity.current().want_replay(
+                    "serve", self._batch_seq // 64):
+            robust_integrity.replay_classify(
+                "serve_classify", x, labels, self.model,
+                unit=f"batch:{self._batch_seq}",
+            )
+        return labels, dist
 
     def _process(self, batch: List[RequestHandle]) -> None:
         # the worker's own share of the guard is taken in wall time: a

@@ -20,15 +20,20 @@ each write the fault plan's ``artifact:<stage>`` rule may corrupt the
 file (``robust.faults.corrupt_artifact``), and every quarantine is noted
 on the robustness log (``robust.record``).
 
-Left out against the reference until a caller in the port needs them:
-``discard_prefix`` (with the mid-stage checkpoints, ROADMAP A8) and the
-``SCC_ROBUST_CHECKSUM`` switch (checksums are always written and
-verified here).
+``discard_prefix`` removes the mid-stage Wilcoxon blocks (``de_wilcox_*``)
+once the covering ``de`` artifact lands; ``load_many`` reads and checks
+several stages on parallel threads (a resume's ladder blocks). Each file
+is read once and hashed over those bytes. The hashing is the robustness
+layer's own cost and is timed onto ``robust.record``'s ``consumed_s``,
+as in the reference. Left out against the reference
+until a caller in the port needs it: the ``SCC_ROBUST_CHECKSUM`` switch
+(checksums are always written and verified here).
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import logging
 import os
@@ -47,7 +52,14 @@ from scconsensus_tpu_torch.robust import faults as _faults
 from scconsensus_tpu_torch.robust import record as _robust_record
 
 __all__ = ["ArtifactStore", "ArtifactCorrupt", "input_fingerprint",
-           "config_fingerprint", "file_sha256", "quarantine_files"]
+           "config_fingerprint", "file_sha256", "quarantine_files",
+           "SERIAL_MESH_SHAPE"]
+
+# the mesh stamp on every stage and checkpoint sidecar: the reference's
+# serial-run shape (scconsensus_tpu/parallel/mesh.py mesh_shape_meta(None));
+# the port runs on one device
+SERIAL_MESH_SHAPE = {"n_devices": 1, "device_ids": [0], "axis": "cells",
+                     "platform": None}
 
 _log = logging.getLogger("scconsensus_tpu_torch")
 
@@ -232,13 +244,16 @@ class ArtifactStore:
         return os.path.exists(npz)
 
     def save(self, stage: str, arrays: Optional[Dict[str, np.ndarray]] = None,
-             meta: Optional[Dict[str, Any]] = None) -> None:
+             meta: Optional[Dict[str, Any]] = None,
+             compress: bool = True) -> None:
         """Atomic per-file writes, meta before arrays: ``has()`` keys
         resume on the ``.npz``, so the only observable intermediate state
         (meta present, arrays absent) reads as stage-not-complete.
 
         The arrays file is serialized to its temp first so its sha256 can
-        ride the sidecar (``_integrity``)."""
+        ride the sidecar (``_integrity``). ``compress=False`` writes a
+        plain ``.npz`` (``np.savez``) for arrays that zlib cannot shrink;
+        ``load`` and the reference read either form."""
         if not self.enabled:
             return
         if self.readonly:
@@ -264,19 +279,24 @@ class ArtifactStore:
                 _write_sidecar(None)
             return
 
+        writer = np.savez_compressed if compress else np.savez
+        integrity: Dict[str, Any] = {}
+
         def _wz(tmp):
-            # an explicit file handle writes exactly to the temp path
-            # (savez_compressed appends .npz to a bare name)
+            # serialize once in memory, checksum exactly those bytes, and
+            # write them to the temp path
+            buf = io.BytesIO()
+            writer(buf, **{k: np.asarray(v) for k, v in arrays.items()})
+            data = buf.getbuffer()
+            with _robust_record.timed():
+                integrity["sha256"] = hashlib.sha256(data).hexdigest()
+            integrity["size"] = len(data)
             with open(tmp, "wb") as f:
-                np.savez_compressed(
-                    f, **{k: np.asarray(v) for k, v in arrays.items()}
-                )
+                f.write(data)
 
         def _seal(tmp):
-            # between serialize and replace: checksum the exact bytes about
-            # to land, then write the sidecar (meta before arrays)
-            _write_sidecar({"sha256": file_sha256(tmp),
-                            "size": os.path.getsize(tmp)})
+            # between serialize and replace: the sidecar, meta before arrays
+            _write_sidecar(integrity)
 
         _atomic_bytes_writer(npz, _wz, inspect_fn=_seal)
         # the fault plan's post-write corruption (artifact:<stage>): a
@@ -301,11 +321,11 @@ class ArtifactStore:
         _log.warning("artifact %r quarantined (%s); stage will recompute",
                      stage, reason)
 
-    def load(self, stage: str):
-        """(arrays, meta) for a stage. Verifies the sidecar's checksum when
-        present; corrupt or unparseable
-        entries are quarantined and raise :class:`ArtifactCorrupt`. Stores
-        without ``_integrity`` load unverified."""
+    def _fetch(self, stage: str):
+        """(meta, the arrays file's bytes or None, their sha256 or None),
+        or the reason the sidecar fails (a str): the file is read once
+        and, when the sidecar carries ``_integrity``, hashed. Touches no
+        state, so threads may run it side by side."""
         npz, js = self._paths(stage)
         meta: Dict[str, Any] = {}
         if os.path.exists(js):
@@ -313,35 +333,101 @@ class ArtifactStore:
                 with open(js) as f:
                     meta = json.load(f)
             except (json.JSONDecodeError, OSError) as e:
-                self._quarantine(stage, f"sidecar unreadable: {e}")
-                raise ArtifactCorrupt(
-                    f"artifact {stage!r}: sidecar unreadable ({e}); "
-                    "quarantined"
-                )
-        arrays: Dict[str, np.ndarray] = {}
-        if os.path.exists(npz):
-            integ = meta.get("_integrity")
-            if integ:
-                actual = file_sha256(npz)
-                if actual != integ.get("sha256"):
-                    self._quarantine(
-                        stage,
-                        f"checksum mismatch ({actual[:12]} != "
-                        f"{str(integ.get('sha256'))[:12]})",
-                    )
-                    raise ArtifactCorrupt(
-                        f"artifact {stage!r}: content checksum mismatch; "
-                        "quarantined"
-                    )
-            try:
-                with np.load(npz, allow_pickle=False) as z:
-                    arrays = {k: z[k] for k in z.files}
-            except Exception as e:  # BadZipFile, truncated stream, ...
-                self._quarantine(stage, f"unparseable npz: {e!r}")
-                raise ArtifactCorrupt(
-                    f"artifact {stage!r}: unparseable ({e!r}); quarantined"
-                )
-        return arrays, meta
+                return f"sidecar unreadable: {e}"
+        if not os.path.exists(npz):
+            return meta, None, None
+        with open(npz, "rb") as f:
+            data = f.read()
+        digest = (hashlib.sha256(data).hexdigest()
+                  if meta.get("_integrity") else None)
+        return meta, data, digest
+
+    @staticmethod
+    def _parse(got):
+        """(arrays, meta) from ``_fetch``'s result, or the reason the
+        stage fails verification (a str)."""
+        if isinstance(got, str):
+            return got
+        meta, data, digest = got
+        if data is None:
+            return {}, meta
+        want = (meta.get("_integrity") or {}).get("sha256")
+        if digest is not None and digest != want:
+            return f"checksum mismatch ({digest[:12]} != {str(want)[:12]})"
+        try:
+            with np.load(io.BytesIO(data), allow_pickle=False) as z:
+                return {k: z[k] for k in z.files}, meta
+        except Exception as e:  # BadZipFile, truncated stream, ...
+            return f"unparseable npz: {e!r}"
+
+    def load(self, stage: str):
+        """(arrays, meta) for a stage. Verifies the sidecar's checksum when
+        present; corrupt or unparseable
+        entries are quarantined and raise :class:`ArtifactCorrupt`. Stores
+        without ``_integrity`` load unverified."""
+        with _robust_record.timed():
+            got = self._fetch(stage)
+        got = self._parse(got)
+        if isinstance(got, str):
+            self._quarantine(stage, got)
+            raise ArtifactCorrupt(f"artifact {stage!r}: {got}; quarantined")
+        return got
+
+    def load_many(self, stages) -> Dict[str, Any]:
+        """``load`` of several stages at once: their reads and checksums
+        run on parallel threads (hashing releases the GIL), that wall
+        timed onto the robustness layer as ``load`` times its own. Returns
+        each stage's (arrays, meta), or None where it fails verification:
+        nothing is quarantined here, so a caller that needs such a stage
+        ``load``s it to quarantine it."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        stages = list(stages)
+        if not stages:
+            return {}
+        with _robust_record.timed():
+            with ThreadPoolExecutor(
+                    min(len(stages), os.cpu_count() or 1, 8)) as pool:
+                fetched = list(pool.map(self._fetch, stages))
+        out = {}
+        for st, got in zip(stages, fetched):
+            got = self._parse(got)
+            out[st] = None if isinstance(got, str) else got
+        return out
+
+    def stages_with_prefix(self, prefix: str) -> list:
+        """The stages whose arrays file is present and whose name starts
+        with ``prefix``."""
+        if not self.enabled:
+            return []
+        try:
+            return sorted(e.name[:-len(".npz")] for e in os.scandir(self.root)
+                          if e.name.startswith(prefix)
+                          and e.name.endswith(".npz") and e.is_file())
+        except OSError:
+            return []
+
+    def discard_prefix(self, prefix: str) -> int:
+        """Remove every stage artifact whose file name starts with
+        ``prefix`` (.npz and .json): the mid-stage checkpoints, once the
+        covering stage artifact has landed. Returns the number of files
+        removed; quarantined files stay for post-mortems."""
+        if not self.enabled or self.readonly:
+            return 0
+        n = 0
+        try:
+            for e in os.scandir(self.root):
+                if (e.name.startswith(prefix) and e.is_file()
+                        and (e.name.endswith(".npz")
+                             or e.name.endswith(".json"))):
+                    try:
+                        os.unlink(e.path)
+                        n += 1
+                    except OSError:
+                        pass
+        except OSError:
+            pass
+        return n
 
     def cached(self, stage: str, fn: Callable[[], Dict[str, np.ndarray]],
                meta_fn: Optional[Callable[[], Dict[str, Any]]] = None):

@@ -135,6 +135,33 @@ def test_each_corrupt_copy_is_kept_under_its_own_name(tmp_path):
         for n in range(2)]
 
 
+def test_load_many_reads_in_parallel_and_quarantines_nothing(tmp_path):
+    """``load_many`` gives what ``load`` gives, None for a stage that
+    fails its checksum, and leaves that stage's files in place; a
+    ``load`` of it then quarantines it."""
+    store = ArtifactStore(str(tmp_path))
+    for i in range(5):
+        store.save(f"blk_{i}", {"a": np.arange(1000) * i}, meta={"i": i},
+                   compress=bool(i % 2))
+    npz = tmp_path / "blk_3.npz"
+    raw = bytearray(npz.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    npz.write_bytes(bytes(raw))
+    assert store.stages_with_prefix("blk_") == [f"blk_{i}" for i in range(5)]
+    got = store.load_many(store.stages_with_prefix("blk_"))
+    assert got["blk_3"] is None
+    for i in (0, 1, 2, 4):
+        arrays, meta = got[f"blk_{i}"]
+        np.testing.assert_array_equal(arrays["a"], np.arange(1000) * i)
+        assert meta["i"] == i
+    assert store.has("blk_3")
+    with pytest.raises(ArtifactCorrupt):
+        store.load("blk_3")
+    assert not store.has("blk_3")
+    assert store.stages_with_prefix("blk_") == ["blk_0", "blk_1", "blk_2",
+                                                "blk_4"]
+
+
 def test_the_sidecar_checksum_is_the_reference_s(tmp_path):
     ArtifactStore(str(tmp_path)).save("union", {"idx": np.arange(5)},
                                       meta={"k": 1})

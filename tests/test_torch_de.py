@@ -251,3 +251,23 @@ def test_pairwise_de_subsampling_matches_reference():
                                rtol=LOGP_RTOL, atol=LOGP_ATOL)
     np.testing.assert_array_equal(got.de_mask.numpy(),
                                   np.asarray(ref.de_mask))
+
+
+@pytest.mark.parametrize("labels", [
+    np.array(["b", "a", "grey1", "c", "a", "b", "a"] * 5),
+    np.array([3, 1, 1, 7, 3, 3, 1, 2] * 4),
+], ids=["str_with_grey", "int"])
+def test_filter_clusters_from_codes_matches_reference(labels):
+    """One sort codes the labels; the kept names and each cell's index are
+    the reference's, whether the caller passes the codes or not."""
+    want_names, want_idx = ref_engine.filter_clusters(labels, 4)
+    enc = engine.encode_labels(labels)
+    for got_names, got_idx in (engine.filter_clusters(labels, 4),
+                               engine.filter_clusters(labels, 4,
+                                                      encoded=enc)):
+        assert got_names == want_names
+        np.testing.assert_array_equal(got_idx, want_idx)
+        assert got_idx.dtype == np.int32
+    names, codes, counts = enc
+    np.testing.assert_array_equal(names[codes], labels.astype(str))
+    assert counts.sum() == labels.size

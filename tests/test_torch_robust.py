@@ -81,7 +81,9 @@ def test_the_slice_registers_every_flag_it_reads():
             if n.startswith(("SCC_SERVE_", "SCC_SLO_"))}
     want |= {"SCC_FAULT_PLAN", "SCC_ROBUST_BUDGET", "SCC_ROBUST_BACKOFF_S",
              "SCC_INTEGRITY", "SCC_OBS_TRACE", "SCC_STAGE_SYNC",
-             "SCC_TRACE_SYNC"}
+             "SCC_TRACE_SYNC", "SCC_ROBUST_DE_CKPT",
+             "SCC_INTEGRITY_TOL_SCALE", "SCC_INTEGRITY_EVICT_THRESHOLD",
+             "SCC_OBS_NUMERIC"}
     assert set(PORT_FLAGS) == want
 
 
@@ -371,14 +373,14 @@ def test_kill_class_sigkills_the_process(tmp_path):
 
 
 @pytest.mark.parametrize("rule", [
-    {"site": "stage:embed", "class": "oom"},
-    {"site": "wilcox_bucket", "class": "transient"},
+    {"site": "refine_step", "class": "oom"},
+    {"site": "stream_stage", "class": "transient"},
     {"site": "sharded:aggregates", "class": "device_loss"},
     {"site": "ring:distance_sums", "class": "oom"},
     {"site": "stream_chunk_write", "class": "disk"},
     {"site": "wire_request", "class": "transient"},
     {"site": "fleet_route", "class": "oom"},
-    {"site": "embed_scores", "class": "corruption"},
+    {"site": "stream_block", "class": "corruption"},
     {"site": "serve_device", "class": "corruption"},
 ], ids=lambda r: f"{r['site']}-{r['class']}")
 def test_a_plan_naming_a_site_the_port_lacks_raises(tmp_path, monkeypatch,

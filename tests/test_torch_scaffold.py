@@ -194,8 +194,9 @@ def test_config_round_trips_from_the_reference_json():
 
 
 @pytest.mark.parametrize("case", ["method", "sparse_method", "mesh",
-                                  "ring_mesh", "knn_mesh", "plot", "heatmap",
-                                  "integrity", "stage_plan", "annotate"])
+                                  "ring_mesh", "knn_mesh", "refine_step",
+                                  "stream_chunk_read", "fleet_route",
+                                  "sharded:ranksum", "annotate"])
 def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     import json
 
@@ -203,28 +204,24 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
 
     from scconsensus_tpu_torch.obs.trace import Tracer
     from scconsensus_tpu_torch.robust import faults
-    from scconsensus_tpu_torch.serve.soak import build_demo_model
 
     data, labels = _tiny()
-    model_dir = str(tmp_path / "model")
 
-    def _integrity():
-        model = build_demo_model(model_dir, device="cpu")
-        monkeypatch.setenv("SCC_INTEGRITY", "audit")
-        port.ConsensusServer(model, device="cpu")
-
-    def _stage_plan():
-        build_demo_model(model_dir, device="cpu")
-        plan = tmp_path / "plan.json"
-        plan.write_text(json.dumps({"faults": [
-            {"site": "stage:embed", "class": "oom"}]}))
-        monkeypatch.setenv("SCC_FAULT_PLAN", str(plan))
-        faults.reset()
-        try:
-            port.load_consensus_model(model_dir, device="cpu")
-        finally:
-            monkeypatch.delenv("SCC_FAULT_PLAN")
+    def _plan_naming(site):
+        """A fault plan naming a site of the reference the port lacks is
+        refused when the first refine() reads it."""
+        def run():
+            plan = tmp_path / "plan.json"
+            plan.write_text(json.dumps({"faults": [
+                {"site": site, "class": "transient"}]}))
+            monkeypatch.setenv("SCC_FAULT_PLAN", str(plan))
             faults.reset()
+            try:
+                port.refine(data, labels, ReclusterConfig(), device="cpu")
+            finally:
+                monkeypatch.delenv("SCC_FAULT_PLAN")
+                faults.reset()
+        return run
 
     run = {
         # "mast" is a method the reference refuses as well
@@ -240,15 +237,12 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
             device="cpu"),
         "mesh": lambda: port.recluster_de_consensus_fast(
             data, labels, device="cpu", mesh="auto"),
-        "plot": lambda: port.refine(
-            data, labels, ReclusterConfig(plot_name="de.pdf"), device="cpu"),
-        "heatmap": lambda: port.plot_contingency_table(
-            labels, labels, filename="ctg.pdf"),
-        # robust.integrity is not ported: a server under SCC_INTEGRITY
-        # other than off would not ghost-replay
-        "integrity": _integrity,
-        # refine() does not run under the fault plan yet
-        "stage_plan": _stage_plan,
+        # the mesh's step, the streaming layer and the serving fleet are
+        # not ported: their fault sites are refused
+        "refine_step": _plan_naming("refine_step"),
+        "stream_chunk_read": _plan_naming("stream_chunk_read"),
+        "fleet_route": _plan_naming("fleet_route"),
+        "sharded:ranksum": _plan_naming("sharded:ranksum"),
         # the profiler-annotate mode is a jax.profiler call in the reference
         "annotate": lambda: Tracer(annotate=True),
     }[case]

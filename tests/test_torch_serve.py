@@ -757,12 +757,6 @@ def test_breaker_unit_transitions(pkg):
     assert stats.breaker_trips == 2 and stats.breaker_state == "closed"
 
 
-def test_integrity_other_than_off_raises(demo, monkeypatch):
-    monkeypatch.setenv("SCC_INTEGRITY", "enforce")
-    with pytest.raises(NotImplementedError, match="integrity"):
-        port.ConsensusServer(demo["port"][1], device="cpu")
-
-
 def test_live_summary_feeds_and_stop_detaches(demo):
     m = demo["port"][1]
     with port.ConsensusServer(m, _fast_cfg(PORT), device="cpu") as srv:
