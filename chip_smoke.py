@@ -111,10 +111,31 @@ checkout, and exits non-zero on the first phase that fails:
      resumed here from the finished ones (the fault point's hits count
      the rest), its blocks gone once ``de`` saves and
      ``robust_state.json`` at 0; (e) the robustness layer under 2 % of
-     that stored run's wall.
+     that stored run's wall;
+ 22. the out-of-core ``streaming_refine`` at the soak worker's shape
+     (4,000 × 160 × 4) and the reference's test shape (1,200 × 96 × 3),
+     window 32: card against CPU with the same projection (unions, DE
+     masks, nodg identical, log p within the CPU tests' 1e-5/1e-4, ARI =
+     1, the kernel launched); the soak worker in seven child processes
+     through the reference's four chaos plans (killed mid-ingest then
+     resumed, a torn chunk, two ENOSPC faults, a 0.7 MB stage budget run
+     twice), each keeping its sha; audit (0 replay mismatches) and an
+     enforce-mode ``stream_block`` corruption recomputed to the same
+     bits;
+ 23. brain10m's generator and config at 20,000 × 2,000 × 16: the
+     streaming run on a chunk store against ``refine()`` of the same CSR,
+     both on the card (union, DE mask, nodg identical, ARI = 1,
+     silhouettes within 1e-4, one launch each, the dense twin engaged),
+     the streaming machinery under 2 % of the wall, best of 2;
+ 24. brain10m's shapes at ``STREAM_SCALE_CELLS`` cells in a child
+     process: a cold run (ingest and run) and a steady one against the
+     durable chunks under the default budgets, their walls, cells/s,
+     peak RSS, staged bytes, chunk counters and loads, store size and
+     peak device memory, then the store removed; and the reckoned first
+     chunk's charge at that count and at 10,000,000 cells.
 
 Phases run in the order 1–5, 12, 15, 20, 6–8, 13, 19, 16–18, 21, 9–11,
-14, so that the 26k data serves phases 7–8, 13, 19, 16–18 and 21 (phase
+14, 22–24, so that the 26k data serves phases 7–8, 13, 19, 16–18 and 21 (phase
 19 while phase 7's result is alive) and is freed before the larger ones;
 the line before the kernel record gives the total time.
 
@@ -2194,7 +2215,638 @@ def phase_guarded(data, truth, cons, wilcox_ref, n_buckets: int) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 22-24: the out-of-core streaming refine
+# --------------------------------------------------------------------------
+
+# the Wilcoxon log p tolerance of the CPU parity tests
+# (tests/test_torch_de.py), card against CPU on the same chunks
+WILCOX_LOGP_RTOL, WILCOX_LOGP_ATOL = 1e-5, 1e-4
+# phase 22's two shapes (cells, genes, clusters, seed): the soak worker's
+# defaults and the reference's streaming test shape (tests/test_stream.py)
+STREAM_SMALL = {"stream-soak": (4000, 160, 4, 7),
+                "stream-test": (1200, 96, 3, 5)}
+STREAM_SMALL_WINDOW = 32
+# the budget-breach plan's stage budget at the soak shape: the reference's
+# (tools/chaos_run.py:178-179). At 0.25 MB the soak shape's first chunk
+# charge already breaks the budget outside the window ladder, the 10M
+# finding in small
+STREAM_SOAK_STAGE_MB = "0.7"
+# brain10m's generator and config (bench.py:1043-1047, :1338-1343)
+BRAIN10M = dict(n_genes=2000, n_clusters=16, seed=11, density=0.02)
+BRAIN10M_KW = dict(approx_threshold=100_000, landmark_threshold=100_000,
+                   silhouette_sample=50_000)
+STREAM_20K_CELLS = 20_000
+# phase 24's cell count: brain10m's 10,000,000 cut to 500,000; nothing
+# else is cut. At 1,000,000 the phase took 482.6 s on the card (cold
+# 289.5 s, steady 182.3 s): the Gram embed's 560 chunk loads took
+# 137.9-141.0 s of each run and the cold run's ingest 101.7 s
+STREAM_SCALE_CELLS = 500_000
+MB = float(1 << 20)
+# On the card's machine ``import torch`` and CUDA init leave 4.8 GB
+# resident, above the 4,096 MB default host budget before any streaming
+# starts. The correctness runs of phases 22-23 (in this long-lived process
+# and in the soak children) therefore run with the roomy budget the
+# reference's own suite gives its in-process runs (tests/test_stream.py:
+# 28-36), here 64 GB; phase 24 keeps the default 4,096 MB on top of its
+# child's measured baseline.
+STREAM_ROOMY_HOST_MB = "65536"
+
+
+def _stream_config(seed: int, **kw):
+    """The streaming workloads' config (``stream/soak.py``, bench.py's
+    brain10m): the fast Wilcoxon at the reference's thresholds."""
+    from scconsensus_tpu_torch import ReclusterConfig
+
+    return ReclusterConfig(
+        method="wilcox", q_val_thrs=0.1, log_fc_thrs=0.25, min_pct=5.0,
+        deep_split_values=(1, 2), min_cluster_size=10, n_top_de_genes=20,
+        random_seed=seed, **kw)
+
+
+def _stream_store(root: str, n_cells: int, n_genes: int, n_clusters: int,
+                  seed: int, window: int, density: float = 0.25):
+    """A chunk store of the soak generator ingested under ``root``: the
+    generator and the consensus labels."""
+    from scconsensus_tpu_torch import ChunkedCSRStore
+    from scconsensus_tpu_torch.stream.soak import (
+        chunk_generator,
+        consensus_input,
+    )
+
+    gen = chunk_generator(n_genes, n_cells, n_clusters, seed,
+                          density=density)
+    t0 = time.perf_counter()
+    st = ChunkedCSRStore.create(root, n_genes, n_cells, window)
+    st.ingest(gen)
+    log(f"[stream] ingested {n_cells} x {n_genes} in {st.n_chunks} chunks "
+        f"in {time.perf_counter() - t0!r} s ({_dir_bytes(root)} bytes)")
+    return gen, consensus_input(n_cells, n_clusters, seed)
+
+
+def _dir_bytes(root: str) -> int:
+    return sum(e.stat().st_size for e in os.scandir(root) if e.is_file())
+
+
+def _stream_run(tag: str, store_root: str, labels, cfg, stage_dir: str,
+                gen, device: str = "cuda", **kw):
+    """One ``streaming_refine`` with the kernel count reset just before and
+    read just after; logs the walls, the chunk loads and the section."""
+    import torch
+
+    from scconsensus_tpu_torch import ChunkedCSRStore, streaming_refine
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    distance_cluster_sums.launches = 0
+    t0 = time.perf_counter()
+    res = streaming_refine(ChunkedCSRStore(store_root), labels, cfg,
+                           stage_dir=stage_dir, regen=gen, device=device,
+                           **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = distance_cluster_sums.launches
+    m = res.metrics
+    m["wall_s"] = wall
+    m["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {device} wall {wall!r} s; union {m['union_size']}; "
+        f"launches {launches}; peak device memory {m['peak_bytes']} bytes;"
+        f" stage walls {json.dumps(m['stage_walls_s'])}; stream "
+        f"{json.dumps(m['stream'])}; streaming "
+        f"{json.dumps(m['streaming'])}")
+    return res, launches
+
+
+def _same_stream(tag: str, a, b, what: str) -> bool:
+    """Union, DE mask and nodg identical, log p within the Wilcoxon
+    tolerance, ARI = 1 and silhouettes within 1e-4 per
+    deepSplit between two streaming or refine results. Returns whether
+    every cut's labels are bitwise equal."""
+    if not np.array_equal(a.de_gene_union_idx, b.de_gene_union_idx):
+        raise AssertionError(f"[{tag}] {what}: unions differ")
+    ma, mb = a.de.de_mask.cpu().numpy(), b.de.de_mask.cpu().numpy()
+    if not np.array_equal(ma, mb):
+        _report_mask_flips(tag, a, b, ma, mb)
+        raise AssertionError(f"[{tag}] {what}: DE masks differ")
+    if not np.array_equal(a.nodg, b.nodg):
+        raise AssertionError(f"[{tag}] {what}: nodg differs")
+    la, lb = a.de.log_p.cpu().numpy(), b.de.log_p.cpu().numpy()
+    if not np.array_equal(np.isnan(la), np.isnan(lb)):
+        raise AssertionError(f"[{tag}] {what}: NaN log p differ")
+    fin = np.isfinite(la) & np.isfinite(lb)
+    err = np.abs(la[fin] - lb[fin])
+    bad = int((err > WILCOX_LOGP_ATOL
+               + WILCOX_LOGP_RTOL * np.abs(lb[fin])).sum())
+    log(f"[{tag}] {what}: log p max |diff| "
+        f"{float(err.max(initial=0.0))!r}, {bad} outside the tolerance")
+    if bad:
+        raise AssertionError(f"[{tag}] {what}: log p differ")
+    same = True
+    for ia, ib in zip(a.deep_split_info, b.deep_split_info):
+        key = f"deepsplit: {ia['deep_split']}"
+        la, lb = a.dynamic_labels[key], b.dynamic_labels[key]
+        ari = _ari(la, lb)
+        dsil = abs(ia["silhouette"] - ib["silhouette"])
+        equal = bool(np.array_equal(la, lb))
+        same &= equal
+        log(f"[{tag}] {key}: clusters {ia['n_clusters']} silhouette "
+            f"{ia['silhouette']!r} ARI({what}) {ari!r} |dsil| {dsil!r} "
+            f"labels bitwise equal {equal}")
+        if ari != 1.0 or not dsil <= 1e-4:
+            raise AssertionError(f"[{tag}] {key}: ARI {ari}, |dsil| {dsil}")
+    return same
+
+
+def _report_mask_flips(tag: str, a, b, ma, mb) -> None:
+    """Each (pair, gene) whose DE call differs: both sides' log q,
+    log fc and detection rates, against the thresholds."""
+    lq_a, lq_b = a.de.log_q.cpu().numpy(), b.de.log_q.cpu().numpy()
+    fc_a, fc_b = a.de.log_fc.cpu().numpy(), b.de.log_fc.cpu().numpy()
+    for p, g in zip(*np.nonzero(ma != mb)):
+        log(f"[{tag}] DE call flip at pair {int(p)} gene {int(g)}: log q "
+            f"{lq_a[p, g]!r} / {lq_b[p, g]!r}, log fc {fc_a[p, g]!r} / "
+            f"{fc_b[p, g]!r}")
+
+
+def _soak_child(workdir: str, *extra, plan=None):
+    """The port's soak worker on the card, in a process of its own."""
+    env = {k: v for k, v in os.environ.items() if k != "SCC_FAULT_PLAN"}
+    if plan:
+        env["SCC_FAULT_PLAN"] = plan
+    cmd = [sys.executable, "-m", "scconsensus_tpu_torch.stream.soak",
+           "--dir", workdir, "--summary", os.path.join(workdir, "S.json"),
+           "--device", "cuda", "--window", str(STREAM_SMALL_WINDOW),
+           *extra]
+    return subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _soak_result(tag: str, proc, workdir: str):
+    """(exit code, summary or None) of a soak child, logged."""
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    try:
+        with open(os.path.join(workdir, "S.json")) as f:
+            summary = json.load(f)
+    except OSError:
+        summary = None
+    brief = None if summary is None else {
+        k: summary[k] for k in ("ok", "wall_s", "labels_sha", "chunks",
+                                "halvings", "ckpt_final", "within_budget",
+                                "peak_rss_mb")}
+    log(f"[{tag}] exit {proc.returncode}; {json.dumps(brief)}")
+    if summary is None and proc.returncode != -9:
+        log(f"[{tag}] stderr {err[-1500:]}")
+    return proc.returncode, summary
+
+
+def phase_stream_small() -> int:
+    """Phase 22: the streaming refine at two small shapes, card against
+    CPU; the soak worker's four chaos plans in child processes; audit and
+    an enforce-mode stream_block corruption. Returns the kernel's
+    launches in the card runs held against the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from scconsensus_tpu_torch import ChunkedCSRStore
+
+    root = tempfile.mkdtemp(prefix="scc-stream-small-")
+    launches = 0
+    try:
+        with _env(SCC_STREAM_HOST_BUDGET_MB=STREAM_ROOMY_HOST_MB):
+            # (a) card against CPU, the same projection on both
+            for tag, (n, g, k, seed) in STREAM_SMALL.items():
+                store = os.path.join(root, tag)
+                gen, labels = _stream_store(store, n, g, k, seed,
+                                            STREAM_SMALL_WINDOW)
+                cfg = _stream_config(seed)
+                first, _ = _stream_run(f"{tag}-draw", store, labels, cfg,
+                                       os.path.join(root, f"{tag}-s0"), gen)
+                f = first.de_gene_union_idx.size
+                omega = torch.randn((f, min(cfg.n_pcs + 10, f, n)),
+                                    generator=torch.Generator().manual_seed(0))
+                gpu, n_launch = _stream_run(tag, store, labels, cfg,
+                                            os.path.join(root, f"{tag}-s1"),
+                                            gen, omega=omega)
+                cpu, _ = _stream_run(f"{tag}-cpu", store, labels, cfg,
+                                     os.path.join(root, f"{tag}-s2"), gen,
+                                     device="cpu", omega=omega)
+                _same_stream(tag, gpu, cpu, "card, cpu")
+                if n_launch < 1:
+                    raise AssertionError(f"[{tag}] the exact silhouette did "
+                                         "not launch the kernel")
+                if gpu.metrics["stream"]["embed_regime"] != "dense":
+                    raise AssertionError(f"[{tag}] the dense embed did "
+                                         "not run")
+                launches += n_launch
+
+            # (b) the soak worker through the four chaos plans (the
+            # reference's STREAM_SOAK_MATRIX, tools/chaos_run.py:167-179),
+            # each in a child process on the card; independent ones together
+            n_chunks = -(-STREAM_SMALL["stream-soak"][1]
+                         // STREAM_SMALL_WINDOW)
+            plans = {
+                "kill": _write_plan(root, [{"site": "stream_chunk_write",
+                                            "class": "kill", "after": 2}],
+                                    "kill.json"),
+                "torn": _write_plan(root, [{"site": "artifact:stream_chunk",
+                                            "class": "corrupt", "after": 1}],
+                                    "torn.json"),
+                # an ENOSPC on an ingest write (swept and retried), then one
+                # on the first per-chunk DE checkpoint (its granularity
+                # coarsens): the retried ingest write is hit n_chunks
+                "disk": _write_plan(root, [
+                    {"site": "stream_chunk_write", "class": "disk",
+                     "after": 1},
+                    {"site": "stream_chunk_write", "class": "disk",
+                     "after": n_chunks + 1}], "disk.json"),
+            }
+            dirs = {t: os.path.join(root, f"soak-{t}") for t in
+                    ("ref", "kill", "torn", "disk", "budget-a", "budget-b")}
+            t0 = time.perf_counter()
+            procs = {
+                "ref": _soak_child(dirs["ref"], "--fresh"),
+                **{t: _soak_child(dirs[t], "--fresh", plan=plans[t])
+                   for t in ("kill", "torn", "disk")},
+                **{t: _soak_child(dirs[t], "--fresh", "--stage-budget-mb",
+                                  STREAM_SOAK_STAGE_MB)
+                   for t in ("budget-a", "budget-b")},
+            }
+            out = {t: _soak_result(f"soak-{t}", p, dirs[t])
+                   for t, p in procs.items()}
+            done = ChunkedCSRStore(
+                os.path.join(dirs["kill"], "chunks")).completed_chunks()
+            out["resume"] = _soak_result(
+                "soak-resume", _soak_child(dirs["kill"]), dirs["kill"])
+            log(f"[soak] seven children in {time.perf_counter() - t0!r} s; "
+                f"{done} of {n_chunks} chunks durable after the kill")
+            ref = out["ref"][1]
+            if not (ref and ref["ok"]):
+                raise AssertionError("[soak] the reference run failed")
+            sha = ref["labels_sha"]
+            rc, s = out["kill"]
+            if rc != -9 or s is not None or not 0 < done < n_chunks:
+                raise AssertionError(f"[soak-kill] rc {rc}, {done} chunks")
+            s = out["resume"][1]
+            if not (s and s["ok"] and s["labels_sha"] == sha
+                    and s["chunks"]["resumed"] >= done):
+                raise AssertionError("[soak-resume] not the reference's "
+                                     "labels")
+            s = out["torn"][1]
+            if not (s and s["ok"] and s["labels_sha"] == sha
+                    and s["chunks"]["quarantined"] >= 1
+                    and s["chunks"]["recomputed"] >= 1):
+                raise AssertionError("[soak-torn] the torn chunk was not "
+                                     "quarantined and recomputed")
+            s = out["disk"][1]
+            disk = [r for r in (s or {}).get("robustness", {}).get(
+                "retries", [])
+                if r["error_class"] == "disk" and r["recovered"]]
+            if not (s and s["ok"] and s["labels_sha"] == sha
+                    and s["ckpt_final"] > 1 and len(disk) == 2):
+                raise AssertionError("[soak-disk] the disk faults were not "
+                                     "recovered with a coarser checkpoint")
+            a, b = out["budget-a"][1], out["budget-b"][1]
+            if not (a and b and a["ok"] and b["ok"] and a["halvings"] >= 1
+                    and a["labels_sha"] == b["labels_sha"]):
+                raise AssertionError("[soak-budget] no halving, or the same "
+                                     "budget gave other labels")
+
+            # (c) audit, then a stream_block corruption under enforce
+            tag = "stream-test"
+            n, g, k, seed = STREAM_SMALL[tag]
+            store = os.path.join(root, tag)
+            gen, labels = _stream_store(store, n, g, k, seed,
+                                        STREAM_SMALL_WINDOW)
+            cfg = _stream_config(seed)
+            clean, _ = _stream_run(f"{tag}-clean", store, labels, cfg,
+                                   os.path.join(root, "c0"), gen)
+            with _env(SCC_INTEGRITY="audit"):
+                res, _ = _stream_run(f"{tag}-audit", store, labels, cfg,
+                                     os.path.join(root, "c1"), gen)
+            ig = res.metrics["integrity"]
+            log(f"[{tag}-audit] checks {json.dumps(ig['checks'])}, ghost "
+                f"{json.dumps({k: v for k, v in ig['ghost'].items()})}")
+            if ig["ghost"]["mismatches"] or not ig["all_checks_passed"] \
+                    or ig["ghost"]["run"] < 1:
+                raise AssertionError(f"[{tag}-audit] replay mismatches")
+            _same_stream(f"{tag}-audit", res, clean, "audit, clean")
+            plan = _write_plan(root, [{"site": "stream_block",
+                                       "class": "corruption",
+                                       "mode": "signflip"}], "block.json")
+            with _env(SCC_INTEGRITY="enforce", SCC_FAULT_PLAN=plan):
+                res, _ = _stream_run(f"{tag}-enforce", store, labels, cfg,
+                                     os.path.join(root, "c2"), gen)
+            ig = res.metrics["integrity"]
+            log(f"[{tag}-enforce] detected by {_detected_by(ig)}; recomputes "
+                f"{ig['ghost']['recomputes']}")
+            if not _detected_by(ig) or ig["ghost"]["recomputes"] < 1:
+                raise AssertionError(f"[{tag}-enforce] the corruption was not "
+                                     "detected and recomputed")
+            if not _same_stream(f"{tag}-enforce", res, clean,
+                                "enforce, clean"):
+                raise AssertionError(f"[{tag}-enforce] not the clean bits")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_stream_20k() -> int:
+    """Phase 23: brain10m's generator and config at 20,000 cells, below
+    ``approx_threshold``: ``streaming_refine`` on a chunk store against
+    ``refine()`` on the same CSR, both on the card, best of 2 for the
+    machinery's share. Returns the kernel's launches over the streaming
+    runs."""
+    import shutil
+    import tempfile
+
+    import scipy.sparse as sp
+    import torch
+
+    from scconsensus_tpu_torch import (
+        ChunkedCSRStore,
+        HostBudgetAccountant,
+        refine,
+    )
+    from scconsensus_tpu_torch.config import env_flag
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+    from scconsensus_tpu_torch.robust import record as robust_record
+
+    tag = "stream-20k"
+    b = BRAIN10M
+    root = tempfile.mkdtemp(prefix="scc-stream-20k-")
+    try:
+        with _env(SCC_STREAM_HOST_BUDGET_MB=STREAM_ROOMY_HOST_MB):
+            store = os.path.join(root, "chunks")
+            gen, labels = _stream_store(
+                store, STREAM_20K_CELLS, b["n_genes"], b["n_clusters"],
+                b["seed"], int(env_flag("SCC_STREAM_WINDOW")),
+                density=b["density"])
+            st = ChunkedCSRStore(store)
+            full = sp.vstack([st.load_chunk(i) for i in range(st.n_chunks)]
+                             ).tocsr()
+            cfg = _stream_config(b["seed"], **BRAIN10M_KW)
+            torch.cuda.synchronize()
+            distance_cluster_sums.launches = 0
+            t0 = time.perf_counter()
+            mem = refine(full, labels, cfg, device="cuda")
+            torch.cuda.synchronize()
+            mem_wall = time.perf_counter() - t0
+            mem_launches = distance_cluster_sums.launches
+            log(f"[{tag}] refine() from the CSR: wall {mem_wall!r} s; "
+                f"launches {mem_launches}; stage walls "
+                f"{json.dumps(mem.metrics['stage_walls_s'])}")
+            launches, best = 0, float("inf")
+            for rep in range(2):
+                acct = HostBudgetAccountant()
+                res, n_launch = _stream_run(
+                    f"{tag}-{rep}", store, labels, cfg,
+                    os.path.join(root, f"stages-{rep}"), gen, accountant=acct)
+                consumed = acct.consumed_s + robust_record.current_run(
+                ).consumed_s
+                share = consumed / res.metrics["wall_s"]
+                best = min(best, share)
+                log(f"[{tag}-{rep}] machinery consumed {consumed!r} s "
+                    f"(accountant {acct.consumed_s!r}), {share!r} of the wall")
+                equal = _same_stream(f"{tag}-{rep}", res, mem,
+                                     "streaming, refine()")
+                log(f"[{tag}-{rep}] labels bitwise equal to refine()'s: "
+                    f"{equal}; embeddings bitwise equal: "
+                    f"{bool(np.array_equal(res.embedding, mem.embedding))}")
+                if res.metrics["stream"]["embed_regime"] != "dense":
+                    raise AssertionError(f"[{tag}] the dense twin did not run")
+                if n_launch != 1 or mem_launches != 1:
+                    raise AssertionError(f"[{tag}] launches {n_launch}, "
+                                         f"{mem_launches}; one each expected")
+                launches += n_launch
+            log(f"[{tag}] machinery best of 2: {best!r} of the wall (limit "
+                f"{LAYER_SHARE_LIMIT})")
+            if not best < LAYER_SHARE_LIMIT:
+                raise AssertionError(f"[{tag}] the streaming machinery costs "
+                                     "2 % or more of the wall")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+_STREAM_SCALE_CHILD = """
+import sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+sys.exit(chip_smoke.stream_scale_child({root!r}, {n_cells!r}))
+"""
+
+
+def stream_scale_child(root: str, n_cells: int) -> int:
+    """Phase 24's worker, in a process of its own (``ru_maxrss`` only
+    rises, so the budget is judged on a fresh process, as the reference's
+    bench runs each config in a worker): a cold run (the ingest and the
+    run) and a steady one with a fresh stage dir against the durable
+    chunks (bench.py:1345-1395). Prints one ``STREAM_SCALE`` JSON line."""
+    import torch
+
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    from scconsensus_tpu_torch import ChunkedCSRStore, HostBudgetAccountant
+    from scconsensus_tpu_torch.config import env_flag
+    from scconsensus_tpu_torch.obs.device import (
+        host_peak_rss_bytes,
+        host_rss_bytes,
+    )
+    from scconsensus_tpu_torch.stream.soak import (
+        chunk_generator,
+        consensus_input,
+    )
+
+    baseline_mb = host_peak_rss_bytes() / MB
+    budget_mb = float(env_flag("SCC_STREAM_HOST_BUDGET_MB")) + baseline_mb
+    log(f"[stream-scale] child baseline_rss_mb {host_rss_bytes() / MB!r} "
+        f"(peak {baseline_mb!r}) after import torch and CUDA init; host "
+        f"budget {budget_mb!r} MB: the default "
+        f"{env_flag('SCC_STREAM_HOST_BUDGET_MB')} MB on top of that peak")
+    b = BRAIN10M
+    window = int(env_flag("SCC_STREAM_WINDOW"))
+    gen = chunk_generator(b["n_genes"], n_cells, b["n_clusters"],
+                          b["seed"], density=b["density"])
+    labels = consensus_input(n_cells, b["n_clusters"], b["seed"])
+    cfg = _stream_config(b["seed"], **BRAIN10M_KW)
+    chunks = os.path.join(root, "chunks")
+    out = {"n_cells": n_cells, "n_genes": b["n_genes"], "window": window,
+           "baseline_peak_rss_mb": baseline_mb, "host_budget_mb": budget_mb}
+    for tag in ("cold", "steady"):
+        ChunkedCSRStore.create(chunks, b["n_genes"], n_cells, window)
+        acct = HostBudgetAccountant(budget_mb=budget_mb)
+        res, launches = _stream_run(
+            f"stream-scale-{tag}", chunks, labels, cfg,
+            os.path.join(root, f"stages-{tag}"), gen, accountant=acct)
+        m = res.metrics
+        # what the parent checks and prints; _stream_run logged the rest
+        out[tag] = {
+            "wall_s": m["wall_s"],
+            "cells_per_s": n_cells / m["wall_s"],
+            "launches": launches,
+            "peak_device_bytes": m["peak_bytes"],
+            "store_bytes": _dir_bytes(chunks),
+            "embed_regime": m["stream"]["embed_regime"],
+            "chunk_loads": m["stream"]["chunk_loads"],
+            "silhouettes": [i["silhouette"] for i in res.deep_split_info],
+            "streaming": m["streaming"],
+        }
+        del res
+    log("STREAM_SCALE " + json.dumps(out))
+    return 0
+
+
+def _chunk_charge(n_cells: int, rows: int) -> tuple:
+    """Stored entries of brain10m's first ``rows``-gene chunk at
+    ``n_cells`` cells, and ``ChunkedCSRStore.chunk_host_bytes``'s charge
+    for them (12 bytes an entry and the row pointers), from the
+    generator's own draws, without building the matrix."""
+    from scconsensus_tpu_torch.stream.soak import truth_labels
+
+    b = BRAIN10M
+    truth = truth_labels(n_cells, b["n_clusters"], b["seed"])
+    cells_of = [np.nonzero(truth == k)[0] for k in range(b["n_clusters"])]
+    nnz = 0
+    for g in range(rows):
+        rng = np.random.default_rng(np.random.SeedSequence([b["seed"], g]))
+        n_bg = max(int(n_cells * b["density"] * 0.5), 4)
+        bg = rng.integers(0, n_cells, size=n_bg)
+        rng.gamma(2.0, 0.4, size=n_bg)
+        own = cells_of[g % b["n_clusters"]]
+        hi = rng.choice(own, size=min(max(int(own.size * 0.6), 1),
+                                      own.size), replace=False)
+        # the generator sums duplicate (gene, cell) entries
+        nnz += np.unique(np.concatenate([bg, hi])).size
+    return nnz, nnz * 12 + (rows + 1) * 8
+
+
+# A process that runs one command line at a time for the script and
+# answers with its exit code and output. Linux keeps a process's RSS
+# high-water mark (``ru_maxrss``) across execve, so a child inherits its
+# spawner's: phase 24's worker is started from this launcher, which
+# main() starts before anything large is loaded, so that the worker's
+# peak is its own and not this script's.
+_LAUNCHER = """
+import json, subprocess, sys
+for line in sys.stdin:
+    cmd = json.loads(line)
+    p = subprocess.run(cmd["argv"], capture_output=True, text=True,
+                       timeout=cmd["timeout"])
+    print(json.dumps({"rc": p.returncode, "stdout": p.stdout,
+                      "stderr": p.stderr}), flush=True)
+"""
+
+
+def _start_launcher():
+    return subprocess.Popen([sys.executable, "-c", _LAUNCHER], text=True,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+
+
+def _stop_launcher(launcher) -> None:
+    launcher.stdin.close()
+    try:
+        launcher.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        launcher.kill()
+        launcher.wait()
+
+
+def _launch(launcher, argv, timeout: float) -> dict:
+    """Run ``argv`` through the launcher: its exit code and output."""
+    launcher.stdin.write(json.dumps({"argv": argv, "timeout": timeout})
+                         + "\n")
+    launcher.stdin.flush()
+    line = launcher.stdout.readline()
+    if not line:
+        raise AssertionError("the launcher died (a command past its time "
+                             f"limit of {timeout} s?)")
+    return json.loads(line)
+
+
+def phase_stream_scale(launcher) -> int:
+    """Phase 24: brain10m's shapes at ``STREAM_SCALE_CELLS`` cells, the
+    default budgets, in a child process started by ``launcher``; the
+    store removed afterwards. Returns the kernel's launches (0: the
+    pooled estimator)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="scc-stream-scale-")
+    try:
+        t0 = time.perf_counter()
+        proc = _launch(launcher, [sys.executable, "-c",
+                                  _STREAM_SCALE_CHILD.format(
+                                      repo=REPO, root=root,
+                                      n_cells=STREAM_SCALE_CELLS)], 900)
+        wall = time.perf_counter() - t0
+        lines = proc["stdout"].splitlines()
+        for line in lines:
+            if not line.startswith("STREAM_SCALE "):
+                log(line)
+        log(f"[stream-scale] child exit {proc['rc']} after {wall!r} s")
+        rec = [json.loads(ln[len("STREAM_SCALE "):]) for ln in lines
+               if ln.startswith("STREAM_SCALE ")]
+        if proc["rc"] != 0 or not rec:
+            raise AssertionError(f"[stream-scale] the child failed: "
+                                 f"{proc['stderr'][-2000:]}")
+        rec = rec[0]
+        launches = 0
+        for tag in ("cold", "steady"):
+            r = rec[tag]
+            sm = r["streaming"]
+            log(f"[stream-scale-{tag}] wall {r['wall_s']!r} s, "
+                f"{r['cells_per_s']!r} cells/s; peak_rss_mb "
+                f"{sm['budget']['peak_rss_mb']!r} of "
+                f"{sm['budget']['limit_mb']!r} (within_budget "
+                f"{sm['budget']['within_budget']}); peak_staged_mb "
+                f"{sm['budget']['peak_staged_mb']!r}; chunks "
+                f"{json.dumps(sm['chunks'])}; halvings "
+                f"{sm['window']['halvings']}; embed {r['embed_regime']}; "
+                f"chunk loads {json.dumps(r['chunk_loads'])}; store "
+                f"{r['store_bytes']} bytes; peak device memory "
+                f"{r['peak_device_bytes']} bytes; launches "
+                f"{r['launches']}")
+            if not (sm["complete"] and sm["budget"]["within_budget"]):
+                raise AssertionError(f"[stream-scale-{tag}] incomplete or "
+                                     "over the host budget")
+            if not np.isfinite(r["silhouettes"]).all():
+                raise AssertionError(f"[stream-scale-{tag}] a silhouette "
+                                     "is not finite")
+            launches += r["launches"]
+        # the 10M finding, reckoned: brain10m's first chunk at its full
+        # cell count against the default stage budget
+        from scconsensus_tpu_torch.config import env_flag
+
+        rows = int(env_flag("SCC_STREAM_WINDOW"))
+        stage = int(env_flag("SCC_STREAM_STAGE_BUDGET_MB")) << 20
+        for n in (rec["n_cells"], 10_000_000):
+            nnz, charge = _chunk_charge(n, rows)
+            log(f"[stream-scale] brain10m at {n} cells: the first chunk "
+                f"holds {nnz} stored entries, charged {charge} bytes "
+                f"against the {stage}-byte stage budget "
+                f"({'fits' if charge <= stage else 'breaks it'})")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
+    # started before torch is imported (see _LAUNCHER)
+    launcher = _start_launcher()
+    try:
+        return _main(launcher)
+    finally:
+        _stop_launcher(launcher)
+
+
+def _main(launcher) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2237,6 +2889,10 @@ def main() -> int:
     brec = phase_brain1m()
     torch.cuda.empty_cache()
     s1m_launches = phase_sparse_1m()
+    torch.cuda.empty_cache()
+    stream_small_launches = phase_stream_small()
+    stream_20k_launches = phase_stream_20k()
+    stream_1m_launches = phase_stream_scale(launcher)
     by_path = {"wilcox_26k": rec["launches"],
                "edger_26k": erec["launches"],
                "wilcox_26k_csr": csr_launches,
@@ -2257,7 +2913,10 @@ def main() -> int:
                "wilcox_26k_faulted": guarded_launches["guarded-faults"],
                "wilcox_26k_enforce": guarded_launches["guarded-enforce"],
                "wilcox_26k_killed_resumed":
-                   guarded_launches["guarded-resume"]}
+                   guarded_launches["guarded-resume"],
+               "stream_small": stream_small_launches,
+               "stream_20k": stream_20k_launches,
+               "stream_1m": stream_1m_launches}
     log(f"[total] every phase in {time.perf_counter() - t_start!r} s")
     # times from the Wilcoxon path's inputs; launches from every full path
     # (serving classifies with plain tensor code: no launch)

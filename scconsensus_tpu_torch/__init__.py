@@ -17,7 +17,10 @@ typed retry, mid-stage Wilcoxon resume, ``SCC_INTEGRITY``) and with its
 heatmaps. The serving path beside it: ``export_consensus_model`` freezes
 a finished run, ``load_consensus_model`` loads it with its checksum
 verified, and ``ConsensusServer`` serves ``classify(new_cells)`` through
-the guarded micro-batching driver.
+the guarded micro-batching driver. Out of core: ``refine()`` of a
+disk-resident ``ChunkedCSRStore`` (or ``streaming_refine`` itself) runs
+the whole pipeline chunk at a time under the host-memory budget of a
+``HostBudgetAccountant``, resumable and checksummed.
 """
 
 from scconsensus_tpu_torch.config import CompatFlags, ReclusterConfig
@@ -47,6 +50,12 @@ from scconsensus_tpu_torch.serve.model import (
     export_consensus_model,
     load_consensus_model,
 )
+from scconsensus_tpu_torch.stream.budget import (
+    HostBudgetAccountant,
+    HostBudgetExceeded,
+)
+from scconsensus_tpu_torch.stream.runner import streaming_refine
+from scconsensus_tpu_torch.stream.store import ChunkedCSRStore
 
 __all__ = [
     "plot_contingency_table",
@@ -67,4 +76,8 @@ __all__ = [
     "export_consensus_model",
     "load_consensus_model",
     "ConsensusServer",
+    "ChunkedCSRStore",
+    "streaming_refine",
+    "HostBudgetAccountant",
+    "HostBudgetExceeded",
 ]

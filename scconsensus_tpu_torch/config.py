@@ -6,11 +6,12 @@ A mirror of ``scconsensus_tpu/config.py:503-669``: every field of
 not read: where ``refine()`` in the reference reads a registered flag,
 the port takes the flag's registered default.
 
-``ENV_FLAGS`` registers only the flags the serving path and the
-robustness core read (``scconsensus_tpu/config.py:32-41,486``), with the
-reference's names, types and defaults: the ``SCC_SERVE_*`` knobs, the
-fault plan, the retry budget and backoff, ``SCC_INTEGRITY``, request
-tracing, the SLO objectives and the tracer's sync policy.
+``ENV_FLAGS`` registers only the flags the serving path, the robustness
+core and the streaming layer read (``scconsensus_tpu/config.py:32-41,
+237-265,486``), with the reference's names, types, defaults and text: the
+``SCC_SERVE_*`` knobs, the fault plan, the retry budget and backoff,
+``SCC_INTEGRITY``, request tracing, the SLO objectives, the tracer's sync
+policy and the four ``SCC_STREAM_*`` flags.
 """
 
 from __future__ import annotations
@@ -217,6 +218,36 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "at stage boundaries in the pipeline, the DE engine and "
                 "the NB driver. A trip records the stage, the array and "
                 "the counts on the quality section's numeric_health."),
+        # --- out-of-core streaming (stream/) ---
+        EnvFlag("SCC_STREAM_HOST_BUDGET_MB", int, 4096,
+                "Hard host-memory budget (MB) for out-of-core streaming "
+                "runs (stream.budget): peak process RSS past it raises "
+                "typed HostBudgetExceeded, recovered by halving the "
+                "streaming gene window (floor 1 row, then typed "
+                "failure). The run record's streaming section carries "
+                "peak RSS vs this budget as the bounded-memory "
+                "evidence — a record claiming within_budget without it "
+                "is rejected."),
+        EnvFlag("SCC_STREAM_STAGE_BUDGET_MB", int, 256,
+                "Staged-bytes budget (MB) for the streaming layer's own "
+                "host buffers (loaded CSR chunks, dense gene-window "
+                "staging, the (N, n_pcs) score accumulator): a charge "
+                "past it raises typed HostBudgetExceeded before the "
+                "allocation, recovered by the same window-halving "
+                "ladder. Tighter than the RSS budget by design — it "
+                "bounds what the streaming layer ADDS to a process."),
+        EnvFlag("SCC_STREAM_WINDOW", int, 64,
+                "Row (gene) window of on-disk ChunkedCSRStore blocks "
+                "written by stream ingestion — the durability/resume "
+                "granule: a SIGKILL mid-ingest resumes from the last "
+                "fully fsynced chunk. Smaller windows = finer resume, "
+                "more files."),
+        EnvFlag("SCC_STREAM_DIR", str, None,
+                "Directory for the brain10m bench's chunked CSR store "
+                "(unset = a per-run temp dir). Point it at persistent "
+                "scratch to reuse the ingested chunks across bench "
+                "runs — the steady-state measurement then prices the "
+                "streaming refine, not the synthetic ingest."),
         # --- serving (serve/) ---
         EnvFlag("SCC_SERVE_MAX_BATCH", int, 512,
                 "Serving micro-batch cell cap: the worker coalesces queued "

@@ -49,6 +49,9 @@ them). Under ``SCC_OBS_NUMERIC`` the test's ``log_p`` and BH's ``log_q``
 pass the numeric sentinels (``obs.quality``). The ladder's occupancy
 record (``PairwiseDEResult.ladder``) carries the reference's probe keys.
 
+``streaming_wilcox_block`` is the out-of-core runner's seam: one host
+CSR slab of a chunk store through the same ladder.
+
 Left out against the reference: the mesh and the run-space kernel with
 its overflow redo (an XLA:CPU form; the port runs the scan body, as the
 reference does on the card, so its checkpoint variant is ``scan``). An
@@ -106,7 +109,7 @@ from scconsensus_tpu_torch.utils.timing import StageClock
 
 __all__ = ["PairwiseDEResult", "pairwise_de", "encode_labels",
            "filter_clusters", "filter_cluster_names", "de_gene_union",
-           "as_device_matrix"]
+           "as_device_matrix", "streaming_wilcox_block"]
 
 
 @dataclasses.dataclass
@@ -704,6 +707,37 @@ def _run_wilcox(
                     pe).astype(np.float32)
         log_p[rows] = torch.from_numpy(lp_small).to(dev)
     return log_p, u_stat
+
+
+def streaming_wilcox_block(
+    block,
+    cell_idx_of: List[np.ndarray],
+    pair_i: np.ndarray,
+    pair_j: np.ndarray,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank-sum log p and U for one disk chunk's gene rows: the
+    out-of-core runner's per-shard entry
+    (``scconsensus_tpu/de/engine.py:1225-1254``).
+
+    ``block`` is a host (Gb, N) scipy CSR slab holding every cell of a
+    gene window (what a ``ChunkedCSRStore`` chunk is). It crosses once as
+    a ``DeviceCSR`` (its int64 column indices narrowed to int32 once per
+    slab, at the declared ``input_staging`` boundary) and runs the same
+    window ladder as the in-memory engine (``_run_wilcox``): compacted
+    windows, R's exact branch for small pairs, the same per-gene outputs,
+    since rank tests are per gene. Returns device (P, Gb) log p and U;
+    the caller owns the one fetch and the durable per-chunk store."""
+    from scconsensus_tpu_torch.obs import residency
+
+    dev = resolve_device(device)
+    with residency.boundary("input_staging"):
+        slab = DeviceCSR.from_scipy(block, dev)
+        if dev.type == "cuda":
+            residency.note_transfer(
+                "h2d", slab.values.numel() * 4 + slab.indices.numel() * 4
+                + slab.indptr.numel() * 8)
+    return _run_wilcox(slab, cell_idx_of, pair_i, pair_j)
 
 
 _METHODS = ("wilcox", "wilcoxon", "edger", "bimod", "t", "roc")

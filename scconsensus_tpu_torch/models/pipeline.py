@@ -93,6 +93,9 @@ once ``de`` is saved. The retry budget is seeded from
 that completes resets it to 0. Without ``artifact_dir`` nothing is read
 or written.
 
+A ``stream.ChunkedCSRStore`` routes to the out-of-core
+``streaming_refine`` (``scconsensus_tpu/models/pipeline.py:103-116``).
+
 Not ported yet, and raising ``NotImplementedError``: a mesh.
 """
 
@@ -184,8 +187,11 @@ def refine(
 
     Args:
       data: (G, N) log-transformed, normalized genes × cells matrix, a
-        numpy array, a tensor (a tensor already on ``device`` stays) or a
-        ``scipy.sparse`` matrix (kept sparse on the device).
+        numpy array, a tensor (a tensor already on ``device`` stays), a
+        ``scipy.sparse`` matrix (kept sparse on the device) or a
+        disk-resident ``stream.ChunkedCSRStore``, which routes to
+        ``stream.runner.streaming_refine`` with ``config.artifact_dir`` as
+        its stage dir.
       labels: per-cell consensus cluster labels (e.g. from
         ``plot_contingency_table``).
       device: "cuda" by default; "cpu" only when asked for.
@@ -199,6 +205,17 @@ def refine(
     if mesh is not None:
         raise NotImplementedError("the multi-device (mesh) path is not "
                                   "ported yet; pass mesh=None")
+    # out-of-core routing: a disk-resident chunk store runs the whole
+    # pipeline chunk at a time under the host-memory budget, with per-shard
+    # durable progress in config.artifact_dir (stream.runner)
+    from scconsensus_tpu_torch.stream.store import ChunkedCSRStore
+
+    if isinstance(data, ChunkedCSRStore):
+        from scconsensus_tpu_torch.stream.runner import streaming_refine
+
+        return streaming_refine(data, labels, config, gene_names=gene_names,
+                                stage_dir=config.artifact_dir,
+                                device=device, omega=omega)
     dev = resolve_device(device)
     # fresh robustness and integrity trails for this run: retries,
     # degradations, resume points and injections land on

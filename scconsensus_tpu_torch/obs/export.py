@@ -1,16 +1,18 @@
 """Atomic file writes: the one primitive every artifact writer shares.
 
-The port's copy of ``ATOMIC_TMP_PREFIX`` and ``atomic_write`` from
-``scconsensus_tpu/obs/export.py:603-653``; nothing else of that module is
-ported.
+The port's copy of ``ATOMIC_TMP_PREFIX``, ``atomic_write`` and
+``write_json_atomic`` from ``scconsensus_tpu/obs/export.py:603-653``;
+nothing else of that module is ported.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import tempfile
+from typing import Any
 
-__all__ = ["ATOMIC_TMP_PREFIX", "atomic_write"]
+__all__ = ["ATOMIC_TMP_PREFIX", "atomic_write", "write_json_atomic"]
 
 ATOMIC_TMP_PREFIX = ".scc-tmp-"
 
@@ -49,3 +51,11 @@ def atomic_write(path: str, write_fn, inspect_fn=None) -> None:
             pass
         raise
 
+
+def write_json_atomic(path: str, obj: Any, indent: int = 1) -> None:
+    """Atomic JSON export (see :func:`atomic_write`)."""
+    def _w(tmp: str) -> None:
+        with open(tmp, "w") as f:
+            json.dump(obj, f, indent=indent, default=str)
+
+    atomic_write(path, _w)

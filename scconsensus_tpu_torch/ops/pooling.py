@@ -134,6 +134,12 @@ def pooled_ward_linkage(x, n_centroids: int = 4096, n_iter: int = 10,
     return ward_linkage(cent, weights=counts), assign, cent
 
 
+def _charge_staging(x, charge) -> None:
+    """Price the (N, d) float32 staging of ``x`` through ``charge``."""
+    if charge is not None:
+        charge(int(x.shape[0]) * int(x.shape[1]) * 4, "landmark_staging")
+
+
 def landmark_k_policy(n: int, c: float = 2.0, k_min: int = 512,
                       k_max: int = 4096) -> int:
     """N-scaled landmark count: ``clamp(c·√N, k_min, k_max)``, rounded up
@@ -155,14 +161,20 @@ def landmark_sketch_policy(n: int, k: int) -> int:
 def landmark_pool(x, n_landmarks: Optional[int] = None,
                   sketch: Optional[int] = None, n_iter: int = 10,
                   seed: int = 0, c: float = 2.0, k_min: int = 512,
-                  k_max: int = 4096, device=None
+                  k_max: int = 4096, device=None, charge=None
                   ) -> Tuple[np.ndarray, np.ndarray, Dict]:
     """Pool the rows of x (N, d) onto k ≪ N landmarks: Lloyd on a seeded
     sketch, then one nearest-landmark pass over every row.
 
     Returns (centroids (k', d) float64, assignment (N,), info) with empty
     landmarks dropped (k' ≤ k); ``info`` holds k requested and used, the
-    sketch size and the iterations."""
+    sketch size and the iterations.
+
+    ``charge(nbytes, what)`` (optional): the out-of-core runner's budget
+    hook, called with the (N, d) float32 staging's bytes as
+    ``landmark_staging`` before the staging exists, so a breach raises
+    typed ``HostBudgetExceeded`` before the allocation."""
+    _charge_staging(x, charge)
     xd = as_points(x, device)
     n = xd.shape[0]
     k = int(n_landmarks) if n_landmarks else landmark_k_policy(
@@ -207,20 +219,23 @@ def landmark_ward_linkage(x, n_landmarks: Optional[int] = None,
                           sketch: Optional[int] = None, n_iter: int = 10,
                           seed: int = 0, c: float = 2.0, k_min: int = 512,
                           k_max: int = 4096, linkage: str = "exact",
-                          knn_k: int = 15, mesh=None, device=None
+                          knn_k: int = 15, mesh=None, device=None,
+                          charge=None
                           ) -> Tuple[HClustTree, np.ndarray, np.ndarray,
                                      Dict]:
     """Landmark tree: occupancy-weighted Ward.D2 over the centroids of
     ``landmark_pool``, by the native NN-chain (``linkage="exact"``) or the
     kNN-graph agglomeration (``"knn"``, ``knn_k`` neighbours a landmark).
     Returns (tree, assignment (N,), centroids, info). ``mesh`` must be
-    None: the multi-device path is not ported yet."""
+    None: the multi-device path is not ported yet. ``charge``: see
+    ``landmark_pool``."""
     if mesh is not None:
         raise NotImplementedError("the multi-device (mesh) path is not "
                                   "ported yet; pass mesh=None")
     if linkage not in ("exact", "knn"):
         raise ValueError(
             f"landmark linkage must be 'exact' or 'knn', got {linkage!r}")
+    _charge_staging(x, charge)
     xd = as_points(x, device)
     cent, assign, info = landmark_pool(
         xd, n_landmarks=n_landmarks, sketch=sketch, n_iter=n_iter,

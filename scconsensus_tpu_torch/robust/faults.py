@@ -20,18 +20,23 @@ boundaries (``stage:de``, ``stage:union``, ``stage:embed``,
 DE ladder's buckets (``wilcox_bucket``), the matrix upload
 (``input_staging``), the serving driver's ``serve_load`` (model load),
 ``serve_batch`` (micro-batch assembly) and ``serve_device`` (inside the
-device classify call), artifact writes (``artifact:<stage>``, consumed
-by :func:`corrupt_artifact` after the store's atomic replace), the
-in-computation corruption sites consumed by :func:`corrupt_value`
+device classify call), the out-of-core streaming layer's three
+disk-axis sites (``stream_chunk_write``: each chunk and per-chunk
+checkpoint write, where ``kill`` plans prove mid-ingest durability and
+``disk`` plans the ENOSPC ladder; ``stream_chunk_read``: each chunk load;
+``stream_stage``: the streaming runner's stage boundary), artifact writes
+(``artifact:<stage>``, consumed by :func:`corrupt_artifact` after the
+store's atomic replace; a torn chunk rides ``artifact:stream_chunk``),
+the in-computation corruption sites consumed by :func:`corrupt_value`
 (``wilcox_bucket_out``, ``embed_scores``, ``bh_logq``,
-``landmark_assign``, ``contingency_table``, ``serve_classify``), and any
-site a caller names to ``robust.retry.call``.
+``landmark_assign``, ``stream_block``, ``contingency_table``,
+``serve_classify``), and any site a caller names to
+``robust.retry.call``.
 
 A plan naming a site of the reference the port does not have yet raises
 ``NotImplementedError`` when it is read: ``refine_step``, the mesh
-engines' ``sharded:*`` and ``ring:*``, the streaming layer's
-``stream_*`` (and its ``stream_block`` corruption site), and the serving
-fleet's ``wire_request`` and ``fleet_*``.
+engines' ``sharded:*`` and ``ring:*``, and the serving fleet's
+``wire_request`` and ``fleet_*``.
 
 Fault classes and what they do at a compute site:
 
@@ -114,11 +119,12 @@ class InjectedDiskFault(InjectedFault):
 
 # sites of the reference the port does not have yet: a plan naming one is
 # refused when read, so a chaos run cannot pass by injecting nowhere
-_UNPORTED_PREFIXES = ("sharded:", "ring:", "stream_", "fleet_")
+_UNPORTED_PREFIXES = ("sharded:", "ring:", "fleet_")
 _UNPORTED_SITES = ("refine_step", "wire_request")
 # the in-computation corruption sites the port has
 _VALUE_SITES = ("wilcox_bucket_out", "embed_scores", "bh_logq",
-                "landmark_assign", "contingency_table", "serve_classify")
+                "landmark_assign", "stream_block", "contingency_table",
+                "serve_classify")
 
 
 def _check_site(path: str, i: int, rule: Dict[str, Any]) -> None:
@@ -130,7 +136,8 @@ def _check_site(path: str, i: int, rule: Dict[str, Any]) -> None:
             f"SCC_FAULT_PLAN {path!r}: faults[{i}] names site {site!r} "
             f"(class {rule['class']!r}), which the port does not have "
             "yet; it has stage:<name>, wilcox_bucket, input_staging, "
-            "serve_load, serve_batch, serve_device, artifact:<stage> and "
+            "serve_load, serve_batch, serve_device, stream_chunk_write, "
+            "stream_chunk_read, stream_stage, artifact:<stage> and "
             f"the corruption sites {', '.join(_VALUE_SITES)}"
         )
 

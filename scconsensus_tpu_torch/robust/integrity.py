@@ -41,9 +41,10 @@ recomputes); :func:`validate_integrity` rejects a section that claims
 On the card a check's scalar read would wait for the kernels queued
 before it. Each device check therefore drains the card *before* its
 self-timed region opens, so ``consumed_s`` (which the < 2 % guard reads)
-holds the layer's own work and not the compute it waited for. Left out
-against the reference: the streaming chunk replay (``replay_stream_chunk``
-and its host twin ``check_wilcox_host``, with the streaming layer) and
+holds the layer's own work and not the compute it waited for. The
+streaming layer's blocks cross to the host before they are checked, so
+their conservation check (``check_wilcox_host``) and chunk replay
+(``replay_stream_chunk``) are pure numpy. Left out against the reference:
 the heartbeat's ``live_summary`` (with the live recorder).
 """
 
@@ -439,6 +440,32 @@ def check_wilcox_bucket(site: str, log_p, u, ties, n1, n2) -> None:
     _settle("wilcox_conservation", site, residual)
 
 
+def check_wilcox_host(site: str, lp: np.ndarray, u: np.ndarray,
+                      n1, n2) -> None:
+    """Host twin of :func:`check_wilcox_bucket` for blocks that already
+    crossed (the streaming runner's per-chunk (P, Gb) fetch): U in
+    [0, n1·n2] and log p <= 0, pure numpy, no device traffic."""
+    if not enabled():
+        return
+    with timed():
+        current().plan("wilcox_conservation")
+        n1 = np.asarray(n1, np.float64)
+        n2 = np.asarray(n2, np.float64)
+        band = max(tol("wilcox_conservation"), 1e-12)
+        umax = (n1 * n2)[:, None]
+        slack_u = np.maximum(band, 4e-6 * umax)
+        uu = np.asarray(u, np.float64)
+        r_u = np.maximum(-uu, uu - umax) / slack_u
+        lpp = np.asarray(lp, np.float64) / max(1e-3, band)
+        resid = max(
+            float(np.nanmax(r_u, initial=-np.inf)),
+            float(np.nanmax(lpp, initial=-np.inf)),
+        ) * band
+        if not np.isfinite(resid):
+            resid = 0.0
+    _settle("wilcox_conservation", site, resid)
+
+
 def check_bh(site: str, log_p, log_q) -> None:
     """BH monotonicity over finite entries: q ≥ p and q ≤ 1, one
     reduction over the (P, G) log arrays."""
@@ -643,6 +670,58 @@ def replay_wilcox_window(
                 if not np.isnan(lp_ref):
                     # absolute band near 0, relative (2 %) for the huge
                     # negative log p where f32 logcdf rounding grows
+                    band = max(tol_p, 0.02 * abs(lp_ref))
+                    worst_norm = max(worst_norm,
+                                     abs(lp_ref - lp_d) / band)
+                worst_norm = max(worst_norm, abs(u_ref - u_d) / tol_u)
+        worst = worst_norm * tol("replay_wilcox_logp")
+    _settle("replay_wilcox_logp", site, worst, kind="replay", unit=unit)
+
+
+def replay_stream_chunk(site: str, unit: str, block, cids: np.ndarray,
+                        n_of: np.ndarray, pair_i: np.ndarray,
+                        pair_j: np.ndarray, lp: np.ndarray,
+                        u: np.ndarray, n_genes_sample: int = 3,
+                        n_pairs_sample: int = 3) -> None:
+    """Ghost-replay one streaming chunk: a seeded (genes × pairs) sample
+    of the chunk's (P, Gb) host outputs recomputed through the float64
+    oracle from the CSR slab's own rows, entirely on the host (the block
+    and its outputs already crossed), so the replay adds no device
+    traffic."""
+    if not enabled():
+        return
+    with timed():
+        gb = int(block.shape[0])
+        g_sel = _sample_idx(gb, n_genes_sample)
+        ok_pairs = np.nonzero(
+            (np.asarray(n_of)[pair_i] >= 1)
+            & (np.asarray(n_of)[pair_j] >= 1)
+        )[0]
+        if not g_sel.size or not ok_pairs.size:
+            current().note_replay_ok(site)
+            return
+        p_sel = ok_pairs[_sample_idx(int(ok_pairs.size), n_pairs_sample)]
+        rows = np.asarray(block[g_sel].toarray(), np.float64)
+        worst_norm = 0.0
+        tol_p = max(tol("replay_wilcox_logp"), 1e-12)
+        tol_u = max(tol("replay_wilcox_u"), 1e-12)
+        lp = np.asarray(lp)
+        u = np.asarray(u)
+        cids = np.asarray(cids)
+        for gi, g in enumerate(g_sel):
+            for p in p_sel:
+                i, j = int(pair_i[p]), int(pair_j[p])
+                n1, n2 = int(n_of[i]), int(n_of[j])
+                sel = (cids == i) | (cids == j)
+                lp_ref, u_ref = wilcox_oracle_pair(
+                    rows[gi][sel], cids[sel], n1, n2, i, j,
+                    pad_zeros=False,
+                )
+                lp_d, u_d = float(lp[p, g]), float(u[p, g])
+                if np.isnan(lp_ref) != np.isnan(lp_d):
+                    worst_norm = max(worst_norm, float("inf"))
+                    continue
+                if not np.isnan(lp_ref):
                     band = max(tol_p, 0.02 * abs(lp_ref))
                     worst_norm = max(worst_norm,
                                      abs(lp_ref - lp_d) / band)

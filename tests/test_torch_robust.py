@@ -78,7 +78,7 @@ def test_flag_pinned_to_the_reference_registry(name):
 
 def test_the_slice_registers_every_flag_it_reads():
     want = {n for n in ref_config.ENV_FLAGS
-            if n.startswith(("SCC_SERVE_", "SCC_SLO_"))}
+            if n.startswith(("SCC_SERVE_", "SCC_SLO_", "SCC_STREAM_"))}
     want |= {"SCC_FAULT_PLAN", "SCC_ROBUST_BUDGET", "SCC_ROBUST_BACKOFF_S",
              "SCC_INTEGRITY", "SCC_OBS_TRACE", "SCC_STAGE_SYNC",
              "SCC_TRACE_SYNC", "SCC_ROBUST_DE_CKPT",
@@ -374,13 +374,13 @@ def test_kill_class_sigkills_the_process(tmp_path):
 
 @pytest.mark.parametrize("rule", [
     {"site": "refine_step", "class": "oom"},
-    {"site": "stream_stage", "class": "transient"},
+    {"site": "sharded:ranksum", "class": "transient"},
     {"site": "sharded:aggregates", "class": "device_loss"},
     {"site": "ring:distance_sums", "class": "oom"},
-    {"site": "stream_chunk_write", "class": "disk"},
+    {"site": "fleet_swap", "class": "disk"},
     {"site": "wire_request", "class": "transient"},
     {"site": "fleet_route", "class": "oom"},
-    {"site": "stream_block", "class": "corruption"},
+    {"site": "ring:distance_sums", "class": "corruption"},
     {"site": "serve_device", "class": "corruption"},
 ], ids=lambda r: f"{r['site']}-{r['class']}")
 def test_a_plan_naming_a_site_the_port_lacks_raises(tmp_path, monkeypatch,

@@ -102,15 +102,18 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
                    if os.path.exists(os.path.join(root, d, "__init__.py"))]
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
-    # the serving path and the robustness core are in the scan
+    # the serving path, the robustness core and the streaming layer are in
+    # the scan
     rel = {os.path.relpath(p, PORT_DIR) for p in files}
-    for sub in ("serve", "robust", "obs"):
+    for sub in ("serve", "robust", "obs", "stream"):
         mods = {os.path.join(sub, n) for n in
                 os.listdir(os.path.join(PORT_DIR, sub)) if n.endswith(".py")}
         assert mods and mods <= rel, sub
     assert {"serve/driver.py", "serve/model.py", "serve/soak.py",
             "robust/faults.py", "robust/retry.py", "robust/record.py",
-            "obs/trace.py"} <= rel
+            "obs/trace.py", "obs/device.py", "obs/residency.py",
+            "stream/budget.py", "stream/record.py", "stream/runner.py",
+            "stream/soak.py", "stream/store.py"} <= rel
     bad = [
         f"{os.path.relpath(p, REPO)}:{line} imports {mod}"
         for p in files for mod, line in _imported_roots(p)
@@ -195,8 +198,8 @@ def test_config_round_trips_from_the_reference_json():
 
 @pytest.mark.parametrize("case", ["method", "sparse_method", "mesh",
                                   "ring_mesh", "knn_mesh", "refine_step",
-                                  "stream_chunk_read", "fleet_route",
-                                  "sharded:ranksum", "annotate"])
+                                  "fleet_route", "sharded:ranksum",
+                                  "annotate"])
 def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     import json
 
@@ -237,10 +240,9 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
             device="cpu"),
         "mesh": lambda: port.recluster_de_consensus_fast(
             data, labels, device="cpu", mesh="auto"),
-        # the mesh's step, the streaming layer and the serving fleet are
-        # not ported: their fault sites are refused
+        # the mesh's step and the serving fleet are not ported: their
+        # fault sites are refused
         "refine_step": _plan_naming("refine_step"),
-        "stream_chunk_read": _plan_naming("stream_chunk_read"),
         "fleet_route": _plan_naming("fleet_route"),
         "sharded:ranksum": _plan_naming("sharded:ranksum"),
         # the profiler-annotate mode is a jax.profiler call in the reference
