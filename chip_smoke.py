@@ -132,12 +132,35 @@ checkout, and exits non-zero on the first phase that fails:
      durable chunks under the default budgets, their walls, cells/s,
      peak RSS, staged bytes, chunk counters and loads, store size and
      peak device memory, then the store removed; and the reckoned first
-     chunk's charge at that count and at 10,000,000 cells.
+     chunk's charge at that count and at 10,000,000 cells;
+ 25. the mesh at 2,000 × 800 × 4 on ``make_mesh(4)`` (4 shards of the
+     card, and of the CPU): the sharded aggregates in both forms, the
+     sharded Wilcoxon, the ring sums and the fused step's silhouette sums
+     against their serial forms; then the fast Wilcoxon on dense and CSR
+     input, the kNN branch and the landmark branch with the kNN linkage,
+     each card mesh run held to the CPU's mesh run and to the card's
+     serial run by ``parallel.validate.assert_mesh_equals_serial``, each
+     mesh run's silhouette one kernel launch for all its cuts;
+ 26. the 26k flagship on a 4-shard mesh of the card (phase 7's config),
+     held to phase 7's serial run by the same contract: its wall, stage
+     walls, the silhouette's wall (one kernel launch) beside the kernel's
+     time and the ring engine's for the same cuts, peak device memory,
+     the card count and what ``mesh="auto"`` resolves to;
+ 27. the elastic supervisor at 26k on the 4-shard mesh: a device loss in
+     ``sharded:ranksum`` and one in ``ring:distance_sums`` (4 → 2), a
+     double loss (4 → 2 → 1), a store written on 4 shards and resumed
+     serially (one ``cause: "resume"`` transition a stage), and a child
+     (from the launcher) killed at ``wilcox_bucket`` halfway through the
+     4-shard ladder, resumed on 2 shards; every run held to phase 26's
+     labels, union and DE mask, its transitions validated; the
+     robustness layer under 2 % of the healthy mesh runs' wall, best
+     of 2.
 
-Phases run in the order 1–5, 12, 15, 20, 6–8, 13, 19, 16–18, 21, 9–11,
-14, 22–24, so that the 26k data serves phases 7–8, 13, 19, 16–18 and 21 (phase
-19 while phase 7's result is alive) and is freed before the larger ones;
-the line before the kernel record gives the total time.
+Phases run in the order 1–5, 12, 15, 20, 25, 6–8, 13, 19, 16–18, 21, 26,
+27, 9–11, 14, 22–24, so that the 26k data serves phases 7–8, 13, 19,
+16–18, 21, 26 and 27 (phase 19 while phase 7's result is alive) and is
+freed before the larger ones; the line before the kernel record gives
+the total time.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -2216,6 +2239,420 @@ def phase_guarded(data, truth, cons, wilcox_ref, n_buckets: int) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phases 25-27: the mesh path of refine() and its elastic supervisor
+# --------------------------------------------------------------------------
+
+# shards of the mesh on the one card: the counterpart of the reference's
+# virtual devices (tests/test_parallel.py holds 8 on the CPU)
+MESH_SHARDS = 4
+
+# phase 25's branches at 2,000 cells: the kNN graph past approx_threshold,
+# and the landmark tree with the kNN linkage, where the mesh reaches the
+# tree through the ring's kNN over the landmarks
+MESH_BRANCHES = {
+    "fast": {},
+    "knn": dict(approx_threshold=500, approx_method="knn"),
+    "landmark": dict(approx_threshold=500, landmark_threshold=500,
+                     landmark_linkage="knn"),
+}
+
+
+def _mesh_contract(tag: str, got, want, what: str) -> None:
+    """``parallel.validate.assert_mesh_equals_serial`` with the pair
+    named, and the largest log p difference printed."""
+    from scconsensus_tpu_torch.parallel.validate import (
+        assert_mesh_equals_serial,
+    )
+
+    a = got.de.log_p.cpu().numpy() if hasattr(got.de.log_p, "cpu") \
+        else np.asarray(got.de.log_p)
+    b = want.de.log_p.cpu().numpy() if hasattr(want.de.log_p, "cpu") \
+        else np.asarray(want.de.log_p)
+    both = np.isfinite(a) & np.isfinite(b)
+    dlogp = float(np.abs(a[both] - b[both]).max()) if both.any() else 0.0
+    dsil = max(abs(x["silhouette"] - y["silhouette"]) for x, y in
+               zip(got.deep_split_info, want.deep_split_info))
+    try:
+        assert_mesh_equals_serial(got, want)
+    except AssertionError as e:
+        raise AssertionError(f"[{tag}] {what}: the mesh contract fails "
+                             f"(max |dlog p| {dlogp}, max |dsil| {dsil}): "
+                             f"{e!r}")
+    log(f"[{tag}] {what}: assert_mesh_equals_serial holds; max |dlog p| "
+        f"{dlogp!r}, max |dsilhouette| {dsil!r}")
+
+
+def _with_exact_silhouettes(res):
+    """``res`` with each cut's silhouette replaced by the exact one of its
+    own embedding and labels (through the kernel): past
+    ``approx_threshold`` the serial path reports the pooled estimator and
+    the mesh path the exact silhouette (the reference's rule)."""
+    import dataclasses
+
+    import torch
+
+    from scconsensus_tpu_torch.ops.silhouette import multi_cut_silhouette
+
+    labs = [np.where(res.dynamic_labels[f"deepsplit: {i['deep_split']}"] > 0,
+                     res.dynamic_labels[f"deepsplit: {i['deep_split']}"], -1)
+            for i in res.deep_split_info]
+    x = torch.from_numpy(res.embedding).to(res.de.log_p.device)
+    exact = multi_cut_silhouette(x, labs)
+    return dataclasses.replace(res, deep_split_info=[
+        {**i, "silhouette": si} for i, (si, _) in
+        zip(res.deep_split_info, exact)])
+
+
+def _mesh_engines_small() -> None:
+    """Phase 25's engine checks on the card: the sharded aggregates (both
+    forms), the sharded Wilcoxon and the ring sums against their serial
+    forms, and the distributed step's silhouette sums against the ring."""
+    import torch
+
+    from scconsensus_tpu_torch.ops.distance import distance_tile
+    from scconsensus_tpu_torch.ops.gates import compute_aggregates_cid
+    from scconsensus_tpu_torch.ops.wilcoxon import wilcoxon_pairs_tile
+    from scconsensus_tpu_torch.parallel import (
+        distributed_refine_step,
+        make_mesh,
+        ring_cluster_distance_sums,
+        sharded_aggregates,
+        sharded_wilcox_logp,
+    )
+    from scconsensus_tpu_torch.parallel.step import build_step_inputs
+
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+    data, cons = _small_data()
+    x = torch.from_numpy(data).cuda()
+    cid = torch.from_numpy(np.unique(cons, return_inverse=True)[1]
+                           .astype(np.int64)).cuda()
+    k = int(cid.max()) + 1
+    want = compute_aggregates_cid(x, cid, k, form="segment")
+    onehot = torch.nn.functional.one_hot(cid, k).to(torch.float32)
+    for form, got in (("onehot", sharded_aggregates(x, onehot, mesh)),
+                      ("cid", sharded_aggregates(x, mesh=mesh, cid=cid,
+                                                 n_clusters=k))):
+        for f in ("sum_log", "sum_expm1", "sum_sq", "nnz", "counts"):
+            a, b = getattr(got, f), getattr(want, f)
+            rel = float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+            exact = f in ("nnz", "counts")
+            if (exact and not torch.equal(a, b)) or rel > 1e-5:
+                raise AssertionError(f"[mesh-small] sharded aggregates "
+                                     f"({form}) {f}: rel err {rel}")
+        log(f"[mesh-small] sharded_aggregates ({form}) on {MESH_SHARDS} "
+            "shards: within 1e-5 of the serial segment sums, counts and "
+            "nnz exact")
+    ci = torch.nonzero(cid == 0).flatten()[:200]
+    cj = torch.nonzero(cid == 1).flatten()[:200]
+    idx = torch.cat([ci, cj])[None, :]
+    m1 = torch.zeros_like(idx, dtype=torch.bool)
+    m1[0, :ci.numel()] = True
+    n1 = torch.tensor([ci.numel()], device="cuda")
+    n2 = torch.tensor([cj.numel()], device="cuda")
+    got = sharded_wilcox_logp(x, idx, m1, ~m1, n1, n2, mesh)
+    ser = wilcoxon_pairs_tile(x, idx, m1, ~m1, n1, n2)[0]
+    if not torch.equal(torch.nan_to_num(got, nan=7.0),
+                       torch.nan_to_num(ser, nan=7.0)):
+        raise AssertionError("[mesh-small] sharded_wilcox_logp differs from "
+                             "the serial tile")
+    log("[mesh-small] sharded_wilcox_logp: the serial tile's bits")
+    emb = torch.randn((2000, 15), generator=torch.Generator().manual_seed(3)
+                      ).cuda()
+    ring = ring_cluster_distance_sums(emb, onehot, mesh)
+    plain = distance_tile(emb, emb) @ onehot
+    err = float((ring - plain).abs().max())
+    scale = float(plain.abs().max())
+    log(f"[mesh-small] ring_cluster_distance_sums: max abs err {err!r} of "
+        f"max |sum| {scale!r}")
+    if err > 1e-4 * scale:
+        raise AssertionError("[mesh-small] the ring's sums disagree")
+    inputs = build_step_inputs(n_cells=2000, n_genes=800, n_clusters=4,
+                               n_shards=MESH_SHARDS)
+    args = [torch.from_numpy(inputs[n]).cuda() for n in (
+        "data", "onehot", "pair_i", "pair_j", "idx", "m1", "m2", "n1", "n2")]
+    out = distributed_refine_step(mesh, n_pcs=8)(*args)
+    ref = ring_cluster_distance_sums(out["scores"], args[1], mesh)
+    err = float((out["sil_sums"] - ref).abs().max())
+    log(f"[mesh-small] distributed_refine_step: de calls "
+        f"{out['de_counts'].tolist()}; sil_sums against the ring max abs "
+        f"err {err!r}")
+    if not bool(torch.isfinite(out["scores"]).all()) or err > 1e-3:
+        raise AssertionError("[mesh-small] the fused step's sums disagree")
+
+
+def phase_mesh_small() -> None:
+    """Phase 25: the mesh at 2,000 × 800 × 4, card against CPU, on
+    ``make_mesh(4)``: the fast Wilcoxon on dense and on CSR input, the kNN
+    and the landmark branches, each card mesh run held to the CPU's mesh
+    run and to the card's serial run; the engines on the card."""
+    import scipy.sparse as sp
+
+    from scconsensus_tpu_torch import (
+        ReclusterConfig,
+        recluster_de_consensus_fast,
+    )
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+    from scconsensus_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    _mesh_engines_small()
+    for name, kw in list(MESH_BRANCHES.items()) + [("csr", {})]:
+        tag = f"mesh-small-{name}"
+        as_input = sp.csr_matrix if name == "csr" else None
+
+        def run(data, cons, dev, omega):
+            return recluster_de_consensus_fast(
+                data, cons, device=dev, omega=omega,
+                mesh=make_mesh(MESH_SHARDS, device=dev), **kw)
+
+        distance_cluster_sums.launches = 0
+        gpu, cpu, omega = _card_against_cpu(tag, ReclusterConfig(**kw), run,
+                                            as_input=as_input)
+        launches = distance_cluster_sums.launches
+        _mesh_contract(tag, gpu, cpu, "card mesh, CPU mesh")
+        data, cons = _small_data()
+        if as_input is not None:
+            data = as_input(data)
+        serial = recluster_de_consensus_fast(data, cons, device="cuda",
+                                             omega=omega, mesh=None, **kw)
+        if gpu.metrics["tree"]["approx"]:
+            serial = _with_exact_silhouettes(serial)
+        _mesh_contract(tag, gpu, serial, "card mesh, card serial")
+        sil = gpu.metrics["silhouette"]
+        log(f"[{tag}] tree {json.dumps(gpu.metrics['tree'])}; silhouette "
+            f"{json.dumps(sil)}; rank-sum kernel "
+            f"{gpu.metrics['wilcox_ladder']['kernel']}; kernel launches in "
+            f"the mesh runs {launches}")
+        if sil != {"method": "exact", "engine": "kernel",
+                   "n_shards": MESH_SHARDS} or launches != 1 \
+                or gpu.metrics["wilcox_ladder"]["kernel"] != "mesh-scan":
+            raise AssertionError(f"[{tag}] the mesh run did not go through "
+                                 "the sharded rank sum and one kernel "
+                                 "launch")
+    log(f"[mesh-small] phase 25 in {time.perf_counter() - t_phase!r} s")
+
+
+def _summary_view(ref: dict):
+    """A phase summary (``_summary``) shaped as a result for
+    ``assert_mesh_equals_serial``."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(
+        de=SimpleNamespace(log_p=ref["log_p"], de_mask=ref["de_mask"]),
+        de_gene_union_idx=ref["union"], dynamic_labels=ref["labels"],
+        deep_split_info=[{"silhouette": s} for s in ref["silhouettes"]])
+
+
+def phase_mesh_full(data, truth, cons, wilcox_ref) -> dict:
+    """Phase 26: the 26k flagship on a 4-shard mesh on the card (phase
+    7's config), held to phase 7's serial run; its walls, the
+    silhouette's wall (one kernel launch for every cut, on shard 0's
+    device) beside the kernel's time and the ring engine's for the same
+    cuts, peak memory, the card count and what ``mesh="auto"`` resolves
+    to here."""
+    import torch
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.ops.silhouette import cut_labels
+    from scconsensus_tpu_torch.parallel import (
+        make_mesh,
+        ring_cluster_distance_sums,
+    )
+    from scconsensus_tpu_torch.parallel.mesh import auto_mesh
+    from scconsensus_tpu_torch.robust import record as robust_record
+
+    auto = auto_mesh("cuda")
+    log(f"[mesh-full] torch.cuda.device_count() {torch.cuda.device_count()};"
+        f" mesh='auto' resolves to {auto!r}")
+    if torch.cuda.device_count() < 2 and auto is not None:
+        raise AssertionError("[mesh-full] 'auto' built a mesh on one card")
+    mesh = make_mesh(MESH_SHARDS, device="cuda")
+    res, launches = _run_full(
+        "mesh-full", lambda: recluster_de_consensus_fast(
+            data, cons, device="cuda", mesh=mesh), truth)
+    m = res.metrics
+    consumed = robust_record.current_run().consumed_s
+    _mesh_contract("mesh-full", res, _summary_view(wilcox_ref),
+                   "4-shard mesh, phase 7 serial")
+    rec = _measure_main_path(res, "mesh-path-cuts")
+    # the ring engine (the reference's mesh silhouette) over the same
+    # cuts, one ring for all of them, best of 2
+    labs = [np.where(res.dynamic_labels[f"deepsplit: {i['deep_split']}"]
+                     > 0, res.dynamic_labels[f"deepsplit: {i['deep_split']}"],
+                     -1) for i in res.deep_split_info]
+    ids, k_total, _ = cut_labels(labs)
+    x = torch.from_numpy(res.embedding).cuda()
+    onehot = torch.zeros((ids.shape[0], k_total), device="cuda")
+    for c in range(ids.shape[1]):
+        ok = torch.from_numpy(np.nonzero(ids[:, c] >= 0)[0]).cuda()
+        onehot[ok, torch.from_numpy(ids[:, c]).cuda()[ok]] = 1.0
+    ring_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring_cluster_distance_sums(x, onehot, mesh)
+        torch.cuda.synchronize()
+        ring_s.append(time.perf_counter() - t0)
+    log(f"[mesh-full] wall {m['wall_s']!r} s against phase 7's "
+        f"{wilcox_ref['wall_s']!r} s; wilcox_test {m['stage_walls_s']['wilcox_test']!r}"
+        f" s; silhouette stage {m['stage_walls_s']['silhouette']!r} s "
+        f"({m['silhouette']}); for the same cuts the kernel takes "
+        f"{rec['ms']!r} ms and the ring engine {min(ring_s)!r} s (best of "
+        f"{ring_s!r}); launches {launches}; peak {m['peak_bytes']} bytes; "
+        f"robustness consumed {consumed!r} s ({consumed / m['wall_s']!r} of "
+        "the wall)")
+    if launches != 1 or m["silhouette"].get("engine") != "kernel":
+        raise AssertionError("[mesh-full] the silhouette did not take one "
+                             "kernel launch")
+    return {"summary": _summary(res), "share": consumed / m["wall_s"],
+            "n_buckets": len(m["wilcox_ladder"]["buckets"]),
+            "launches": launches}
+
+
+_MESH_KILL_CHILD = """
+import os, sys
+os.environ["SCC_FAULT_PLAN"] = {plan!r}
+sys.path.insert(0, {repo!r})
+import chip_smoke
+from scconsensus_tpu_torch import recluster_de_consensus_fast
+from scconsensus_tpu_torch.parallel import make_mesh
+
+data, truth, cons = chip_smoke.phase_full_data()
+recluster_de_consensus_fast(data, cons, device="cuda",
+                            artifact_dir={store!r},
+                            mesh=make_mesh({shards}, device="cuda"))
+print("UNEXPECTED: the run survived a kill fault")
+"""
+
+
+def phase_elastic(data, truth, cons, mesh_ref: dict, launcher) -> dict:
+    """Phase 27: the elastic supervisor at 26k on a 4-shard mesh: a device
+    loss in the sharded rank sum (4 → 2), one in the ring (4 → 2), a
+    double loss (4 → 2 → 1), a store written on 4 shards and resumed
+    serially, and a bucket checkpoint written on 4 shards by a child
+    killed at wilcox_bucket halfway, resumed on 2. Every run keeps phase
+    26's labels, DE mask and union; its transitions validate. Then the
+    robustness layer's share of the healthy supervised runs' walls."""
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.parallel import make_mesh
+    from scconsensus_tpu_torch.robust import faults
+    from scconsensus_tpu_torch.robust import record as robust_record
+    from scconsensus_tpu_torch.robust.record import validate_robustness
+
+    ref = _summary_view(mesh_ref["summary"])
+    root = tempfile.mkdtemp(prefix="scc-elastic-")
+    launches = {}
+    shares = [mesh_ref["share"]]
+
+    def run(tag, shards=MESH_SHARDS, engine="native", **kw):
+        res, launches[tag] = _run_full(
+            tag, lambda: recluster_de_consensus_fast(
+                data, cons, device="cuda",
+                mesh=make_mesh(shards, device="cuda") if shards else None,
+                **kw), truth, engine=engine)
+        _mesh_contract(tag, res, ref, "phase 26's mesh run")
+        rb = res.metrics.get("robustness")
+        if rb is not None:
+            validate_robustness(rb)
+            log(f"[{tag}] mesh transitions "
+                f"{json.dumps(rb.get('mesh_transitions', []))}")
+        return res, rb
+
+    def paths(rb):
+        return [(len(t["from_devices"]), len(t["to_devices"]), t["cause"])
+                for t in (rb or {}).get("mesh_transitions", [])]
+
+    t_phase = time.perf_counter()
+    try:
+        for tag, rules, want in (
+                ("elastic-ranksum",
+                 [{"site": "sharded:ranksum", "class": "device_loss"}],
+                 [(4, 2, "device_loss")]),
+                ("elastic-ring",
+                 [{"site": "ring:distance_sums", "class": "device_loss"}],
+                 [(4, 2, "device_loss")]),
+                ("elastic-double",
+                 [{"site": "stage:de", "class": "device_loss"},
+                  {"site": "stage:embed", "class": "device_loss"}],
+                 [(4, 2, "device_loss"), (2, 1, "device_loss")])):
+            with _env(SCC_FAULT_PLAN=_write_plan(root, rules,
+                                                 name=f"{tag}.json")):
+                _, rb = run(tag)
+            if paths(rb) != want:
+                raise AssertionError(f"[{tag}] transitions {paths(rb)}, "
+                                     f"expected {want}")
+
+        # a store written on 4 shards, resumed serially
+        store = os.path.join(root, "store")
+        res, rb = run("elastic-store-4", artifact_dir=store)
+        if rb is not None and (rb["retries"] or rb["faults_injected"]
+                               or rb.get("mesh_transitions")):
+            raise AssertionError("[elastic-store-4] a healthy run retried "
+                                 "or moved between meshes")
+        shares.append(robust_record.current_run().consumed_s
+                      / res.metrics["wall_s"])
+        _, rb = run("elastic-resume-1", shards=0, engine=None,
+                    artifact_dir=store)
+        stages = sorted({t["stage"] for t in rb["mesh_transitions"]})
+        if {p[:2] for p in paths(rb)} != {(4, 1)} or not \
+                {"de", "union", "embed", "tree", "cuts"} <= set(stages):
+            raise AssertionError(f"[elastic-resume-1] transitions "
+                                 f"{paths(rb)} at {stages}")
+        log(f"[elastic-resume-1] one cause 'resume' transition 4 -> 1 at "
+            f"each of {stages}")
+
+        # a child killed at wilcox_bucket halfway through the 4-shard
+        # ladder, resumed here on 2 shards from its finished buckets
+        n_buckets = mesh_ref["n_buckets"]
+        killed_at = n_buckets // 2
+        store = os.path.join(root, "kill-store")
+        plan = _write_plan(root, [{"site": "wilcox_bucket", "class": "kill",
+                                   "after": killed_at}], name="kill.json")
+        t0 = time.perf_counter()
+        out = _launch(launcher, [sys.executable, "-c",
+                                 _MESH_KILL_CHILD.format(
+                                     plan=plan, repo=REPO, store=store,
+                                     shards=MESH_SHARDS)], timeout=600)
+        blocks = sorted(n for n in os.listdir(store)
+                        if n.startswith("de_wilcox_") and n.endswith(".npz"))
+        log(f"[elastic-kill] child exit {out['rc']} after "
+            f"{time.perf_counter() - t0!r} s; {len(blocks)} of {n_buckets} "
+            "buckets stored on 4 shards")
+        if out["rc"] != -9 or len(blocks) != killed_at:
+            raise AssertionError(f"[elastic-kill] rc {out['rc']}, "
+                                 f"{len(blocks)} blocks; stderr "
+                                 f"{out['stderr'][-800:]}")
+        count = _write_plan(root, [{"site": "wilcox_bucket",
+                                    "class": "stall", "after": 10 ** 9}],
+                            name="count.json")
+        with _env(SCC_FAULT_PLAN=count):
+            _, rb = run("elastic-resume-2", shards=2, artifact_dir=store)
+            hits = faults._HITS.get(0, 0)
+        log(f"[elastic-resume-2] {hits} buckets computed of {n_buckets}; "
+            f"resume points {json.dumps(rb['resume_points'])}")
+        if hits != n_buckets - killed_at or paths(rb) != [
+                (4, 2, "resume")] or rb["resume_points"][0]["completed"] \
+                != killed_at:
+            raise AssertionError("[elastic-resume-2] the 2-shard run did "
+                                 "not resume the 4-shard buckets")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    share = min(shares)
+    log(f"[elastic] robustness consumed / wall of the healthy supervised "
+        f"runs {shares!r}; best {share!r} (the reference's limit "
+        f"{LAYER_SHARE_LIMIT})")
+    if not share < LAYER_SHARE_LIMIT:
+        raise AssertionError("[elastic] the supervised mesh run's "
+                             "robustness layer costs 2 % or more of the "
+                             "wall")
+    log(f"[elastic] phase 27 in {time.perf_counter() - t_phase!r} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phases 22-24: the out-of-core streaming refine
 # --------------------------------------------------------------------------
 
@@ -2867,6 +3304,7 @@ def _main(launcher) -> int:
     phase_small_csr()
     phase_small_seurat()
     phase_guard_small()
+    phase_mesh_small()
     data, truth, cons = phase_full_data()
     rec, dense_fast = phase_full(data, truth, cons)
     erec, dense_edger = phase_edger_full(data, truth, cons)
@@ -2880,6 +3318,8 @@ def _main(launcher) -> int:
     resume_launches = phase_resume(data, truth, cons, wilcox_ref)
     guarded_launches = phase_guarded(data, truth, cons, wilcox_ref,
                                      n_buckets)
+    mesh_ref = phase_mesh_full(data, truth, cons, wilcox_ref)
+    elastic_launches = phase_elastic(data, truth, cons, mesh_ref, launcher)
     phase_contract(data, cons, csr)
     del data, csr, wilcox_ref
     torch.cuda.empty_cache()
@@ -2914,6 +3354,8 @@ def _main(launcher) -> int:
                "wilcox_26k_enforce": guarded_launches["guarded-enforce"],
                "wilcox_26k_killed_resumed":
                    guarded_launches["guarded-resume"],
+               "mesh_26k": mesh_ref["launches"],
+               "elastic_26k": sum(elastic_launches.values()),
                "stream_small": stream_small_launches,
                "stream_20k": stream_20k_launches,
                "stream_1m": stream_1m_launches}

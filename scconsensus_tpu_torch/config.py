@@ -7,11 +7,13 @@ not read: where ``refine()`` in the reference reads a registered flag,
 the port takes the flag's registered default.
 
 ``ENV_FLAGS`` registers only the flags the serving path, the robustness
-core and the streaming layer read (``scconsensus_tpu/config.py:32-41,
-237-265,486``), with the reference's names, types, defaults and text: the
-``SCC_SERVE_*`` knobs, the fault plan, the retry budget and backoff,
-``SCC_INTEGRITY``, request tracing, the SLO objectives, the tracer's sync
-policy and the four ``SCC_STREAM_*`` flags.
+core, the elastic mesh and the streaming layer read
+(``scconsensus_tpu/config.py:32-41, 193-210, 237-265, 486``), with the
+reference's names, types, defaults and text: the ``SCC_SERVE_*`` knobs,
+the fault plan, the retry budget and backoff, ``SCC_ELASTIC`` and
+``SCC_ELASTIC_MIN_DEVICES``, ``SCC_INTEGRITY``, request tracing, the SLO
+objectives, the tracer's sync policy and the four ``SCC_STREAM_*``
+flags.
 """
 
 from __future__ import annotations
@@ -194,6 +196,21 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "from completed buckets instead of recomputing the whole "
                 "DE stage. Set 0 to disable (store-less runs are always "
                 "unaffected)."),
+        # --- elastic mesh (robust/elastic.py) ---
+        EnvFlag("SCC_ELASTIC", bool, True,
+                "Elastic mesh execution (robust.elastic): the pipeline's "
+                "sharded paths run under a mesh supervisor that "
+                "classifies device-loss failures, rebuilds the mesh on "
+                "surviving devices (8 → 4 → 2 → 1 shrink ladder on an "
+                "indistinct loss), re-enters the stage from its last "
+                "completed checkpoint, and stamps every transition into "
+                "the validated robustness section. Set 0 for the "
+                "pre-elastic behavior (a lost device kills the run)."),
+        EnvFlag("SCC_ELASTIC_MIN_DEVICES", int, 1,
+                "Floor of the elastic shrink ladder: a device loss that "
+                "would leave fewer devices than this is FATAL instead of "
+                "recovered (for workloads whose sharded working set "
+                "genuinely needs a minimum aggregate HBM footprint)."),
         # --- integrity (robust/integrity.py) ---
         EnvFlag("SCC_INTEGRITY", str, "off",
                 "Computation-integrity sentinels (robust.integrity): "

@@ -1,10 +1,10 @@
 """All-pairs differential-expression engine: every ``method`` of the
 reference.
 
-The torch form of the mesh-free paths of ``scconsensus_tpu/de/engine.py``
-for ``method`` ∈ {``wilcox``, ``wilcoxon``, ``edger``, ``bimod``, ``t``,
-``roc``}: every statistic for all K(K−1)/2 cluster pairs at once from
-per-cluster structures.
+The torch form of ``scconsensus_tpu/de/engine.py`` for ``method`` ∈
+{``wilcox``, ``wilcoxon``, ``edger``, ``bimod``, ``t``, ``roc``}: every
+statistic for all K(K−1)/2 cluster pairs at once from per-cluster
+structures.
 
   1. cluster filter (count > min_cluster_size, 'grey' dropped),
   2. per-cluster aggregates (``ops.gates``),
@@ -52,9 +52,19 @@ record (``PairwiseDEResult.ladder``) carries the reference's probe keys.
 ``streaming_wilcox_block`` is the out-of-core runner's seam: one host
 CSR slab of a chunk store through the same ladder.
 
-Left out against the reference: the mesh and the run-space kernel with
-its overflow redo (an XLA:CPU form; the port runs the scan body, as the
-reference does on the card, so its checkpoint variant is ``scan``). An
+With a ``parallel.mesh.Mesh`` the rank-sum buckets (and full-width
+chunks) shard their gene rows across it
+(``parallel.sharded_de.sharded_allpairs_ranksum``, the reference's
+:773-782, :949, :1140): the same scan body per shard, so the same log p;
+the ladder's occupancy record says ``"kernel": "mesh-scan"``, the
+checkpoint blocks carry the variant ``mesh`` and the mesh's shape, and a
+resume of blocks written on a larger mesh stamps a ``cause: "resume"``
+transition. The aggregates, gates, BH and the other tests run on the
+matrix's device as without a mesh, as in the reference.
+
+Left out against the reference: the run-space kernel with its overflow
+redo (an XLA:CPU form; the port runs the scan body, as the reference
+does on the card, so its serial checkpoint variant is ``scan``). An
 unknown method raises ``NotImplementedError``.
 """
 
@@ -343,15 +353,21 @@ class _WilcoxCkpt:
     arrays (``lp``, ``u``, ``ts``) and ``mesh_shape`` meta are the
     reference's (``scconsensus_tpu/de/engine.py:426-539``), so a
     half-finished store crosses between the packages wherever both run
-    the same kernel variant. The pipeline deletes the blocks once the
-    covering ``de`` artifact lands. Gated by ``SCC_ROBUST_DE_CKPT``."""
+    the same kernel variant. Each block is stamped with the run's mesh
+    shape; blocks written on a larger mesh resume on a smaller one, and
+    :meth:`note_transitions` stamps that crossing once per stored shape.
+    The pipeline deletes the blocks once the covering ``de`` artifact
+    lands. Gated by ``SCC_ROBUST_DE_CKPT``."""
 
     PREFIX = "de_wilcox_"
 
-    def __init__(self, store):
+    def __init__(self, store, mesh=None):
         self.store = store
+        self.mesh = mesh  # the run's mesh, stamped on each block
         self.resumed = 0
         self._found = None  # stage -> (arrays, meta) or None, on a resume
+        # stored shapes larger than this run's -> the bytes adopted
+        self._resumed_shapes: Dict[tuple, int] = {}
 
     def key(self, ids: np.ndarray, window: int, variant: str) -> str:
         import hashlib
@@ -380,24 +396,55 @@ class _WilcoxCkpt:
                 got = self.store.load(key)
             except ArtifactCorrupt:
                 return None
-        arrays, _meta = got
+        arrays, meta = got
         if not all(k in arrays for k in ("lp", "u", "ts")):
             return None
         self.resumed += 1
+        self._track_shape(meta)
         return tuple(torch.from_numpy(np.ascontiguousarray(arrays[k])).to(
             device) for k in ("lp", "u", "ts"))
 
+    def _track_shape(self, meta) -> None:
+        """Remember a resumed block written on a larger mesh than this
+        run's (the crossing rule is ``robust.elastic``'s)."""
+        from scconsensus_tpu_torch.parallel.mesh import mesh_device_ids
+        from scconsensus_tpu_torch.robust.elastic import (
+            resume_crossing_from_ids,
+        )
+
+        from_ids = resume_crossing_from_ids(meta, mesh_device_ids(self.mesh))
+        if from_ids is None:
+            return
+        size = int(((meta or {}).get("_integrity") or {}).get("size") or 0)
+        key = tuple(from_ids)
+        self._resumed_shapes[key] = self._resumed_shapes.get(key, 0) + size
+
+    def note_transitions(self) -> None:
+        """One ``cause: "resume"`` mesh transition per larger stored shape
+        the resumed blocks came from (with ``SCC_ELASTIC`` on)."""
+        from scconsensus_tpu_torch.parallel.mesh import mesh_device_ids
+        from scconsensus_tpu_torch.robust.elastic import elastic_enabled
+
+        if not self._resumed_shapes or not elastic_enabled():
+            return
+        to_ids = mesh_device_ids(self.mesh)
+        for from_t, nbytes in sorted(self._resumed_shapes.items()):
+            robust_record.note_mesh_transition(
+                stage="wilcox_test", from_devices=list(from_t),
+                to_devices=to_ids, recovered_state_bytes=nbytes,
+                cause="resume")
+
     def save(self, key: str, n_rows: int, out) -> None:
         """Persist one finished bucket (its real gene rows), stamped with
-        the serial mesh shape. Uncompressed: float32 log p, U and ties
+        the run's mesh shape. Uncompressed: float32 log p, U and ties
         barely shrink under zlib, which would cost the stored run seconds
         of host time for nothing."""
-        from scconsensus_tpu_torch.utils.artifacts import SERIAL_MESH_SHAPE
+        from scconsensus_tpu_torch.parallel.mesh import mesh_shape_meta
 
         arrays = {k: o[:n_rows].cpu().numpy()
                   for k, o in zip(("lp", "u", "ts"), out)}
         self.store.save(key, arrays,
-                        meta={"mesh_shape": dict(SERIAL_MESH_SHAPE)},
+                        meta={"mesh_shape": mesh_shape_meta(self.mesh)},
                         compress=False)
 
 
@@ -495,13 +542,13 @@ class _LadderRecovery:
         return True
 
 
-def _wilcox_ckpt_for(store) -> Optional[_WilcoxCkpt]:
+def _wilcox_ckpt_for(store, mesh=None) -> Optional[_WilcoxCkpt]:
     """The ladder's checkpoint handle: a store present and the flag on."""
     from scconsensus_tpu_torch.config import env_flag
 
     if (store is not None and getattr(store, "enabled", False)
             and env_flag("SCC_ROBUST_DE_CKPT")):
-        return _WilcoxCkpt(store)
+        return _WilcoxCkpt(store, mesh=mesh)
     return None
 
 
@@ -512,6 +559,7 @@ def _run_wilcox(
     pair_j: np.ndarray,
     ladder: Optional[Dict] = None,
     ckpt: Optional[_WilcoxCkpt] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank-sum (log_p, u), each (P, G) on the matrix's device, through
     the window ladder (or full-width gene chunks when any value is
@@ -534,6 +582,11 @@ def _run_wilcox(
 
     ``ckpt``: an optional :class:`_WilcoxCkpt`; each finished bucket
     persists, and a bucket found in the store is loaded instead of run.
+
+    ``mesh``: an optional ``parallel.mesh.Mesh``; each bucket's (or
+    chunk's) gene rows shard across it through
+    ``sharded_allpairs_ranksum``, and full-width chunks are at least
+    8 genes a shard wide, as the reference plans them.
     """
     G, N = data.shape
     dev = data.device
@@ -544,6 +597,22 @@ def _run_wilcox(
     tpi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
     tpj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
     n1_pairs, n2_pairs = n_of[pair_i], n_of[pair_j]
+    gc = min(chunk_genes_for_budget(N, K), _next_pow2(G))
+    if mesh is not None:
+        from scconsensus_tpu_torch.parallel.sharded_de import (
+            sharded_allpairs_ranksum,
+        )
+
+        gc = max(gc, mesh.size * 8)
+    # live shard ids for the corruption rules' device pins: a rule
+    # modelling one bad device stops firing once the supervisor evicts it
+    live_dev_ids = list(mesh.ids) if mesh is not None else [0]
+
+    def _rank_sums(vals, kcid, window=0):
+        if mesh is not None:
+            return sharded_allpairs_ranksum(vals, kcid, tn, tpi, tpj, K,
+                                            mesh=mesh, window=window)
+        return ranksum_body(vals, kcid, tn, tpi, tpj, K, window=window)
 
     # O(G) ints to plan the ladder; the decomposition needs zeros as the
     # minimum, so any negative value sends every gene to full width
@@ -564,7 +633,8 @@ def _run_wilcox(
             route=route, windowed=bool(windowed),
             input=("sparse-chunked" if compact and not windowed
                    else "csr-compacted" if compact else "dense-device"),
-            kernel="scan", n_genes=int(G), n_cells=int(N),
+            kernel="mesh-scan" if mesh is not None else "scan",
+            n_genes=int(G), n_cells=int(N),
             n_clusters=int(K), buckets=buckets)
 
     def _audit(out, unit_key, unit, vals, cids, n_rows, full_rows):
@@ -572,7 +642,8 @@ def _run_wilcox(
         corruption site, the conservation check and, on the seeded
         sample unit, the float64 ghost replay. Inside the recovery
         context, so a detection recomputes the bucket."""
-        out = faults.corrupt_value("wilcox_bucket_out", out)
+        out = faults.corrupt_value("wilcox_bucket_out", out,
+                                   live_devices=live_dev_ids)
         if robust_integrity.enabled():
             robust_integrity.check_wilcox_bucket(
                 "wilcox_bucket", out[0], out[1], out[2],
@@ -617,7 +688,8 @@ def _run_wilcox(
             if ckpt is not None:
                 # content-addressed: a re-entry with other block bounds
                 # can only hit blocks holding exactly these genes
-                ck_key = ckpt.key(ids, weff, "scan")
+                ck_key = ckpt.key(ids, weff,
+                                  "mesh" if mesh is not None else "scan")
                 out = ckpt.load(ck_key, dev)
                 if out is not None:
                     parts.append((ids, out))
@@ -634,7 +706,7 @@ def _run_wilcox(
                         0, torch.as_tensor(ids, device=dev))
                     kcid = cid
                 out = _audit(
-                    ranksum_body(vals, kcid, tn, tpi, tpj, K, window=weff),
+                    _rank_sums(vals, kcid, window=weff),
                     int(w), f"window:{int(w)}", vals, kcid, int(ids.size),
                     full_rows=not compact)
                 real = int(nnz_sorted[g0:g1].sum())
@@ -669,12 +741,13 @@ def _run_wilcox(
         if ckpt is not None and ckpt.resumed:
             robust_record.note_resume_point(
                 "wilcox_test", "bucket", ckpt.resumed, len(parts))
+            # blocks written on a larger mesh: stamp the crossing
+            ckpt.note_transitions()
     else:
         # any negative value: full-width gene chunks (a CSR densifies one
         # chunk at a time on the device)
-        gc = min(chunk_genes_for_budget(N, K), _next_pow2(G))
         for g0, g1, chunk in row_chunks(data, gc):
-            out = _audit(ranksum_body(chunk, cid, tn, tpi, tpj, K),
+            out = _audit(_rank_sums(chunk, cid),
                          "chunk", f"chunk:{int(g0)}", chunk, cid,
                          int(g1 - g0), full_rows=True)
             parts.append((np.arange(g0, g1), out))
@@ -750,6 +823,7 @@ def pairwise_de(
     device=None,
     clock: Optional[StageClock] = None,
     store=None,
+    mesh=None,
 ) -> PairwiseDEResult:
     """Run the all-pairs DE test of ``config.method``: "wilcox" (the fast
     path), "wilcoxon" (the slow-path Wilcoxon), "edger", or the fast-path
@@ -761,7 +835,9 @@ def pairwise_de(
     on ``cuda`` unless ``device="cpu"``. ``store``: an optional
     ``ArtifactStore``; with one enabled (and ``SCC_ROBUST_DE_CKPT`` on)
     the Wilcoxon ladder persists each finished bucket, so a run killed
-    inside DE resumes from its finished buckets."""
+    inside DE resumes from its finished buckets. ``mesh``: an optional
+    ``parallel.mesh.Mesh`` across which the rank-sum tests (wilcox,
+    wilcoxon, roc) shard their gene rows."""
     dev = resolve_device(device)
     method = config.method.lower()
     if method not in _METHODS:
@@ -770,6 +846,10 @@ def pairwise_de(
             f"({', '.join(_METHODS)})"
         )
     fast = method in ("wilcox", "bimod", "t", "roc")
+    if mesh is not None:
+        from scconsensus_tpu_torch.parallel.mesh import require_mesh
+
+        mesh = require_mesh(mesh)
     clock = clock or StageClock(dev)
     data = as_device_matrix(data, dev)
     G, N = data.shape
@@ -912,7 +992,8 @@ def pairwise_de(
                 ladder = {}
                 log_p, u = _run_wilcox(data, cell_idx_of, pair_i, pair_j,
                                        ladder=ladder,
-                                       ckpt=_wilcox_ckpt_for(store))
+                                       ckpt=_wilcox_ckpt_for(store, mesh),
+                                       mesh=mesh)
                 if method == "roc":
                     # AUC and power from U over the post-subsampling
                     # groups; significance stays the rank-sum p

@@ -1,8 +1,8 @@
 """End-to-end refinement: ``refine()`` and the two entry points.
 
-The torch form of the dense, mesh-free branches of
-``scconsensus_tpu/models/pipeline.py`` (``ReclusterResult`` :44-59,
-``_refine_impl`` :342-717, ``recluster_de_consensus`` :797-833,
+The torch form of ``scconsensus_tpu/models/pipeline.py``
+(``ReclusterResult`` :44-59, ``refine`` :62-192, ``_refine_impl``
+:208-717, ``recluster_de_consensus`` :797-833,
 ``recluster_de_consensus_fast`` :836-871).
 
 Stages, each timed into ``result.metrics["stage_walls_s"]`` (on the card
@@ -94,9 +94,26 @@ that completes resets it to 0. Without ``artifact_dir`` nothing is read
 or written.
 
 A ``stream.ChunkedCSRStore`` routes to the out-of-core
-``streaming_refine`` (``scconsensus_tpu/models/pipeline.py:103-116``).
+``streaming_refine`` (``scconsensus_tpu/models/pipeline.py:103-116``),
+serially whatever the mesh, as the reference's runner does.
 
-Not ported yet, and raising ``NotImplementedError``: a mesh.
+The mesh (``parallel.mesh``): ``mesh="auto"`` (the default) resolves to a
+mesh over every visible card when the run is on ``cuda`` with two or
+more, and to None (the serial path) on one card or the CPU; an explicit
+``parallel.mesh.Mesh`` or None pins it. ``robust.elastic``'s supervisor
+owns it for the run (``SCC_ELASTIC``): every stage guard passes its
+device-loss hook, and each stage reads the supervisor's current mesh
+when it runs, so a ``device_lost`` failure re-enters the stage on the
+shrunk mesh. On a mesh the rank-sum tests shard their genes
+(``parallel.sharded_de``), the kNN graph of the kNN branch and of the
+landmark tree's kNN linkage comes from the ring, and the silhouette of
+every cut is the exact one, from one kernel pass over the embedding on
+shard 0's device (``ops.silhouette.mesh_multi_cut_silhouette``), also
+past ``approx_threshold``, where the serial path takes the pooled
+estimator. Stage artifacts,
+``de`` and the Wilcoxon blocks carry the mesh's ``mesh_shape`` stamp; a
+resume of artifacts written on a larger mesh stamps a ``cause:
+"resume"`` transition on ``metrics["robustness"]``.
 """
 
 from __future__ import annotations
@@ -134,6 +151,7 @@ from scconsensus_tpu_torch.ops.pooling import (
     pooled_ward_linkage,
 )
 from scconsensus_tpu_torch.ops.silhouette import (
+    mesh_multi_cut_silhouette,
     multi_cut_silhouette,
     pooled_multi_cut_silhouette,
 )
@@ -143,8 +161,9 @@ from scconsensus_tpu_torch.robust import integrity as robust_integrity
 from scconsensus_tpu_torch.robust import record as robust_record
 from scconsensus_tpu_torch.robust import retry as robust_retry
 from scconsensus_tpu_torch.robust.contract import preflight
+from scconsensus_tpu_torch.parallel.mesh import mesh_shape_meta
+from scconsensus_tpu_torch.robust.elastic import ElasticMeshSupervisor
 from scconsensus_tpu_torch.utils.artifacts import (
-    SERIAL_MESH_SHAPE,
     ArtifactStore,
     input_fingerprint,
 )
@@ -181,7 +200,7 @@ def refine(
     gene_names: Optional[Sequence[str]] = None,
     device=None,
     omega: Optional[torch.Tensor] = None,
-    mesh=None,
+    mesh="auto",
 ) -> ReclusterResult:
     """Full DE → embed → recluster refinement.
 
@@ -197,17 +216,17 @@ def refine(
       device: "cuda" by default; "cpu" only when asked for.
       omega: optional (F, k) random projection for the PCA embed (F = the
         DE-gene union size, k = min(n_pcs + 10, F, N)); see ``carry``.
-      mesh: must be None; the multi-device path is not ported yet.
+      mesh: "auto" (every visible card when the run is on ``cuda`` with
+        two or more, else the serial path), a ``parallel.mesh.Mesh``, or
+        None for the serial path. A mesh run equals the serial run
+        (``parallel.validate.assert_mesh_equals_serial``).
 
     See the module docstring for the branches past ``approx_threshold``,
-    the guard rails and the keys of ``result.metrics``.
+    the mesh, the guard rails and the keys of ``result.metrics``.
     """
-    if mesh is not None:
-        raise NotImplementedError("the multi-device (mesh) path is not "
-                                  "ported yet; pass mesh=None")
     # out-of-core routing: a disk-resident chunk store runs the whole
     # pipeline chunk at a time under the host-memory budget, with per-shard
-    # durable progress in config.artifact_dir (stream.runner)
+    # durable progress in config.artifact_dir (stream.runner), serially
     from scconsensus_tpu_torch.stream.store import ChunkedCSRStore
 
     if isinstance(data, ChunkedCSRStore):
@@ -228,7 +247,7 @@ def refine(
     tracer = obs_trace.Tracer(sync="off", sample_device=False)
     with tracer.span("refine", kind="run"):
         result = _refine_impl(data, labels, config, gene_names, dev, omega,
-                              tracer)
+                              tracer, mesh)
     rb_section = robust_record.section()
     if rb_section is not None:
         # absent on healthy unfaulted runs: absence is the healthy signal
@@ -240,7 +259,15 @@ def refine(
 
 
 def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
-                 omega, tracer) -> ReclusterResult:
+                 omega, tracer, mesh) -> ReclusterResult:
+    # the elastic supervisor owns the mesh ("auto", explicit or None);
+    # stages read _mesh() when they run, so a device_lost retry re-enters
+    # against the shrunk mesh (SCC_ELASTIC=0: the bare mesh, unsupervised)
+    supervisor, mesh = ElasticMeshSupervisor.resolve(mesh, dev)
+
+    def _mesh():
+        return supervisor.mesh if supervisor is not None else mesh
+
     # the matrix upload runs at the input_staging fault site
     data = as_device_matrix(data, dev)
     G, N = data.shape
@@ -248,6 +275,10 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
     # two pairable clusters fail here, typed, before any stage runs
     with robust_record.timed():
         preflight(data, labels, config)
+    if supervisor is not None:
+        # the sharded working set a shrink re-lays out (each transition's
+        # recovered_state_bytes)
+        supervisor.note_live_state(data)
     store = ArtifactStore(config.artifact_dir)
     run_log = robust_record.current_run()
     if store.enabled:
@@ -266,35 +297,54 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                                     meta={"budget_used": used}))
     clock = StageClock(dev)
 
+    def _guard(fn, site, degrade=None):
+        # a device_lost failure hands the supervisor the shrink before
+        # the retry; a serial run's hook finds no smaller mesh and says so
+        return robust_retry.call(
+            fn, site, degrade=degrade,
+            on_device_loss=(supervisor.loss_handler(site)
+                            if supervisor is not None else None))
+
+    def _shape():
+        return (supervisor.shape_meta() if supervisor is not None
+                else mesh_shape_meta(mesh))
+
     def _stage_cached(stage, fn):
-        return store.cached(stage, fn,
-                            meta_fn=lambda: {"mesh_shape": SERIAL_MESH_SHAPE})
+        # saves stamp the current mesh shape; a resume hands the stored
+        # stamp to the supervisor, which records a shrinking crossing
+        return store.cached(
+            stage, fn, meta_fn=lambda: {"mesh_shape": _shape()},
+            on_load_meta=(None if supervisor is None else
+                          lambda m: supervisor.note_artifact_meta(stage, m)))
 
     de_res = None
     if store.has("de"):
         try:
-            de_res = PairwiseDEResult.from_store(*store.load("de"),
+            de_arrays, de_meta = store.load("de")
+            if supervisor is not None:
+                supervisor.note_artifact_meta("de", de_meta)
+            de_res = PairwiseDEResult.from_store(de_arrays, de_meta,
                                                  device=dev)
         except ValueError:
             pass  # corrupt (already quarantined) or incomplete: recompute
     if de_res is None:
         with clock.stage("de"):
-            de_res = robust_retry.call(
+            de_res = _guard(
                 lambda: pairwise_de(data, labels, config, device=dev,
-                                    clock=clock, store=store),
+                                    clock=clock, store=store, mesh=_mesh()),
                 site="stage:de")
         if store.enabled:
             # the (P, G) fields to the host, compressed and checksummed
             with clock.stage("de_store"):
                 de_arrays, de_meta = de_res.to_store()
                 store.save("de", de_arrays,
-                           {**de_meta, "mesh_shape": SERIAL_MESH_SHAPE})
+                           {**de_meta, "mesh_shape": _shape()})
                 # the covering artifact landed: the ladder's mid-stage
                 # blocks have served their purpose
                 store.discard_prefix("de_wilcox_")
 
     with clock.stage("union"):
-        union = robust_retry.call(
+        union = _guard(
             lambda: _stage_cached("union", lambda: {
                 "idx": de_gene_union(de_res, config.n_top_de_genes)}),
             site="stage:union")["idx"]
@@ -348,11 +398,15 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                 "stage:embed", "evict-devcache",
                 "freed the caching allocator's blocks before PCA retry")
 
-        embedding = robust_retry.call(
+        embedding = _guard(
             lambda: _stage_cached("embed", _embed), site="stage:embed",
             degrade=_embed_degrade)["scores"]
         if scores is None:  # resumed: the stored scores, to the device
             scores = torch.from_numpy(embedding).to(dev)
+        if supervisor is not None:
+            # the embedding joins the sharded working set (the ring's kNN
+            # and silhouette take it on the mesh)
+            supervisor.note_live_state(data, embedding)
         if obs_quality.enabled():
             # a NaN/Inf score corrupts every distance, tree and cut below
             obs_quality.check_array("embedding", embedding, where="embed")
@@ -370,7 +424,8 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
 
         def _tree():
             if approx and config.approx_method == "knn":
-                t = knn_ward_linkage(scores, k=config.knn_graph_k)
+                t = knn_ward_linkage(scores, k=config.knn_graph_k,
+                                     mesh=_mesh())
                 return {"merge": t.merge, "height": t.height,
                         "order": t.order}
             if lm_policy is not None:
@@ -379,7 +434,7 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                     sketch=lm_policy["sketch"], seed=config.random_seed,
                     c=lm_policy["c"], k_min=lm_policy["k_min"],
                     k_max=lm_policy["k_max"], linkage=lm_policy["linkage"],
-                    knn_k=lm_policy["knn_k"],
+                    knn_k=lm_policy["knn_k"], mesh=_mesh(),
                 )
                 return {"merge": t.merge, "height": t.height,
                         "order": t.order, "pool_assign": assign,
@@ -400,7 +455,7 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
             t = ward_linkage(embedding)
             return {"merge": t.merge, "height": t.height, "order": t.order}
 
-        tree_arrays = robust_retry.call(
+        tree_arrays = _guard(
             lambda: _stage_cached("tree", _tree), site="stage:tree")
         tree = HClustTree(merge=tree_arrays["merge"],
                           height=tree_arrays["height"],
@@ -462,7 +517,7 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                 out[f"ds{dsv}"] = cut_labels
             return out
 
-        cut_arrays = robust_retry.call(
+        cut_arrays = _guard(
             lambda: _stage_cached("cuts", _cuts), site="stage:cuts")
         for dsv in config.deep_split_values:
             cut_labels = cut_arrays[f"ds{dsv}"]
@@ -511,39 +566,47 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                          dynamic_labels[f"deepsplit: {dsv}"], -1)
                 for dsv in config.deep_split_values
             ]
-            if approx:
-                # the exact pass is O(N²): past the threshold the pooled
-                # O(N·m) estimator prices neighbours at the tree stage's
-                # pool when there is one
-                sil_info = {
-                    "method": "pooled-estimator",
-                    "n_centroids": (int(pool_centroids.shape[0])
-                                    if pool_centroids is not None
-                                    else config.silhouette_pool_centroids),
-                    "pool_reused": pool_centroids is not None,
-                }
-            else:
-                sil_info = {"method": "exact"}
 
             def _silhouette():
+                # the mesh is read per attempt: a device_lost retry rides
+                # the shrunk mesh, or the serial branches once it is gone
+                nonlocal sil_info
+                mesh_now = _mesh()
+                if mesh_now is not None:
+                    # the exact widths of every cut from one kernel
+                    # pass, past the threshold too (the reference's rule)
+                    sil_info = {"method": "exact", "engine": "kernel",
+                                "n_shards": mesh_now.size}
+                    return mesh_multi_cut_silhouette(scores, labs, mesh_now)
                 if approx:
+                    # the exact pass is O(N²): past the threshold the
+                    # pooled O(N·m) estimator prices neighbours at the
+                    # tree stage's pool when there is one
+                    sil_info = {
+                        "method": "pooled-estimator",
+                        "n_centroids": (
+                            int(pool_centroids.shape[0])
+                            if pool_centroids is not None
+                            else config.silhouette_pool_centroids),
+                        "pool_reused": pool_centroids is not None,
+                    }
                     return pooled_multi_cut_silhouette(
                         scores, labs,
                         n_centroids=config.silhouette_pool_centroids,
                         seed=config.random_seed, centroids=pool_centroids,
                         assign=pool_assign, sample=config.silhouette_sample,
                     )
+                sil_info = {"method": "exact"}
                 return multi_cut_silhouette(scores, labs)
 
-            sils = robust_retry.call(_silhouette, site="stage:silhouette")
+            sils = _guard(_silhouette, site="stage:silhouette")
             for info, (si, _per) in zip(deep_split_info, sils):
                 info["silhouette"] = si
-                if approx:
+                if sil_info["method"] == "pooled-estimator":
                     info["silhouette_method"] = "pooled-estimator"
 
     with clock.stage("nodg"):
-        nodg = robust_retry.call(lambda: count_detected(data),
-                                 site="stage:nodg")
+        nodg = _guard(lambda: count_detected(data), site="stage:nodg")
 
     # quality telemetry: the DE gate funnel, the window ladder's
     # occupancy, the cluster structure against the input labeling and the
@@ -641,14 +704,15 @@ def recluster_de_consensus(
     compat: Optional[CompatFlags] = None,
     device=None,
     omega: Optional[torch.Tensor] = None,
-    mesh=None,
+    mesh="auto",
     **kw,
 ) -> ReclusterResult:
     """Reference-shaped slow path (R/reclusterDEConsensus.R:20-29).
 
     ``method``: "Wilcoxon" or "edgeR" (case as in the reference).
     ``fc_thrs`` is a ratio; the DE criterion uses its natural log.
-    ``device``: "cuda" by default. ``omega``: see ``refine``."""
+    ``device``: "cuda" by default. ``omega`` and ``mesh``: see
+    ``refine``."""
     m = {"wilcoxon": "wilcoxon", "edger": "edger"}.get(method.lower())
     if m is None:
         raise ValueError(
@@ -683,13 +747,13 @@ def recluster_de_consensus_fast(
     compat: Optional[CompatFlags] = None,
     device=None,
     omega: Optional[torch.Tensor] = None,
-    mesh=None,
+    mesh="auto",
     **kw,
 ) -> ReclusterResult:
     """Reference-shaped fast path (R/reclusterDEConsensusFast.R:22-33).
 
     ``method``: "wilcox", "bimod", "t" or "roc". ``device``: "cuda" by
-    default. ``omega``: see ``refine``."""
+    default. ``omega`` and ``mesh``: see ``refine``."""
     config = ReclusterConfig(
         method=method.lower(),
         q_val_thrs=q_val_thrs,

@@ -1,8 +1,8 @@
 """Approximate Ward.D2 linkage restricted to a kNN graph.
 
 A copy of ``scconsensus_tpu/ops/knn_linkage.py`` (:35-139). The graph's
-k nearest neighbours of every cell come from the device
-(``parallel.ring.ring_knn``); the host agglomerates, merging only
+k nearest neighbours of every cell come from the device, or from the
+mesh's ring (``parallel.ring.ring_knn``); the host agglomerates, merging only
 graph-adjacent clusters, cheapest first from a heap. Ward in centroid
 form is exact under merging,
 
@@ -41,8 +41,10 @@ def knn_ward_linkage(x, k: int = 15, mesh=None,
 
     ``x``: a numpy array (the kNN sweep runs on ``device``, the card by
     default) or a tensor (the sweep runs where it lies). ``weights``
-    treats rows as pre-merged clusters (the landmark path). ``mesh`` must
-    be None."""
+    treats rows as pre-merged clusters (the landmark path). ``mesh``: an
+    optional ``parallel.mesh.Mesh`` around which the kNN sweep's cell
+    blocks rotate (``parallel.ring.ring_knn``); the graph does not depend
+    on it away from distance ties."""
     pts = x if isinstance(x, torch.Tensor) else None
     x = np.ascontiguousarray(x.cpu().numpy() if pts is not None else x,
                              np.float64)

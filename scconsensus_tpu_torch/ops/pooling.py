@@ -226,12 +226,14 @@ def landmark_ward_linkage(x, n_landmarks: Optional[int] = None,
     """Landmark tree: occupancy-weighted Ward.D2 over the centroids of
     ``landmark_pool``, by the native NN-chain (``linkage="exact"``) or the
     kNN-graph agglomeration (``"knn"``, ``knn_k`` neighbours a landmark).
-    Returns (tree, assignment (N,), centroids, info). ``mesh`` must be
-    None: the multi-device path is not ported yet. ``charge``: see
-    ``landmark_pool``."""
+    Returns (tree, assignment (N,), centroids, info). ``mesh``: an
+    optional ``parallel.mesh.Mesh`` for the kNN linkage's ring sweep over
+    the landmarks (``"knn"`` only; the reference's :374-403).
+    ``charge``: see ``landmark_pool``."""
     if mesh is not None:
-        raise NotImplementedError("the multi-device (mesh) path is not "
-                                  "ported yet; pass mesh=None")
+        from scconsensus_tpu_torch.parallel.mesh import require_mesh
+
+        mesh = require_mesh(mesh)
     if linkage not in ("exact", "knn"):
         raise ValueError(
             f"landmark linkage must be 'exact' or 'knn', got {linkage!r}")
@@ -245,7 +247,7 @@ def landmark_ward_linkage(x, n_landmarks: Optional[int] = None,
         from scconsensus_tpu_torch.ops.knn_linkage import knn_ward_linkage
 
         tree = knn_ward_linkage(cent, k=knn_k, weights=counts,
-                                device=xd.device)
+                                device=xd.device, mesh=mesh)
     else:
         tree = ward_linkage(cent, weights=counts)
     info["linkage"] = linkage

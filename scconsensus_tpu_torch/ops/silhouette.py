@@ -9,6 +9,13 @@ plain version on the CPU); the N×N matrix never exists. The torch form of
 ``pooled_mean_cluster_silhouette`` (:225-233), ``_aggregate_widths``
 (:236) and ``mean_cluster_silhouette`` (:255-270).
 
+On a mesh (``mesh_multi_cut_silhouette``) the embedding, (N, d) with
+d ≤ 15 and so small beside the N² distance work, goes to shard 0's device
+and the kernel scores every cut in one pass. The reference's mesh instead
+runs its XLA ring once per cut; the port keeps that ring as
+``parallel.ring.sharded_silhouette_widths``, which gives the same widths
+(within 1e-4) without the kernel.
+
 Past ``approx_threshold`` the pipeline scores cuts with the pooled
 O(N·m) estimator instead: each cluster sum prices the other cells at
 their pool centroid. It runs on the device in row blocks of the (N, m)
@@ -36,6 +43,7 @@ __all__ = [
     "silhouette_widths",
     "mean_cluster_silhouette",
     "multi_cut_silhouette",
+    "mesh_multi_cut_silhouette",
     "pooled_multi_cut_silhouette",
     "pooled_mean_cluster_silhouette",
 ]
@@ -99,10 +107,12 @@ def silhouette_widths(x, labels, device=None) -> np.ndarray:
 def mean_cluster_silhouette(x, labels, device=None, mesh=None
                             ) -> Tuple[float, Dict[int, float]]:
     """Mean of the per-cluster average widths (the reference's reported
-    silhouette) and the per-cluster breakdown. ``mesh`` must be None."""
+    silhouette) and the per-cluster breakdown. With a ``mesh`` the sums
+    run on shard 0's device (``mesh_multi_cut_silhouette``)."""
     if mesh is not None:
-        raise NotImplementedError("the multi-device (mesh) path is not "
-                                  "ported yet; pass mesh=None")
+        if device is not None and not isinstance(x, torch.Tensor):
+            x = as_points(x, device)
+        return mesh_multi_cut_silhouette(x, [labels], mesh)[0]
     w = silhouette_widths(x, labels, device=device)
     return _aggregate_widths(w, np.asarray(labels))
 
@@ -152,6 +162,22 @@ def multi_cut_silhouette(x: torch.Tensor, labels_list) -> List[
             w[valid] = widths_from_cluster_sums(sums, counts, inv)
         out.append(_aggregate_widths(w, labels))
     return out
+
+
+def mesh_multi_cut_silhouette(x, labels_list, mesh) -> List[
+        Tuple[float, Dict[int, float]]]:
+    """``multi_cut_silhouette`` on a mesh: the exact silhouette of every
+    cut, also past ``approx_threshold`` (the reference's rule), from one
+    kernel pass on shard 0's device, where the embedding is moved (host
+    input goes there too). The fault site ``ring:distance_sums`` fires
+    here, where the reference's mesh silhouette runs its ring, so a
+    device-loss plan written for it recovers the same way."""
+    from scconsensus_tpu_torch.parallel.mesh import require_mesh
+    from scconsensus_tpu_torch.robust.faults import fault_point
+
+    mesh = require_mesh(mesh)
+    fault_point("ring:distance_sums")
+    return multi_cut_silhouette(as_points(x, mesh.devices[0]), labels_list)
 
 
 def pooled_multi_cut_silhouette(

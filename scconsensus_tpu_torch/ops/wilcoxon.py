@@ -5,9 +5,11 @@ continuity correction, batched over genes × cluster pairs, p-values in log
 space. Host path (``wilcoxon_exact_host``): R's exact branch (both n < 50,
 no ties) via the Gaussian-binomial counting DP behind ``pwilcox``.
 
-The torch form of ``scconsensus_tpu/ops/wilcoxon.py:37-68``
-(``jstats.norm.logcdf`` becomes ``torch.special.log_ndtr``) and a numpy
-copy of its exact branch (:101-137).
+The torch form of ``scconsensus_tpu/ops/wilcoxon.py:37-98``
+(``jstats.norm.logcdf`` becomes ``torch.special.log_ndtr``): the
+statistic from rank sums and the per-tile test over gathered pair cells
+(``wilcoxon_pairs_tile``); and a numpy copy of its exact branch
+(:101-137).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["wilcoxon_from_ranks", "wilcoxon_exact_host", "EXACT_N_LIMIT"]
+__all__ = ["wilcoxon_from_ranks", "wilcoxon_pairs_tile", "wilcoxon_exact_host",
+           "EXACT_N_LIMIT"]
 
 # R: exact branch iff n.x < 50 && n.y < 50 (and no ties).
 EXACT_N_LIMIT = 50
@@ -53,6 +56,41 @@ def wilcoxon_from_ranks(
     bad = (n1 < 1) | (n2 < 1) | (sigma <= 0.0)
     log_p = torch.where(bad, torch.full_like(log_p, float("nan")), log_p)
     return log_p, u
+
+
+def wilcoxon_pairs_tile(
+    data_chunk: torch.Tensor,  # (Gc, N) gene chunk of the matrix
+    idx: torch.Tensor,         # (B, W) each pair's gathered cells
+    m1: torch.Tensor,          # (B, W) group-1 membership of those cells
+    m2: torch.Tensor,
+    n1: torch.Tensor,          # (B,) group sizes
+    n2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rank-sum test for one (gene chunk × pair bucket) tile
+    (``scconsensus_tpu/ops/wilcoxon.py:71-98``): the body of the
+    gene-sharded ``parallel.sharded_de.sharded_wilcox_logp`` and of the
+    fused refine step, both reference-parity API off ``refine()``'s path
+    (the DE ladder takes ``ops.ranksum_allpairs``). Returns (log_p, u,
+    tie_sum), each (B, Gc)."""
+    from scconsensus_tpu_torch.ops.ranks import masked_midranks
+
+    dev = data_chunk.device
+    idx = torch.as_tensor(idx, device=dev).to(torch.int64)
+    m1 = torch.as_tensor(m1, device=dev).to(torch.bool)
+    m2 = torch.as_tensor(m2, device=dev).to(torch.bool)
+    vals = data_chunk[:, idx].transpose(0, 1)         # (B, Gc, W)
+    B, Gc, W = vals.shape
+    flat = vals.reshape(B * Gc, W)
+    flat_mask = (m1 | m2)[:, None, :].expand(B, Gc, W).reshape(B * Gc, W)
+    ranks, tie_sum = masked_midranks(flat, flat_mask)
+    ranks = ranks.reshape(B, Gc, W)
+    tie_sum = tie_sum.reshape(B, Gc)
+    rs1 = torch.sum(torch.where(m1[:, None, :], ranks,
+                                torch.zeros_like(ranks)), dim=-1)
+    n1 = torch.as_tensor(n1, device=dev)[:, None]
+    n2 = torch.as_tensor(n2, device=dev)[:, None]
+    log_p, u = wilcoxon_from_ranks(rs1, tie_sum, n1, n2)
+    return log_p, u, tie_sum
 
 
 @lru_cache(maxsize=512)

@@ -30,12 +30,12 @@ store's atomic replace; a torn chunk rides ``artifact:stream_chunk``),
 the in-computation corruption sites consumed by :func:`corrupt_value`
 (``wilcox_bucket_out``, ``embed_scores``, ``bh_logq``,
 ``landmark_assign``, ``stream_block``, ``contingency_table``,
-``serve_classify``), and any site a caller names to
-``robust.retry.call``.
+``serve_classify``), the mesh engines' sites (``sharded:aggregates``,
+``sharded:ranksum``, ``ring:distance_sums`` and the fused step's
+``refine_step``), and any site a caller names to ``robust.retry.call``.
 
 A plan naming a site of the reference the port does not have yet raises
-``NotImplementedError`` when it is read: ``refine_step``, the mesh
-engines' ``sharded:*`` and ``ring:*``, and the serving fleet's
+``NotImplementedError`` when it is read: the serving fleet's
 ``wire_request`` and ``fleet_*``.
 
 Fault classes and what they do at a compute site:
@@ -58,7 +58,9 @@ Fault classes and what they do at a compute site:
              (scale, sign flip of the largest entry, index shift), the
              reference's, so both packages corrupt the same positions.
              ``robust.integrity`` must detect each one and recompute
-             the unit.
+             the unit. A rule with ``"device": D`` only fires while
+             shard D is in the caller's live mesh: a device that
+             computes wrong until the elastic supervisor evicts it.
 
 With ``SCC_FAULT_PLAN`` unset every entry point is one registry lookup.
 """
@@ -119,8 +121,8 @@ class InjectedDiskFault(InjectedFault):
 
 # sites of the reference the port does not have yet: a plan naming one is
 # refused when read, so a chaos run cannot pass by injecting nowhere
-_UNPORTED_PREFIXES = ("sharded:", "ring:", "fleet_")
-_UNPORTED_SITES = ("refine_step", "wire_request")
+_UNPORTED_PREFIXES = ("fleet_",)
+_UNPORTED_SITES = ("wire_request",)
 # the in-computation corruption sites the port has
 _VALUE_SITES = ("wilcox_bucket_out", "embed_scores", "bh_logq",
                 "landmark_assign", "stream_block", "contingency_table",
@@ -137,7 +139,9 @@ def _check_site(path: str, i: int, rule: Dict[str, Any]) -> None:
             f"(class {rule['class']!r}), which the port does not have "
             "yet; it has stage:<name>, wilcox_bucket, input_staging, "
             "serve_load, serve_batch, serve_device, stream_chunk_write, "
-            "stream_chunk_read, stream_stage, artifact:<stage> and "
+            "stream_chunk_read, stream_stage, sharded:aggregates, "
+            "sharded:ranksum, ring:distance_sums, refine_step, "
+            "artifact:<stage> and "
             f"the corruption sites {', '.join(_VALUE_SITES)}"
         )
 
@@ -346,13 +350,16 @@ def _perturb_one(x, mode: str, factor: float):
     return flat.reshape(x.shape)
 
 
-def corrupt_value(site: str, value):
+def corrupt_value(site: str, value, live_devices=None):
     """Apply any ``corruption``-class rule at an in-computation ``site``
     to freshly computed values. ``value`` is one array (numpy or tensor)
     or a tuple of them; the first is perturbed (rule key ``"index"``
-    picks another). Returns the same structure. The reference's
-    ``live_devices`` pin (``"device": D``) belongs to the mesh, which is
-    not ported. No plan: one registry lookup and return."""
+    picks another). Returns the same structure.
+
+    ``live_devices``: the caller's current mesh shard ids. A rule
+    carrying ``"device": D`` fires only while D is live, so an evicted
+    device stops corrupting; rules without a pin always fire in their
+    window. No plan: one registry lookup and return."""
     rules = [(i, r) for i, r in _matches(site)
              if r.get("class") == "corruption"]
     if not rules:
@@ -360,7 +367,15 @@ def corrupt_value(site: str, value):
     from scconsensus_tpu_torch.robust import record as _record
 
     firing = [(idx, rule) for idx, rule in rules if _fire(idx, rule)]
-    for idx, rule in firing[:1]:
+
+    def _live(rule) -> bool:
+        dev = rule.get("device")
+        return (dev is None or live_devices is None
+                or int(dev) in [int(d) for d in live_devices])
+
+    # the liveness gate filters before one rule is picked: a rule pinned
+    # to an evicted device goes clean without masking an unpinned rule
+    for idx, rule in [fr for fr in firing if _live(fr[1])][:1]:
         _record.note_fault(site, "corruption", seq=_HITS[idx] - 1)
         mode = rule.get("mode", "scale")
         factor = float(rule.get("factor", 1.5))

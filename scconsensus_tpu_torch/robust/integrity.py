@@ -395,7 +395,10 @@ def _settle(check: str, site: str, residual: float,
 
 def should_evict(site: str) -> bool:
     """True when ``site`` accumulated SCC_INTEGRITY_EVICT_THRESHOLD
-    consecutive silent-corruption detections."""
+    consecutive silent-corruption detections: the retry policy escalates
+    to its device-loss hook (the elastic supervisor's mesh shrink)
+    instead of another recompute on the same mesh, so a device that
+    computes wrong is evicted like one that died."""
     thr = max(int(env_flag("SCC_INTEGRITY_EVICT_THRESHOLD")), 1)
     return current().site_streak(site) >= thr
 

@@ -29,9 +29,11 @@ driver's breaker answers with flagged degraded serving.
 ``robust.integrity``'s typed errors classify as ``silent_corruption``
 by type. A site that keeps miscomputing past
 ``SCC_INTEGRITY_EVICT_THRESHOLD`` runs the caller's device-loss hook
-before the recompute; the port's callers pass none (there is no mesh to
-shrink), so the recompute ladder goes on. ``KeyboardInterrupt`` and
-``SystemExit`` are never caught.
+before the recompute: ``refine()``'s stage guards pass the elastic
+supervisor's ``loss_handler`` (``robust.elastic``), which shrinks the
+mesh off the suspect shard; a serial run has no smaller mesh, which the
+hook reports (``eviction-unavailable``), and the recompute ladder goes
+on. ``KeyboardInterrupt`` and ``SystemExit`` are never caught.
 """
 
 from __future__ import annotations

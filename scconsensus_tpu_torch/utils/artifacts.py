@@ -55,9 +55,8 @@ __all__ = ["ArtifactStore", "ArtifactCorrupt", "input_fingerprint",
            "config_fingerprint", "file_sha256", "quarantine_files",
            "SERIAL_MESH_SHAPE"]
 
-# the mesh stamp on every stage and checkpoint sidecar: the reference's
-# serial-run shape (scconsensus_tpu/parallel/mesh.py mesh_shape_meta(None));
-# the port runs on one device
+# the serial run's mesh stamp (parallel.mesh.mesh_shape_meta(None), the
+# reference's JSON); refine()'s stages stamp the supervisor's live shape
 SERIAL_MESH_SHAPE = {"n_devices": 1, "device_ids": [0], "axis": "cells",
                      "platform": None}
 
@@ -430,14 +429,21 @@ class ArtifactStore:
         return n
 
     def cached(self, stage: str, fn: Callable[[], Dict[str, np.ndarray]],
-               meta_fn: Optional[Callable[[], Dict[str, Any]]] = None):
+               meta_fn: Optional[Callable[[], Dict[str, Any]]] = None,
+               on_load_meta: Optional[Callable[[Dict[str, Any]], Any]]
+               = None):
         """Run ``fn`` (returning a dict of arrays) unless ``stage`` already
         has a saved artifact, in which case load and return it. A corrupt
         stored artifact has been quarantined by ``load``: fall through and
-        recompute. ``meta_fn()`` gives the sidecar of a computed stage."""
+        recompute. ``meta_fn()`` gives the sidecar of a computed stage;
+        ``on_load_meta(meta)`` sees the stored sidecar of a resumed one
+        (the elastic supervisor reads its ``mesh_shape`` stamp there)."""
         if self.has(stage):
             try:
-                return self.load(stage)[0]
+                arrays, meta = self.load(stage)
+                if on_load_meta is not None:
+                    on_load_meta(meta)
+                return arrays
             except ArtifactCorrupt:
                 pass  # quarantined inside load(); recompute below
         arrays = fn()

@@ -122,7 +122,8 @@ def test_ring_knn_block_size_does_not_change_the_result():
 
 def test_ring_knn_refuses_what_it_cannot_do():
     x = _blobs(50, seed=1)
-    with pytest.raises(NotImplementedError):
+    # "auto" is refine()'s policy; the ring takes a parallel.mesh.Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         ring_knn(x, 3, mesh="auto", device="cpu")
     with pytest.raises(ValueError):
         ring_knn(x, 50, device="cpu")
@@ -161,18 +162,20 @@ def test_knn_ward_linkage_finishes_disconnected_components():
 
 
 def test_knn_branch_refuses_a_mesh():
+    # a mesh that is not one: the linkage takes a parallel.mesh.Mesh, and
+    # refine() knows "auto", a Mesh and None
     x = _blobs(40, seed=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         knn_ward_linkage(x, k=3, mesh="auto", device="cpu")
     from scconsensus_tpu_torch.utils.synthetic import synthetic_scrna
 
     data, truth, _ = synthetic_scrna(n_genes=120, n_cells=240, n_clusters=3,
                                      seed=3)
     labels = [f"c{v}" for v in truth]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         recluster_de_consensus_fast(data, labels, approx_threshold=100,
                                     approx_method="knn", device="cpu",
-                                    mesh="auto")
+                                    mesh="everywhere")
     with pytest.raises(ValueError, match="approx_method"):
         recluster_de_consensus_fast(data, labels, approx_method="tree",
                                     device="cpu")

@@ -197,6 +197,7 @@ def test_centroid_majority_labels_equal_the_reference(seed):
 
 
 def test_mesh_raises():
+    # the landmark tree takes a parallel.mesh.Mesh; "auto" is refine()'s
     x, _ = _blobs(600, seed=6)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         port.landmark_ward_linkage(x, device="cpu", mesh="auto")

@@ -83,7 +83,7 @@ def test_the_slice_registers_every_flag_it_reads():
              "SCC_INTEGRITY", "SCC_OBS_TRACE", "SCC_STAGE_SYNC",
              "SCC_TRACE_SYNC", "SCC_ROBUST_DE_CKPT",
              "SCC_INTEGRITY_TOL_SCALE", "SCC_INTEGRITY_EVICT_THRESHOLD",
-             "SCC_OBS_NUMERIC"}
+             "SCC_OBS_NUMERIC", "SCC_ELASTIC", "SCC_ELASTIC_MIN_DEVICES"}
     assert set(PORT_FLAGS) == want
 
 
@@ -372,11 +372,35 @@ def test_kill_class_sigkills_the_process(tmp_path):
     assert "survived" not in out.stdout
 
 
+_MESH_SITE_RULES = [
+    ({"site": "refine_step", "class": "oom"},
+     ref_faults.InjectedResourceExhausted, faults.InjectedResourceExhausted),
+    ({"site": "sharded:ranksum", "class": "transient"},
+     ref_faults.InjectedTransientError, faults.InjectedTransientError),
+    ({"site": "sharded:aggregates", "class": "device_loss"},
+     ref_faults.InjectedDeviceLoss, faults.InjectedDeviceLoss),
+    ({"site": "ring:distance_sums", "class": "oom"},
+     ref_faults.InjectedResourceExhausted, faults.InjectedResourceExhausted),
+]
+
+
+@pytest.mark.parametrize("rule,ref_exc,exc", _MESH_SITE_RULES,
+                         ids=[f"{r['site']}-{r['class']}"
+                              for r, _, _ in _MESH_SITE_RULES])
+def test_a_plan_naming_a_mesh_site_fires_as_in_the_reference(
+        tmp_path, monkeypatch, rule, ref_exc, exc):
+    """The mesh engines' sites are the port's now: a plan naming one is
+    read, and the site fires the rule's class, as in the reference."""
+    _plan(tmp_path, [rule], monkeypatch)
+    faults.fault_point("serve_batch")       # another site: no action
+    ref_faults.fault_point("serve_batch")
+    with pytest.raises(ref_exc):
+        ref_faults.fault_point(rule["site"])
+    with pytest.raises(exc):
+        faults.fault_point(rule["site"])
+
+
 @pytest.mark.parametrize("rule", [
-    {"site": "refine_step", "class": "oom"},
-    {"site": "sharded:ranksum", "class": "transient"},
-    {"site": "sharded:aggregates", "class": "device_loss"},
-    {"site": "ring:distance_sums", "class": "oom"},
     {"site": "fleet_swap", "class": "disk"},
     {"site": "wire_request", "class": "transient"},
     {"site": "fleet_route", "class": "oom"},

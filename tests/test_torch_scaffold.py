@@ -65,6 +65,12 @@ def test_port_runs_with_jax_and_reference_blocked():
         res = port.refine(data, [f"c{{v}}" for v in truth],
                           port.ReclusterConfig(), device="cpu")
         assert res.embedding.shape[0] == 240
+        # the mesh path too: two shards on the CPU
+        from scconsensus_tpu_torch.parallel import make_mesh
+        on_mesh = port.refine(data, [f"c{{v}}" for v in truth],
+                              port.ReclusterConfig(), device="cpu",
+                              mesh=make_mesh(2, device="cpu"))
+        assert on_mesh.metrics["wilcox_ladder"]["kernel"] == "mesh-scan"
         # the serving path too: export, load, serve
         import tempfile
         d = tempfile.mkdtemp()
@@ -102,10 +108,10 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
                    if os.path.exists(os.path.join(root, d, "__init__.py"))]
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
-    # the serving path, the robustness core and the streaming layer are in
-    # the scan
+    # the serving path, the robustness core, the streaming layer and the
+    # mesh are in the scan
     rel = {os.path.relpath(p, PORT_DIR) for p in files}
-    for sub in ("serve", "robust", "obs", "stream"):
+    for sub in ("serve", "robust", "obs", "stream", "parallel"):
         mods = {os.path.join(sub, n) for n in
                 os.listdir(os.path.join(PORT_DIR, sub)) if n.endswith(".py")}
         assert mods and mods <= rel, sub
@@ -113,7 +119,9 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
             "robust/faults.py", "robust/retry.py", "robust/record.py",
             "obs/trace.py", "obs/device.py", "obs/residency.py",
             "stream/budget.py", "stream/record.py", "stream/runner.py",
-            "stream/soak.py", "stream/store.py"} <= rel
+            "stream/soak.py", "stream/store.py", "robust/elastic.py",
+            "parallel/mesh.py", "parallel/sharded_de.py", "parallel/ring.py",
+            "parallel/step.py", "parallel/validate.py", "ops/ranks.py"} <= rel
     bad = [
         f"{os.path.relpath(p, REPO)}:{line} imports {mod}"
         for p in files for mod, line in _imported_roots(p)
@@ -196,10 +204,8 @@ def test_config_round_trips_from_the_reference_json():
         config_from_reference('{"not_a_field": 1}')
 
 
-@pytest.mark.parametrize("case", ["method", "sparse_method", "mesh",
-                                  "ring_mesh", "knn_mesh", "refine_step",
-                                  "fleet_route", "sharded:ranksum",
-                                  "annotate"])
+@pytest.mark.parametrize("case", ["method", "sparse_method", "fleet_route",
+                                  "fleet_swap", "wire_request", "annotate"])
 def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     import json
 
@@ -230,21 +236,14 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
         # "mast" is a method the reference refuses as well
         "method": lambda: port.refine(
             data, labels, ReclusterConfig(method="mast"), device="cpu"),
-        "ring_mesh": lambda: ring_knn(data.T, 5, mesh="auto", device="cpu"),
-        "knn_mesh": lambda: port.refine(
-            data, labels, ReclusterConfig(approx_threshold=100,
-                                          approx_method="knn"),
-            device="cpu", mesh="auto"),
         "sparse_method": lambda: port.refine(
             sp.csr_matrix(data), labels, ReclusterConfig(method="mast"),
             device="cpu"),
-        "mesh": lambda: port.recluster_de_consensus_fast(
-            data, labels, device="cpu", mesh="auto"),
-        # the mesh's step and the serving fleet are not ported: their
-        # fault sites are refused
-        "refine_step": _plan_naming("refine_step"),
+        # the serving fleet and its wire front are not ported: their fault
+        # sites are refused (the hot-swap's among them)
         "fleet_route": _plan_naming("fleet_route"),
-        "sharded:ranksum": _plan_naming("sharded:ranksum"),
+        "fleet_swap": _plan_naming("fleet_swap"),
+        "wire_request": _plan_naming("wire_request"),
         # the profiler-annotate mode is a jax.profiler call in the reference
         "annotate": lambda: Tracer(annotate=True),
     }[case]
