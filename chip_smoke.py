@@ -154,13 +154,37 @@ checkout, and exits non-zero on the first phase that fails:
      4-shard ladder, resumed on 2 shards; every run held to phase 26's
      labels, union and DE mask, its transitions validated; the
      robustness layer under 2 % of the healthy mesh runs' wall, best
-     of 2.
+     of 2;
+ 28. the reference's test oracles on the card at phase 4's data: the
+     direct per-pair NB engine (``de/edger_direct.py``) against
+     ``pairwise_de(method="edger")`` at the reference's parity bars, in
+     count scale and in compat mode; ``cutree_hybrid_direct`` against
+     ``cutree_hybrid`` for deepSplit 0-4 on a card run's tree;
+     ``rank_sum_groups`` card against CPU (rank sums bit for bit, tie
+     sums within 1e-6 relative);
+ 29. phase 7's run again with ``SCC_TRACE_DIR`` and ``SCC_OBS_KERNELS``
+     pointing under ``OUT_DIR/phase29/``: phase 7's bits, the
+     exported ``run_record.json`` and ``trace.json`` (one X event a span)
+     and the ``kernels`` section validated, the ``.cu``'s kernels under
+     span ``silhouette`` with as many sweeps as the launch counter and
+     the wrapper's plan give; the top kernels, the card's busy share by
+     the profiler, the sweep's profiler time beside phase 7's CUDA-event
+     time, the wall beside phase 7's and the trace's bytes printed;
+ 30. the integrity-soak worker (``python -m
+     scconsensus_tpu_torch.robust.soak``) in five fresh processes from
+     the launcher: the default shape, ``--stream`` at the default host
+     budget, ``--stream --stream-window 16``, ``--mesh 8`` and
+     ``--device cpu``; each exits 0 with a validated run record, all
+     with one ``labels_sha``.
 
-Phases run in the order 1–5, 12, 15, 20, 25, 6–8, 13, 19, 16–18, 21, 26,
-27, 9–11, 14, 22–24, so that the 26k data serves phases 7–8, 13, 19,
-16–18, 21, 26 and 27 (phase 19 while phase 7's result is alive) and is
-freed before the larger ones; the line before the kernel record gives
-the total time.
+Phases 19 and 22 also validate the run records of the serve and stream
+soak workers' summaries.
+
+Phases run in the order 1–5, 12, 15, 20, 25, 28, 6–8, 13, 19, 16–18,
+21, 26, 27, 29, 9–11, 14, 22–24, 30, so that the 26k data serves phases
+7–8, 13, 19, 16–18, 21, 26, 27 and 29 (phase 19 while phase 7's result
+is alive) and is freed before the larger ones; the line before the
+kernel record gives the total time.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -186,6 +210,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 KERNEL_RTOL = 1e-4           # of the largest |sum|; see _measure_kernel
+# files the script keeps (phase 29's run record, trace and kernel
+# capture): the checkout's git-ignored output directory
+OUT_DIR = os.path.join(REPO, "chiprun_out")
 
 
 def log(*a) -> None:
@@ -1849,9 +1876,31 @@ def phase_serve(data, res) -> int:
         _serve_audited(model, data, root)
         log(f"[serve] peak device memory {torch.cuda.max_memory_allocated()}"
             " bytes")
+        _serve_soak_record(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+def _serve_soak_record(root: str) -> None:
+    """The serve soak worker's run on the card (its demo model, 24
+    requests of 16 cells from 4 clients): every request resolved, and
+    the summary's run record, with its ``serving`` section, validates."""
+    from scconsensus_tpu_torch.obs.export import validate_run_record
+    from scconsensus_tpu_torch.serve.soak import run_soak
+
+    t0 = time.perf_counter()
+    summary = run_soak(os.path.join(root, "soak-model"), device="cuda")
+    validate_run_record(summary["record"])
+    if not summary["ok"]:
+        raise AssertionError("[serve-soak] a request was not resolved")
+    sv = summary["record"]["serving"]
+    log(f"[serve-soak] {summary['requests']} requests in "
+        f"{time.perf_counter() - t0!r} s (model built "
+        f"{summary['model_built']}); outcomes "
+        f"{json.dumps(summary['outcome_counts'])}; p99 "
+        f"{(sv.get('latency_ms') or {}).get('p99')!r} ms; run record "
+        "validates")
 
 
 def _serve_audited(model, data, root: str) -> None:
@@ -2682,11 +2731,12 @@ STREAM_SCALE_CELLS = 500_000
 MB = float(1 << 20)
 # On the card's machine ``import torch`` and CUDA init leave 4.8 GB
 # resident, above the 4,096 MB default host budget before any streaming
-# starts. The correctness runs of phases 22-23 (in this long-lived process
-# and in the soak children) therefore run with the roomy budget the
-# reference's own suite gives its in-process runs (tests/test_stream.py:
-# 28-36), here 64 GB; phase 24 keeps the default 4,096 MB on top of its
-# child's measured baseline.
+# starts; the accountant takes the budget over the RSS it finds when it is
+# built (stream/budget.py), so phase 24's child and phase 30's worker run
+# at the default. The correctness runs of phases 22-23 run in this
+# long-lived process, whose peak includes every earlier phase, with the
+# roomy budget the reference's own suite gives its in-process runs
+# (tests/test_stream.py:28-36), here 64 GB.
 STREAM_ROOMY_HOST_MB = "65536"
 
 
@@ -2838,6 +2888,16 @@ def _soak_result(tag: str, proc, workdir: str):
     log(f"[{tag}] exit {proc.returncode}; {json.dumps(brief)}")
     if summary is None and proc.returncode != -9:
         log(f"[{tag}] stderr {err[-1500:]}")
+    if summary is not None:
+        # the summary carries the worker's whole run record
+        from scconsensus_tpu_torch.obs.export import validate_run_record
+
+        rec = summary["record"]
+        validate_run_record(rec)
+        sections = sorted(k for k in ("streaming", "robustness",
+                                      "integrity") if k in rec)
+        log(f"[{tag}] run record validates: {len(rec['spans'])} spans, "
+            f"sections {sections}")
     return proc.returncode, summary
 
 
@@ -2942,9 +3002,9 @@ def phase_stream_small() -> int:
                 raise AssertionError("[soak-torn] the torn chunk was not "
                                      "quarantined and recomputed")
             s = out["disk"][1]
-            disk = [r for r in (s or {}).get("robustness", {}).get(
-                "retries", [])
-                if r["error_class"] == "disk" and r["recovered"]]
+            rb = ((s or {}).get("record") or {}).get("robustness") or {}
+            disk = [r for r in rb.get("retries", [])
+                    if r["error_class"] == "disk" and r["recovered"]]
             if not (s and s["ok"] and s["labels_sha"] == sha
                     and s["ckpt_final"] > 1 and len(disk) == 2):
                 raise AssertionError("[soak-disk] the disk faults were not "
@@ -3104,9 +3164,9 @@ def stream_scale_child(root: str, n_cells: int) -> int:
     baseline_mb = host_peak_rss_bytes() / MB
     budget_mb = float(env_flag("SCC_STREAM_HOST_BUDGET_MB")) + baseline_mb
     log(f"[stream-scale] child baseline_rss_mb {host_rss_bytes() / MB!r} "
-        f"(peak {baseline_mb!r}) after import torch and CUDA init; host "
-        f"budget {budget_mb!r} MB: the default "
-        f"{env_flag('SCC_STREAM_HOST_BUDGET_MB')} MB on top of that peak")
+        f"(peak {baseline_mb!r}) after import torch and CUDA init; the "
+        f"default accountant's bound about {budget_mb!r} MB: the default "
+        f"{env_flag('SCC_STREAM_HOST_BUDGET_MB')} MB over its baseline")
     b = BRAIN10M
     window = int(env_flag("SCC_STREAM_WINDOW"))
     gen = chunk_generator(b["n_genes"], n_cells, b["n_clusters"],
@@ -3118,7 +3178,7 @@ def stream_scale_child(root: str, n_cells: int) -> int:
            "baseline_peak_rss_mb": baseline_mb, "host_budget_mb": budget_mb}
     for tag in ("cold", "steady"):
         ChunkedCSRStore.create(chunks, b["n_genes"], n_cells, window)
-        acct = HostBudgetAccountant(budget_mb=budget_mb)
+        acct = HostBudgetAccountant()
         res, launches = _stream_run(
             f"stream-scale-{tag}", chunks, labels, cfg,
             os.path.join(root, f"stages-{tag}"), gen, accountant=acct)
@@ -3274,6 +3334,336 @@ def phase_stream_scale(launcher) -> int:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phases 28-30: the oracles, the run record with the kernel capture, the
+# soak workers
+# --------------------------------------------------------------------------
+
+# the reference's statistical parity bars between the production edgeR
+# engine and the direct per-pair oracle (tests/test_edger_parity.py:
+# 53-84, 130-165): common dispersion within a factor of 2, tagwise
+# dispersions log-correlated above 0.6, log p Spearman above 0.95 per pair,
+# DE calls at log(0.01 / G) agreeing on more than 95 % of entries, planted
+# fold changes (|log fc| > log 2) within a median 0.2
+EDGER_ORACLE_BARS = dict(common_ratio=(0.5, 2.0), tagwise_corr=0.6,
+                         spearman=0.95, agree=0.95, logfc_median=0.2)
+
+
+def _edger_oracle_bars(tag: str, new, old, hold_tagwise: bool) -> dict:
+    """The parity bars between ``new`` (the engine: tensors) and ``old``
+    (the oracle: host arrays), logged and asserted."""
+    from scipy.stats import spearmanr
+
+    b = EDGER_ORACLE_BARS
+    cd = new["common"]
+    ratio = cd / np.maximum(old.common_disp, 1e-8)
+    lt_new = np.log(np.maximum(new["tagwise"], 1e-8)).ravel()
+    lt_old = np.log(np.maximum(old.tagwise_disp, 1e-8)).ravel()
+    m = np.isfinite(lt_new) & np.isfinite(lt_old)
+    corr = float(np.corrcoef(lt_new[m], lt_old[m])[0, 1])
+    lp = new["log_p"]
+    rhos = []
+    for p in range(lp.shape[0]):
+        m = np.isfinite(lp[p]) & np.isfinite(old.log_p[p])
+        rhos.append(float(spearmanr(lp[p][m], old.log_p[p][m]).statistic))
+    thr = np.log(0.01 / lp.shape[1])
+    agree = float(np.nanmean((lp < thr) == (old.log_p < thr)))
+    fc = new["log_fc"]
+    m = np.isfinite(fc) & np.isfinite(old.log_fc)
+    big = m & (np.abs(old.log_fc) > np.log(2.0))
+    fc_med = float(np.median(np.abs(fc[big] - old.log_fc[big])))
+    got = {"common_ratio": [float(ratio.min()), float(ratio.max())],
+           "tagwise_corr": corr, "spearman_min": min(rhos),
+           "agree": agree, "logfc_median": fc_med,
+           "planted_entries": int(big.sum())}
+    log(f"[oracles] {tag}: " + json.dumps(got))
+    ok = (b["common_ratio"][0] < got["common_ratio"][0]
+          and got["common_ratio"][1] < b["common_ratio"][1]
+          and got["spearman_min"] > b["spearman"] and agree > b["agree"]
+          and fc_med < b["logfc_median"]
+          and (corr > b["tagwise_corr"] or not hold_tagwise))
+    if not ok:
+        raise AssertionError(f"[oracles] {tag}: past the reference's bars "
+                             f"{json.dumps(b)}")
+    return got
+
+
+def phase_oracles() -> None:
+    """Phase 28: the reference's test oracles on the card at phase 4's
+    2,000 × 800 × 4 data: the direct per-pair NB engine against
+    ``pairwise_de(method="edger")``, the naive cut twin against
+    ``cutree_hybrid`` for every deepSplit, ``rank_sum_groups`` card
+    against CPU."""
+    import torch
+
+    from scconsensus_tpu_torch import ReclusterConfig, refine
+    from scconsensus_tpu_torch.config import CompatFlags
+    from scconsensus_tpu_torch.de.edger_direct import (
+        _bucket_pairs,
+        run_edger_pairs,
+    )
+    from scconsensus_tpu_torch.de.engine import filter_clusters, pairwise_de
+    from scconsensus_tpu_torch.ops.ranks import rank_sum_groups
+    from scconsensus_tpu_torch.ops.treecut import cutree_hybrid
+    from scconsensus_tpu_torch.ops.treecut_direct import cutree_hybrid_direct
+
+    data, cons = _small_data()
+    G = data.shape[0]
+    names, cell_idx = filter_clusters(cons, 10)
+    groups = [np.nonzero(cell_idx == k)[0].astype(np.int32)
+              for k in range(len(names))]
+    pi, pj = (a.astype(np.int32) for a in np.triu_indices(len(names), 1))
+    # count scale holds every bar; in compat mode the "counts" are
+    # log-normalized values whose tagwise dispersions sit on the grid's
+    # floor in both engines, so their correlation is no measure there
+    for log_counts in (False, True):
+        tag = "edger-compat" if log_counts else "edger-countscale"
+        cfg = ReclusterConfig(method="edger", compat=CompatFlags(
+            edger_log_counts=log_counts))
+        t0 = time.perf_counter()
+        de = pairwise_de(data, cons, cfg, device="cuda")
+        torch.cuda.synchronize()
+        t_engine = time.perf_counter() - t0
+        counts = torch.from_numpy(data if log_counts else np.expm1(data))
+        t0 = time.perf_counter()
+        old = run_edger_pairs(counts.cuda(), _bucket_pairs(groups, pi, pj),
+                              G, int(pi.size))
+        t_oracle = time.perf_counter() - t0
+        log(f"[oracles] {tag}: {pi.size} pairs; engine {t_engine!r} s, "
+            f"direct oracle {t_oracle!r} s on the card")
+        _edger_oracle_bars(tag, {
+            "common": de.aux["common_dispersion"].cpu().numpy(),
+            "tagwise": de.aux["tagwise_dispersion"].cpu().numpy(),
+            "log_p": de.log_p.cpu().numpy(),
+            "log_fc": de.log_fc.cpu().numpy()}, old,
+            hold_tagwise=not log_counts)
+
+    res = refine(data, cons, ReclusterConfig(), device="cuda")
+    t0 = time.perf_counter()
+    for ds in range(5):
+        kw = dict(deep_split=ds, min_cluster_size=10)
+        a = cutree_hybrid(res.cell_tree, res.embedding, **kw)
+        b = cutree_hybrid_direct(res.cell_tree, res.embedding, **kw)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"[oracles] deepSplit {ds}: the naive cut "
+                                 "differs from cutree_hybrid")
+    log(f"[oracles] cutree_hybrid_direct = cutree_hybrid on the card run's "
+        f"tree (2,000 cells) for deepSplit 0-4 in "
+        f"{time.perf_counter() - t0!r} s")
+
+    # pair (0, 1)'s cells across every gene: ties at zero throughout
+    cells = np.concatenate([groups[0], groups[1]])
+    x = torch.from_numpy(np.ascontiguousarray(data[:, cells]))
+    g1 = torch.zeros(cells.size, dtype=torch.bool)
+    g1[: groups[0].size] = True
+    (rs, ties) = rank_sum_groups(x.cuda(), g1.cuda(), (~g1).cuda())
+    (rs_c, ties_c) = rank_sum_groups(x, g1, ~g1)
+    # rank sums are sums of halves below 2^24: exact in float32 in any
+    # order. A tie sum Σ(t³ − t) passes 2^24 once a tie run holds ~256
+    # cells (the zeros here), and then rounds by the order it is summed in
+    tie_rel = float(((ties.cpu() - ties_c).abs() / ties_c.clamp_min(1.0))
+                    .max())
+    if not torch.equal(rs.cpu(), rs_c) or tie_rel > 1e-6:
+        raise AssertionError(f"[oracles] rank_sum_groups: card != CPU "
+                             f"(tie sums within {tie_rel})")
+    log(f"[oracles] rank_sum_groups on {tuple(x.shape)}: rank sums card = "
+        f"CPU bit for bit, tie sums within {tie_rel!r} relative (max "
+        f"{float(ties_c.max())!r})")
+
+
+def _cu_kernel(name: str):
+    """The ``__global__`` function of ``csrc/distance_cluster_sums.cu``
+    that a profiler kernel name belongs to, or None (torch's own kernels,
+    ``at::native::reduce_kernel`` among them, are not the .cu's)."""
+    import re
+
+    if "at::" in name:
+        return None
+    m = re.search(r"\b(keys|prepare|sweep|reduce)_kernel\b", name)
+    return m.group(0) if m else None
+
+
+def phase_trace_full(data, truth, cons, wilcox_ref, main_rec) -> tuple:
+    """Phase 29: phase 7's run again with ``SCC_TRACE_DIR`` and
+    ``SCC_OBS_KERNELS`` under ``OUT_DIR``: phase 7's bits, both
+    exported files and the ``kernels`` section validated, the hand
+    kernel's sweeps under span ``silhouette`` as many as the launch
+    counter and the wrapper's plan give. Returns (launches, the printed
+    numbers)."""
+    import shutil
+
+    import torch
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.obs.export import (
+        build_run_record,
+        validate_run_record,
+    )
+    from scconsensus_tpu_torch.obs.kernels import validate_kernels
+    from scconsensus_tpu_torch.ops.cuda_kernels import launch_plan
+    from scconsensus_tpu_torch.ops.silhouette import cut_labels
+
+    root = os.path.join(OUT_DIR, "phase29")
+    shutil.rmtree(root, ignore_errors=True)
+    trace_dir = os.path.join(root, "trace")
+    kern_dir = os.path.join(root, "kernels")
+    with _env(SCC_TRACE_DIR=trace_dir, SCC_OBS_KERNELS=kern_dir):
+        res, launches = _run_full(
+            "trace-26k", lambda: recluster_de_consensus_fast(
+                data, cons, device="cuda"), truth)
+    _same_bits("trace-26k", res, wilcox_ref)
+    if not np.array_equal(res.de.de_mask.cpu().numpy(),
+                          wilcox_ref["de_mask"]):
+        raise AssertionError("[trace-26k] the DE mask differs from "
+                             "phase 7's")
+    m = res.metrics
+    with open(os.path.join(trace_dir, "run_record.json")) as f:
+        rec = json.load(f)
+    validate_run_record(rec)
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        chrome = json.load(f)
+    xs = [e for e in chrome["traceEvents"] if e.get("ph") == "X"]
+    if len(xs) != len(rec["spans"]) or not rec["spans"]:
+        raise AssertionError(f"[trace-26k] {len(xs)} X events for "
+                             f"{len(rec['spans'])} spans")
+    sec = m.get("kernels")
+    if not sec or sec.get("error"):
+        raise AssertionError(f"[trace-26k] no kernels section: {sec}")
+    validate_kernels(sec)
+    validate_run_record(build_run_record(
+        "refine() at 26k", m["wall_s"], spans=m["spans"], kernels=sec,
+        quality=m.get("quality")))
+    # the hand kernel: one sweep per group of cuts per wrapper launch
+    labs = [np.where(res.dynamic_labels[f"deepsplit: {i['deep_split']}"] > 0,
+                     res.dynamic_labels[f"deepsplit: {i['deep_split']}"], -1)
+            for i in res.deep_split_info]
+    ids, k_total, _ = cut_labels(labs)
+    n, d = res.embedding.shape
+    plan = launch_plan(n, d, ids.shape[1], k_total, torch.device("cuda"))
+    want = launches * len(plan["groups"])
+    mine = {name: row for name, row in sec["by_kernel"].items()
+            if _cu_kernel(name)}
+    sweeps = {name: row for name, row in mine.items()
+              if _cu_kernel(name) == "sweep_kernel"}
+    n_sweeps = sum(r["count"] for r in sweeps.values())
+    cu = {_cu_kernel(name): row for name, row in mine.items()}
+    log("[trace-26k] the .cu's kernels in the capture: " + json.dumps(cu))
+    if n_sweeps != want or any(r["span"] != "silhouette"
+                               or r["stage"] != "silhouette"
+                               for r in mine.values()):
+        raise AssertionError(
+            f"[trace-26k] {n_sweeps} sweep launches (want {want}: "
+            f"{launches} wrapper launches x {len(plan['groups'])} groups) "
+            "or a .cu kernel outside span silhouette")
+    sweep_ms = 1e3 * sum(r["device_time_s"] for r in sweeps.values()) \
+        / max(n_sweeps, 1)
+    cu_ms = 1e3 * sum(r["device_time_s"] for r in mine.values()) \
+        / max(launches, 1)
+    busy = sec["total_device_time_s"] / m["wall_s"]
+    # the same device time over the run without the profiler's window
+    busy_phase7 = sec["total_device_time_s"] / wilcox_ref["wall_s"]
+    out = {
+        "wall_s": m["wall_s"], "phase7_wall_s": wilcox_ref["wall_s"],
+        "overhead": m["wall_s"] / wilcox_ref["wall_s"] - 1.0,
+        "total_device_time_s": sec["total_device_time_s"],
+        "busy_share": busy, "busy_share_of_phase7_wall": busy_phase7,
+        "stages_s": m["total_s"], "capture_start_s": sec["start_s"],
+        "n_events": sec["n_events"],
+        "n_kernels": sec["n_kernels"], "n_unlinked": sec["n_unlinked"],
+        "n_windows": sec["n_windows"], "trace_bytes": sec["trace_bytes"],
+        "trace_gz_bytes": sec["trace_gz_bytes"], "export_s": sec["export_s"],
+        "sweep_profiler_ms": sweep_ms, "sweep_count": n_sweeps,
+        "cu_kernels_profiler_ms": cu_ms,
+        "kernel_event_ms": main_rec["ms"],
+        "record_spans": len(rec["spans"]),
+        "by_stage_device_s": sec["by_stage_device_s"],
+    }
+    log("[trace-26k] top kernels by device time:")
+    for row in sec["top"]:
+        log(f"[trace-26k]   {row['device_time_s']!r} s x {row['count']} "
+            f"({row['pct']} %) span {row['span']} stage {row['stage']}: "
+            f"{row['kernel'][:120]}")
+    log(f"[trace-26k] device busy {sec['total_device_time_s']!r} s of the "
+        f"{m['wall_s']!r} s wall: {busy!r} ({busy_phase7!r} of phase 7's "
+        f"wall); the sweep {sweep_ms!r} ms and the .cu's four kernels "
+        f"{cu_ms!r} ms a launch by the profiler against "
+        f"{main_rec['ms']!r} ms by CUDA events in phase 7; wall "
+        f"{m['wall_s']!r} s (stages {m['total_s']!r} s) against phase 7's "
+        f"{wilcox_ref['wall_s']!r} s; profiler start {sec['start_s']!r} s, "
+        f"export {sec['export_s']!r} s; trace {sec['trace_bytes']} bytes "
+        f"({sec['trace_gz_bytes']} gzipped)")
+    log("[trace-26k] " + json.dumps(out))
+    return launches, out
+
+
+# phase 30's five integrity-soak runs (the worker's default shape,
+# 3,000 × 120 × 3): (tag, extra arguments)
+SOAK_FORMS = (("default", ()), ("stream", ("--stream",)),
+              ("stream-window", ("--stream", "--stream-window", "16")),
+              ("mesh-8", ("--mesh", "8")), ("cpu", ("--device", "cpu")))
+
+
+def phase_soak_workers(launcher) -> dict:
+    """Phase 30: ``python -m scconsensus_tpu_torch.robust.soak`` in fresh
+    processes from the launcher (started before torch), five ways; each
+    exits 0, its summary's run record validates, all give one
+    ``labels_sha``. The ``--stream`` runs use the default host budget over
+    their own baseline."""
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch.obs.export import validate_run_record
+
+    root = tempfile.mkdtemp(prefix="scc-soak-")
+    shas, out = {}, {}
+    try:
+        for tag, extra in SOAK_FORMS:
+            workdir = os.path.join(root, tag)
+            argv = [sys.executable, "-m", "scconsensus_tpu_torch.robust.soak",
+                    "--dir", workdir, "--fresh", *extra]
+            if "--device" not in extra:
+                argv += ["--device", "cuda"]
+            t0 = time.perf_counter()
+            # the default host budget whatever this process was given
+            proc = _launch(launcher, ["env", "-u",
+                                      "SCC_STREAM_HOST_BUDGET_MB", *argv],
+                           600)
+            wall = time.perf_counter() - t0
+            try:
+                with open(os.path.join(
+                        workdir, "INTEGRITY_SOAK_SUMMARY.json")) as f:
+                    summary = json.load(f)
+            except OSError:
+                summary = None
+            if proc["rc"] != 0 or summary is None or not summary["ok"]:
+                raise AssertionError(
+                    f"[soak-{tag}] exit {proc['rc']}: "
+                    f"{proc['stderr'][-2000:]}")
+            rec = summary["record"]
+            validate_run_record(rec)
+            shas[tag] = summary["labels_sha"]
+            out[tag] = {"process_s": wall, "wall_s": summary["wall_s"],
+                        "spans": len(rec["spans"])}
+            budget = (rec.get("streaming") or {}).get("budget")
+            if budget is not None:
+                out[tag]["budget"] = budget
+                if not budget["within_budget"] or \
+                        budget.get("budget_mb") != 4096.0:
+                    raise AssertionError(f"[soak-{tag}] not within the "
+                                         f"default budget: {budget}")
+            log(f"[soak-{tag}] exit 0 in {wall!r} s (refine "
+                f"{summary['wall_s']!r} s); labels_sha "
+                f"{summary['labels_sha'][:16]}; record validates"
+                + (f"; budget {json.dumps(budget)}" if budget else ""))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if len(set(shas.values())) != 1:
+        raise AssertionError(f"[soak] the five runs disagree: {shas}")
+    log(f"[soak] one labels_sha over the five runs: "
+        f"{next(iter(shas.values()))}")
+    return out
+
+
 def main() -> int:
     # started before torch is imported (see _LAUNCHER)
     launcher = _start_launcher()
@@ -3305,6 +3695,7 @@ def _main(launcher) -> int:
     phase_small_seurat()
     phase_guard_small()
     phase_mesh_small()
+    phase_oracles()
     data, truth, cons = phase_full_data()
     rec, dense_fast = phase_full(data, truth, cons)
     erec, dense_edger = phase_edger_full(data, truth, cons)
@@ -3320,6 +3711,8 @@ def _main(launcher) -> int:
                                      n_buckets)
     mesh_ref = phase_mesh_full(data, truth, cons, wilcox_ref)
     elastic_launches = phase_elastic(data, truth, cons, mesh_ref, launcher)
+    trace_launches, trace_out = phase_trace_full(data, truth, cons,
+                                                 wilcox_ref, rec)
     phase_contract(data, cons, csr)
     del data, csr, wilcox_ref
     torch.cuda.empty_cache()
@@ -3333,6 +3726,7 @@ def _main(launcher) -> int:
     stream_small_launches = phase_stream_small()
     stream_20k_launches = phase_stream_20k()
     stream_1m_launches = phase_stream_scale(launcher)
+    phase_soak_workers(launcher)
     by_path = {"wilcox_26k": rec["launches"],
                "edger_26k": erec["launches"],
                "wilcox_26k_csr": csr_launches,
@@ -3358,7 +3752,8 @@ def _main(launcher) -> int:
                "elastic_26k": sum(elastic_launches.values()),
                "stream_small": stream_small_launches,
                "stream_20k": stream_20k_launches,
-               "stream_1m": stream_1m_launches}
+               "stream_1m": stream_1m_launches,
+               "trace_26k": trace_launches}
     log(f"[total] every phase in {time.perf_counter() - t_start!r} s")
     # times from the Wilcoxon path's inputs; launches from every full path
     # (serving classifies with plain tensor code: no launch)
@@ -3375,6 +3770,7 @@ def _main(launcher) -> int:
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
+        "profiler_ms": trace_out["sweep_profiler_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": env["name"], "count": env["count"]}}))

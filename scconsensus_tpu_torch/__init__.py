@@ -20,11 +20,21 @@ verified, and ``ConsensusServer`` serves ``classify(new_cells)`` through
 the guarded micro-batching driver. Out of core: ``refine()`` of a
 disk-resident ``ChunkedCSRStore`` (or ``streaming_refine`` itself) runs
 the whole pipeline chunk at a time under the host-memory budget of a
-``HostBudgetAccountant``, resumable and checksummed.
+``HostBudgetAccountant``, resumable and checksummed. Each run's
+``result.metrics`` carries the reference's run-record views (stages,
+spans, schema), and ``obs.export.build_run_record`` /
+``validate_run_record`` build and check the reference's run record;
+``SCC_TRACE_DIR`` and ``SCC_OBS_KERNELS`` export it and a
+``torch.profiler`` kernel capture.
 """
 
+__version__ = "0.1.0"
+
 from scconsensus_tpu_torch.config import CompatFlags, ReclusterConfig
-from scconsensus_tpu_torch.consensus.contingency import plot_contingency_table
+from scconsensus_tpu_torch.consensus.contingency import (
+    contingency_table,
+    plot_contingency_table,
+)
 from scconsensus_tpu_torch.io.loaders import (
     load_h5ad,
     load_mtx,
@@ -32,6 +42,7 @@ from scconsensus_tpu_torch.io.loaders import (
     log_normalize,
 )
 from scconsensus_tpu_torch.models.pipeline import (
+    ReclusterResult,
     recluster_de_consensus,
     recluster_de_consensus_fast,
     refine,
@@ -57,27 +68,15 @@ from scconsensus_tpu_torch.stream.budget import (
 from scconsensus_tpu_torch.stream.runner import streaming_refine
 from scconsensus_tpu_torch.stream.store import ChunkedCSRStore
 
+# the reference's public surface (scconsensus_tpu/__init__.py:44-53); the
+# port's other entry points above are importable by name too
 __all__ = [
+    "contingency_table",
     "plot_contingency_table",
     "recluster_de_consensus",
     "recluster_de_consensus_fast",
-    "refine",
     "ReclusterConfig",
     "CompatFlags",
-    "pooled_ward_linkage",
-    "landmark_ward_linkage",
-    "knn_ward_linkage",
-    "mean_cluster_silhouette",
-    "pooled_multi_cut_silhouette",
-    "load_mtx",
-    "load_npz",
-    "load_h5ad",
-    "log_normalize",
-    "export_consensus_model",
-    "load_consensus_model",
-    "ConsensusServer",
-    "ChunkedCSRStore",
-    "streaming_refine",
-    "HostBudgetAccountant",
-    "HostBudgetExceeded",
+    "ReclusterResult",
+    "__version__",
 ]

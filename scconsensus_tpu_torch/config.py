@@ -2,18 +2,21 @@
 
 A mirror of ``scconsensus_tpu/config.py:503-669``: every field of
 ``CompatFlags`` and ``ReclusterConfig`` with the reference's default,
-``landmark_policy`` and ``to_json``. The reference's pipeline flags are
-not read: where ``refine()`` in the reference reads a registered flag,
-the port takes the flag's registered default.
+``landmark_policy`` (config field, then the ``SCC_TREE_*`` flag, then the
+registered default, the reference's order) and ``to_json``.
 
-``ENV_FLAGS`` registers only the flags the serving path, the robustness
-core, the elastic mesh and the streaming layer read
-(``scconsensus_tpu/config.py:32-41, 193-210, 237-265, 486``), with the
-reference's names, types, defaults and text: the ``SCC_SERVE_*`` knobs,
-the fault plan, the retry budget and backoff, ``SCC_ELASTIC`` and
+``ENV_FLAGS`` registers every flag the port reads, with the reference's
+names, types, defaults and text (``scconsensus_tpu/config.py:32-267,
+486``): the tracer's sync policy and ``SCC_TRACE_DIR``, the kernel
+capture ``SCC_OBS_KERNELS`` (over ``torch.profiler`` here), the four
+``SCC_TREE_*`` landmark flags, the ``SCC_SERVE_*`` knobs, the fault plan,
+the retry budget and backoff, ``SCC_ROBUST_CHECKSUM``, ``SCC_ELASTIC`` and
 ``SCC_ELASTIC_MIN_DEVICES``, ``SCC_INTEGRITY``, request tracing, the SLO
-objectives, the tracer's sync policy and the four ``SCC_STREAM_*``
-flags.
+objectives and the four ``SCC_STREAM_*`` flags. It also registers the
+flags the reference's ``refine()`` reads that the port does not handle
+yet (``UNPORTED_FLAGS``): :func:`refuse_unported_flags` raises
+``NotImplementedError`` when one of them is set, so none is dropped
+silently.
 """
 
 from __future__ import annotations
@@ -25,13 +28,7 @@ import os
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 __all__ = ["CompatFlags", "ReclusterConfig", "EnvFlag", "ENV_FLAGS",
-           "env_flag"]
-
-# the registered defaults of the reference's landmark flags
-# (scconsensus_tpu/config.py:146-162): SCC_TREE_LANDMARK_THRESHOLD, and
-# the k-policy scale c when SCC_TREE_LANDMARK_C is unset
-LANDMARK_THRESHOLD = 200_000
-LANDMARK_C = 2.0
+           "UNPORTED_FLAGS", "env_flag", "refuse_unported_flags"]
 
 
 @dataclasses.dataclass
@@ -124,18 +121,28 @@ class ReclusterConfig:
         (``scconsensus_tpu/config.py:625-662``).
 
         None when the landmark engine must not run (at or below the
-        threshold); otherwise ``{threshold, k (None = the policy at fit
-        time), c, k_min, k_max, sketch, linkage, knn_k}``. Unset fields
-        take the reference's registered defaults: threshold 200,000, k
-        from the policy, c = 2.0. No environment variable is read, and the
-        reference's exact override ``SCC_TREE_EXACT`` is left out.
+        threshold, or ``SCC_TREE_EXACT`` forces the exact behavior);
+        otherwise ``{threshold, k (None = the policy at fit time), c,
+        k_min, k_max, sketch, linkage, knn_k}``. Config fields win over the
+        ``SCC_TREE_*`` flags, the flags fill unset fields, and the
+        registered defaults the rest (threshold 200,000, c = 2.0).
         """
-        thr = int(LANDMARK_THRESHOLD if self.landmark_threshold is None
-                  else self.landmark_threshold)
+        if env_flag("SCC_TREE_EXACT"):
+            return None
+        thr = self.landmark_threshold
+        if thr is None:
+            thr = env_flag("SCC_TREE_LANDMARK_THRESHOLD")
+        thr = int(thr)
         if n_cells <= thr:
             return None
         k = self.landmark_k
-        c = LANDMARK_C if self.landmark_c is None else self.landmark_c
+        if k is None:
+            k = env_flag("SCC_TREE_LANDMARK_K")
+        c = self.landmark_c
+        if c is None:
+            c = env_flag("SCC_TREE_LANDMARK_C")
+        if c is None:
+            c = 2.0
         return {
             "threshold": thr,
             "k": int(k) if k else None,
@@ -177,6 +184,98 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
         EnvFlag("SCC_STAGE_SYNC", bool, False,
                 "Force at least stage-boundary synchronization even when "
                 "SCC_TRACE_SYNC=off."),
+        EnvFlag("SCC_TRACE_DIR", str, None,
+                "If set, refine() exports <dir>/run_record.json + "
+                "<dir>/trace.json (Chrome trace events; open in Perfetto) "
+                "at the end of every pipeline run."),
+        EnvFlag("SCC_OBS_KERNELS", str, None,
+                "Directory for a torch.profiler capture window around the "
+                "pipeline (obs.kernels): CUDA kernel events are parsed "
+                "from the exported trace, joined through their launches "
+                "to tracer spans, and summarized as the run record's "
+                "kernels section (top-K kernels by device time). Unset = "
+                "off."),
+        # --- registered, not handled yet: refuse_unported_flags() ---
+        EnvFlag("SCC_OBS_TRANSFERS", bool, False,
+                "Wrap refine() in obs.device.TransferWatch: count explicit "
+                "host<->device transfer bytes and flag oversized host "
+                "fetches on the run record."),
+        EnvFlag("SCC_OBS_COST", bool, False,
+                "Attach XLA cost_analysis (FLOPs/bytes) to jitted kernel "
+                "spans at trace time (obs.cost); one memoized AOT compile "
+                "per kernel shape. bench.py workers enable it."),
+        EnvFlag("SCC_OBS_HEARTBEAT", float, 0.0,
+                "Live flight recorder (obs.live): heartbeat tick interval "
+                "in seconds (0 = off). Each tick appends one JSONL line "
+                "(open-span stack, RSS/HBM, compile stats) to the run's "
+                "*_heartbeat.jsonl stream. bench.py workers default it on."),
+        EnvFlag("SCC_OBS_STALL_S", float, 0.0,
+                "In-process stall watchdog window (seconds; 0 = off): with "
+                "no span transition / compile progress for this long, the "
+                "recorder dumps all-thread stacks into the heartbeat "
+                "stream, bumps the stall counter, and (with "
+                "SCC_OBS_STALL_TRACE set) opens a profiler capture."),
+        EnvFlag("SCC_OBS_RESIDENCY", str, "off",
+                "Host<->device residency auditor (obs.residency): 'off' "
+                "(default), 'audit' (record every transfer with direction, "
+                "bytes, owning span and source site onto the run record's "
+                "residency section), 'enforce' (any crossing outside the "
+                "declared boundary allowlist raises with the offending "
+                "span named; jax.transfer_guard backs the patched entry "
+                "points). bench.py workers default it to 'audit'."),
+        EnvFlag("SCC_HOSTPROF", bool, False,
+                "Host execution profiler (obs.hostprof): a sampling "
+                "stack profiler on the run thread (folded stacks "
+                "bucketed per stage span, classified into python / "
+                "blocking_wait / compile / serialization causes) plus "
+                "gc.callbacks pause accounting and an RSS/HBM memory "
+                "timeline — landed as the run record's host_profile and "
+                "memory_timeline sections. bench.py workers default it "
+                "on."),
+        EnvFlag("SCC_COMPILELOG", bool, False,
+                "Per-stage JAX compile/retrace telemetry "
+                "(obs.compilelog): jax.monitoring compile events stamped "
+                "with the ambient stage span and its entry ordinal, "
+                "aggregated (compiles, retraces, cache hits, compile "
+                "wall) into the run record's compile section. bench.py "
+                "workers default it on."),
+        EnvFlag("SCC_GRAPHS", bool, False,
+                "Compiled-program observatory (obs.graphs): capture a "
+                "graph passport (op census, transfer ops, host "
+                "callbacks, donation hits/misses, fusion count, "
+                "XLA-estimated buffer bytes) for every instrumented "
+                "jitted stage program on its first call per abstract "
+                "signature, landed as the run record's graphs section. "
+                "bench.py workers default it on; serve never arms it "
+                "(capture lowers+compiles an AOT copy of each "
+                "program)."),
+        EnvFlag("SCC_WILCOX_PROBE", bool, False,
+                "Synced per-bucket occupancy DIAGNOSIS of the Wilcoxon "
+                "window ladder (serializes dispatch; tied-run counts and a "
+                "sort-only timing are fetched per bucket)."),
+        # --- tree stage (the landmark recluster) ---
+        EnvFlag("SCC_TREE_LANDMARK_THRESHOLD", int, 200_000,
+                "Cell count above which the pooled tree stage switches "
+                "from the full-data Lloyd to the landmark recluster path "
+                "(sketch-fitted k-means, Ward on k ≪ N landmarks, device "
+                "nearest-landmark cut propagation). Runs at or below the "
+                "threshold keep the pre-r7 byte-identical behavior. "
+                "ReclusterConfig.landmark_threshold overrides when set."),
+        EnvFlag("SCC_TREE_LANDMARK_K", int, None,
+                "Explicit landmark count for the landmark tree path "
+                "(unset = the N-scaled policy clamp(c·√N, k_min, k_max); "
+                "see SCC_TREE_LANDMARK_C and the BASELINE.md landmark "
+                "policy section)."),
+        EnvFlag("SCC_TREE_LANDMARK_C", float, None,
+                "Landmark k-policy scale factor c in "
+                "k = clamp(c·√N, k_min, k_max) when "
+                "ReclusterConfig.landmark_c is unset (config wins; "
+                "both unset = 2.0)."),
+        EnvFlag("SCC_TREE_EXACT", bool, False,
+                "Exact-fallback override: disable the landmark tree path "
+                "at any N and run the pre-r7 behavior (full-data pooled "
+                "Lloyd above approx_threshold, exact Ward below) — the "
+                "escape hatch if a landmark cut looks wrong."),
         # --- robustness (robust/) ---
         EnvFlag("SCC_FAULT_PLAN", str, None,
                 "Path to a JSON fault-injection plan (robust.faults): "
@@ -189,6 +288,13 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "Base backoff of robust.retry's exponential ladder (attempt "
                 "n sleeps base*2^(n-1), capped, +0-50% deterministic "
                 "jitter)."),
+        EnvFlag("SCC_ROBUST_CHECKSUM", bool, True,
+                "Content checksums on ArtifactStore artifacts: every "
+                "save stamps a sha256 into the stage sidecar and every "
+                "load verifies it — corrupt/truncated entries are "
+                "QUARANTINED (renamed *.quarantined) and recomputed "
+                "instead of crashing or silently loading garbage. Set 0 "
+                "to skip verification (trusted store, max throughput)."),
         EnvFlag("SCC_ROBUST_DE_CKPT", bool, True,
                 "Mid-stage wilcox checkpointing: with an artifact store "
                 "active, each completed window-ladder bucket persists "
@@ -332,3 +438,27 @@ def env_flag(name: str, env: Optional[Mapping[str, str]] = None) -> Any:
     if spec.type in (int, float):
         return spec.type(raw)
     return raw
+
+
+# The flags the reference's refine() path reads that the port does not
+# handle yet, each with the value that means "off": a set one raises.
+UNPORTED_FLAGS = ("SCC_OBS_TRANSFERS", "SCC_OBS_RESIDENCY", "SCC_OBS_COST",
+                  "SCC_WILCOX_PROBE", "SCC_OBS_HEARTBEAT", "SCC_OBS_STALL_S",
+                  "SCC_HOSTPROF", "SCC_COMPILELOG", "SCC_GRAPHS")
+
+
+def _is_off(name: str, value: Any) -> bool:
+    if name == "SCC_OBS_RESIDENCY":
+        return str(value).strip().lower() in ("off", *_FALSY)
+    return not value
+
+
+def refuse_unported_flags(env: Optional[Mapping[str, str]] = None) -> None:
+    """Raise ``NotImplementedError`` naming the first flag of
+    ``UNPORTED_FLAGS`` that is set (to a value other than its off state):
+    the port must not accept a reference flag and ignore it."""
+    for name in UNPORTED_FLAGS:
+        if not _is_off(name, env_flag(name, env)):
+            raise NotImplementedError(
+                f"{name} is a flag of the reference that the port does "
+                "not handle yet; unset it")

@@ -268,7 +268,7 @@ def run_edger_pairs(
     def _t(a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=dev)
 
-    with clock.stage("edger_setup"):
+    with clock.detail("edger_setup"):
         cid = _cid_from_groups(cell_idx_of, N)
         kept = cid >= 0
         lib = column_sums(counts)
@@ -310,7 +310,7 @@ def run_edger_pairs(
         t_ns = _t(ns_of)
 
     gc = max(1, _CHUNK_ELEMS // max(N, 1))
-    with clock.stage("edger_pass_a"):
+    with clock.detail("edger_pass_a"):
         if isinstance(counts, DeviceCSR):
             Zy = torch.cat([_raw_sums_chunk(c, onehot)
                             for _, _, c in row_chunks(counts, gc)])
@@ -332,13 +332,13 @@ def run_edger_pairs(
                 phi, r_nodes, int(sub_nnz[ids[-1]]), sub_onehot)
         return table, zs
 
-    with clock.stage("edger_pilot_table"):
+    with clock.detail("edger_pilot_table"):
         table0, zs0 = _build_table(_PILOT_DISPERSION)
 
     def _pairs(p0: int):
         return t_pi[p0:p0 + _PAIR_CHUNK], t_pj[p0:p0 + _PAIR_CHUNK]
 
-    with clock.stage("edger_common_grid"):
+    with clock.detail("edger_common_grid"):
         w_grid = _t(_dense_weights(np.log(r_grid).astype(np.float32),
                                    rho_nodes[0], h, _NODE_COUNT))
         t_r_grid = _t(r_grid.astype(np.float32))
@@ -361,17 +361,17 @@ def run_edger_pairs(
 
     # re-equalize at the median common dispersion
     phi_req = float(np.median(common))
-    with clock.stage("edger_table1"):
+    with clock.detail("edger_table1"):
         table1, zs1 = _build_table(phi_req)
 
-    with clock.stage("edger_z1_sweep"):
+    with clock.detail("edger_z1_sweep"):
         Z1 = torch.empty((G, K), device=dev)
         for g0, g1, chunk in row_chunks(counts, gc):
             Z1[g0:g1] = _pseudo_sums_chunk(
                 chunk, onehot, lib, cid_safe, t_kept, rates[g0:g1],
                 common_lib, phi_req)
 
-    with clock.stage("edger_tagwise"):
+    with clock.detail("edger_tagwise"):
         prior_n = (_PRIOR_DF / np.maximum(
             ns_of[pair_i] + ns_of[pair_j] - 2.0, 1.0)).astype(np.float32)
         parts = []
@@ -394,7 +394,7 @@ def run_edger_pairs(
         obs_quality.check_array("tagwise_dispersion", tagwise,
                                 where="edger_nb")
 
-    with clock.stage("edger_exact_normal"):
+    with clock.detail("edger_exact_normal"):
         t_n_of = _t(n_of)
         n1, n2 = t_n_of[t_pi], t_n_of[t_pj]
         s1 = Z1[:, t_pi].T.contiguous()                      # (P, G)
@@ -412,7 +412,7 @@ def run_edger_pairs(
     # the exact tails for small totals, bucketed by each entry's own total
     # on a pow-2 ladder up to s_max: an entry pays at most twice its
     # support width. Routing depends only on the total.
-    with clock.stage("edger_exact_small"):
+    with clock.detail("edger_exact_small"):
         tot = (torch.round(s1) + torch.round(s2)).reshape(-1)
         max_total = float(tot.max())
         s_max = int(min(_EXACT_SMAX,

@@ -97,6 +97,7 @@ from scconsensus_tpu_torch.ops.multipletests import (
     bh_adjust_masked,
 )
 from scconsensus_tpu_torch.obs import quality as obs_quality
+from scconsensus_tpu_torch.obs import trace as obs_trace
 from scconsensus_tpu_torch.ops import ranksum_allpairs as _ranksum
 from scconsensus_tpu_torch.ops.ranksum_allpairs import (
     chunk_genes_for_budget,
@@ -696,7 +697,8 @@ def _run_wilcox(
                     g0 = g1
                     recover.bucket_done()
                     continue
-            with recover:
+            with recover, obs_trace.span(
+                    "wilcox_bucket", window=int(w), n_genes=int(ids.size)):
                 faults.fault_point("wilcox_bucket")
                 if compact:
                     # compacted input always runs zero-block mode

@@ -42,7 +42,12 @@ the CUDA distance × cluster-sum kernel. Above it (``approx``):
 and the silhouette is the pooled O(N·m) estimator on the device, reusing
 the tree stage's pool where there is one.
 
-``result.metrics`` keys: ``device``, ``stage_walls_s``, ``union_size``,
+``result.metrics`` keys: the tracer's ``as_dict()`` (``stages``,
+``total_s``, ``spans``, ``schema``, ``schema_version``: every stage above
+runs inside a tracer span of the reference's name, ``de`` and
+``de_store`` excepted, whose walls the reference does not time; the
+edgeR sub-stages are ``detail`` spans), ``device``, ``stage_walls_s``,
+``union_size``,
 ``per_pair_de_counts``, ``wilcox_ladder`` (Wilcoxon methods: the
 rank-sum route and its buckets' occupancy, else None), ``tree_engine``
 (engine of the tree stage's last Ward.D2 call, or None), ``n_genes``,
@@ -55,8 +60,21 @@ else ``method``: "exact" or "pooled-estimator", and for the estimator
 gate funnel, the ladder's occupancy, the cluster structure and the
 numeric sentinels' health), and, only when something happened,
 ``robustness`` (``robust.record``: injected faults, retries,
-degradations, resume points) and ``integrity`` (``robust.integrity``,
-present under ``SCC_INTEGRITY=audit|enforce``).
+degradations, resume points), ``integrity`` (``robust.integrity``,
+present under ``SCC_INTEGRITY=audit|enforce``) and ``kernels`` (under
+``SCC_OBS_KERNELS``).
+
+Observability (``scconsensus_tpu/models/pipeline.py:61-206``): ``timer``
+(a ``utils.logging.StageTimer``; by default one logging each stage at
+INFO) owns the tracer. ``SCC_OBS_KERNELS=<dir>`` opens a
+``torch.profiler`` window around the run (``obs.kernels``), with the
+tracer in annotate mode, and joins every CUDA kernel to the span that
+launched it (``metrics["kernels"]``). ``SCC_TRACE_DIR=<dir>`` writes
+``<dir>/run_record.json`` and a Perfetto ``<dir>/trace.json`` after the
+run, from a ``finally``, so a failed run leaves them too. Capture and
+export are best effort: a failure logs a warning and never costs the
+result. A reference flag the port does not handle yet
+(``config.UNPORTED_FLAGS``) raises ``NotImplementedError`` when set.
 
 Every ``method`` of the reference runs: "wilcox" (fast), "wilcoxon"
 (slow), "edger", and the fast-path Seurat tests "bimod", "t" and "roc".
@@ -126,7 +144,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from scconsensus_tpu_torch.config import CompatFlags, ReclusterConfig
+from scconsensus_tpu_torch.config import (
+    CompatFlags,
+    ReclusterConfig,
+    env_flag,
+    refuse_unported_flags,
+)
 from scconsensus_tpu_torch.de.engine import (
     PairwiseDEResult,
     as_device_matrix,
@@ -139,7 +162,7 @@ from scconsensus_tpu_torch.device import resolve_device
 from scconsensus_tpu_torch.io.sparsemat import nodg as count_detected
 from scconsensus_tpu_torch.io.sparsemat import rows_dense
 from scconsensus_tpu_torch.obs import quality as obs_quality
-from scconsensus_tpu_torch.obs import trace as obs_trace
+from scconsensus_tpu_torch.obs.kernels import KernelCapture
 from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
 from scconsensus_tpu_torch.ops import linkage
 from scconsensus_tpu_torch.ops.colors import labels_to_colors
@@ -167,6 +190,7 @@ from scconsensus_tpu_torch.utils.artifacts import (
     ArtifactStore,
     input_fingerprint,
 )
+from scconsensus_tpu_torch.utils.logging import StageTimer, get_logger
 from scconsensus_tpu_torch.utils.timing import StageClock
 
 __all__ = ["ReclusterResult", "refine", "recluster_de_consensus",
@@ -201,6 +225,7 @@ def refine(
     device=None,
     omega: Optional[torch.Tensor] = None,
     mesh="auto",
+    timer: Optional[StageTimer] = None,
 ) -> ReclusterResult:
     """Full DE → embed → recluster refinement.
 
@@ -220,6 +245,10 @@ def refine(
         two or more, else the serial path), a ``parallel.mesh.Mesh``, or
         None for the serial path. A mesh run equals the serial run
         (``parallel.validate.assert_mesh_equals_serial``).
+      timer: the ``utils.logging.StageTimer`` whose tracer times the
+        stages (default: a new one logging to ``get_logger()``, in annotate
+        mode under ``SCC_OBS_KERNELS``); ``result.metrics`` carries its
+        ``as_dict()``.
 
     See the module docstring for the branches past ``approx_threshold``,
     the mesh, the guard rails and the keys of ``result.metrics``.
@@ -234,7 +263,8 @@ def refine(
 
         return streaming_refine(data, labels, config, gene_names=gene_names,
                                 stage_dir=config.artifact_dir,
-                                device=device, omega=omega)
+                                device=device, omega=omega, timer=timer)
+    refuse_unported_flags()
     dev = resolve_device(device)
     # fresh robustness and integrity trails for this run: retries,
     # degradations, resume points and injections land on
@@ -242,12 +272,19 @@ def refine(
     # metrics["integrity"] (absent with SCC_INTEGRITY=off)
     robust_record.begin_run()
     robust_integrity.begin_run()
-    # the run's tracer keys the numeric sentinels' trips (obs.quality);
-    # its root span never synchronizes the card
-    tracer = obs_trace.Tracer(sync="off", sample_device=False)
-    with tracer.span("refine", kind="run"):
-        result = _refine_impl(data, labels, config, gene_names, dev, omega,
-                              tracer, mesh)
+    capture = KernelCapture()
+    if timer is None:
+        # the kernel join needs the spans' record_function windows in the
+        # profiler's timeline: the tracer's annotate mode
+        timer = StageTimer(get_logger(), trace=capture.enabled)
+    try:
+        with capture:
+            result = _refine_impl(data, labels, config, gene_names, dev,
+                                  omega, timer, mesh)
+    finally:
+        trace_dir = env_flag("SCC_TRACE_DIR")
+        if trace_dir:
+            _export_trace(trace_dir, timer)
     rb_section = robust_record.section()
     if rb_section is not None:
         # absent on healthy unfaulted runs: absence is the healthy signal
@@ -255,11 +292,47 @@ def refine(
     ig_section = robust_integrity.section()
     if ig_section is not None:
         result.metrics["integrity"] = ig_section
+    if capture.enabled:
+        try:
+            sec = capture.section(
+                span_records=result.metrics.get("spans") or [])
+            if sec is not None:
+                result.metrics["kernels"] = sec
+        except Exception as e:  # capture is evidence, never a crash
+            get_logger().warning("kernel capture section failed: %r", e)
     return result
 
 
+def _export_trace(trace_dir: str, timer: StageTimer) -> None:
+    """Best-effort post-run export of ``run_record.json`` and Perfetto's
+    ``trace.json``; never costs the pipeline result."""
+    try:
+        import os
+
+        from scconsensus_tpu_torch.obs.export import (
+            build_run_record,
+            write_chrome_trace,
+            write_json_atomic,
+        )
+
+        os.makedirs(trace_dir, exist_ok=True)
+        tracer = timer.tracer
+        rec = build_run_record(
+            metric="refine() pipeline trace",
+            value=round(tracer.total_s(), 4),
+            unit="seconds",
+            tracer=tracer,
+        )
+        write_json_atomic(os.path.join(trace_dir, "run_record.json"), rec)
+        write_chrome_trace(os.path.join(trace_dir, "trace.json"),
+                           tracer.span_records())
+    except Exception as e:
+        get_logger().warning("trace export failed: %r", e)
+
+
 def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
-                 omega, tracer, mesh) -> ReclusterResult:
+                 omega, timer: StageTimer, mesh) -> ReclusterResult:
+    tracer = timer.tracer
     # the elastic supervisor owns the mesh ("auto", explicit or None);
     # stages read _mesh() when they run, so a device_lost retry re-enters
     # against the shrunk mesh (SCC_ELASTIC=0: the bare mesh, unsupervised)
@@ -295,7 +368,7 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
         run_log.set_budget_persist(
             lambda used: store.save("robust_state",
                                     meta={"budget_used": used}))
-    clock = StageClock(dev)
+    clock = StageClock(dev, tracer=tracer)
 
     def _guard(fn, site, degrade=None):
         # a device_lost failure hands the supervisor the shrink before
@@ -328,14 +401,14 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
         except ValueError:
             pass  # corrupt (already quarantined) or incomplete: recompute
     if de_res is None:
-        with clock.stage("de"):
+        with clock.stage("de", span=False):
             de_res = _guard(
                 lambda: pairwise_de(data, labels, config, device=dev,
                                     clock=clock, store=store, mesh=_mesh()),
                 site="stage:de")
         if store.enabled:
             # the (P, G) fields to the host, compressed and checksummed
-            with clock.stage("de_store"):
+            with clock.stage("de_store", span=False):
                 de_arrays, de_meta = de_res.to_store()
                 store.save("de", de_arrays,
                            {**de_meta, "mesh_shape": _shape()})
@@ -343,11 +416,14 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                 # blocks have served their purpose
                 store.discard_prefix("de_wilcox_")
 
-    with clock.stage("union"):
+    with clock.stage("union") as rec:
         union = _guard(
             lambda: _stage_cached("union", lambda: {
                 "idx": de_gene_union(de_res, config.n_top_de_genes)}),
             site="stage:union")["idx"]
+        per_pair = de_res.de_counts().tolist()
+        rec["union_size"] = int(union.size)
+        rec["per_pair_de_counts"] = per_pair
     if union.size < 2:
         raise ValueError(
             f"DE gene union has {union.size} genes — nothing to re-embed. "
@@ -355,8 +431,9 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
         )
 
     scores = None
-    with clock.stage("embed"):
+    with clock.stage("embed") as rec:
         n_pcs = min(union.size, config.n_pcs)
+        rec["n_pcs"] = n_pcs
 
         def _embed():
             nonlocal scores
@@ -411,8 +488,9 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
             # a NaN/Inf score corrupts every distance, tree and cut below
             obs_quality.check_array("embedding", embedding, where="embed")
 
-    with clock.stage("tree"):
+    with clock.stage("tree", n_cells=N) as rec:
         approx = N > config.approx_threshold
+        rec["approx"] = approx
         if config.approx_method not in ("pool", "knn"):
             raise ValueError(
                 f"approx_method must be 'pool' or 'knn', got "
@@ -477,6 +555,9 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                     "landmark_knn_linkage", 0)) else "exact"),
             }
         tree_engine = linkage.LAST_ENGINE
+        rec["landmark"] = landmark_info is not None
+        if landmark_info is not None:
+            rec["landmark_k"] = landmark_info["k"]
 
     dynamic_colors: Dict[str, np.ndarray] = {}
     dynamic_labels: Dict[str, np.ndarray] = {}
@@ -560,7 +641,7 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
 
     sil_info = None
     if config.compat.return_silhouette:
-        with clock.stage("silhouette"):
+        with clock.stage("silhouette") as sil_rec:
             labs = [
                 np.where(dynamic_labels[f"deepsplit: {dsv}"] > 0,
                          dynamic_labels[f"deepsplit: {dsv}"], -1)
@@ -600,6 +681,8 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                 return multi_cut_silhouette(scores, labs)
 
             sils = _guard(_silhouette, site="stage:silhouette")
+            if sil_info["method"] == "pooled-estimator":
+                sil_rec.update(sil_info)
             for info, (si, _per) in zip(deep_split_info, sils):
                 info["silhouette"] = si
                 if sil_info["method"] == "pooled-estimator":
@@ -653,10 +736,11 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                 filename=config.plot_name,
             )
     metrics = {
+        **timer.as_dict(),
         "device": str(dev),
         "stage_walls_s": dict(clock.walls),
         "union_size": int(union.size),
-        "per_pair_de_counts": de_res.de_counts().tolist(),
+        "per_pair_de_counts": per_pair,
         "wilcox_ladder": de_res.ladder,
         "tree_engine": tree_engine,
         "n_genes": int(G),

@@ -1,10 +1,12 @@
-"""Host memory gauges: the current and the peak resident set size.
+"""Device and host memory gauges.
 
-The port's copy of ``host_rss_bytes`` and ``host_peak_rss_bytes`` from
-``scconsensus_tpu/obs/device.py:106-150``. The streaming layer's budget
-(``stream.budget``) judges a run by the peak and enforces against the
-current value. The device-side half of the reference's module is not
-ported.
+The port's copy of ``memory_snapshot`` (``scconsensus_tpu/obs/device.py:
+62-94``) over ``torch.cuda.memory_stats``, for the run record's
+``device.memory`` and the tracer's per-span ``device_mem``, and of
+``host_rss_bytes`` and ``host_peak_rss_bytes`` (:106-150). The streaming
+layer's budget (``stream.budget``) judges a run by the peak and enforces
+against the current value. The rest of the reference's module (the
+compile listener, the transfer watch) is not ported.
 """
 
 from __future__ import annotations
@@ -12,9 +14,33 @@ from __future__ import annotations
 import os
 import sys
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
-__all__ = ["host_rss_bytes", "host_peak_rss_bytes"]
+__all__ = ["memory_snapshot", "host_rss_bytes", "host_peak_rss_bytes"]
+
+
+def memory_snapshot(device=None) -> Optional[Dict[str, int]]:
+    """Live and peak device memory of one card (default: the current
+    one): ``{bytes_in_use, peak_bytes_in_use, bytes_limit}``, the
+    reference's keys, from the caching allocator's counters. None when
+    torch is not imported or CUDA was never initialized in this process
+    (a CPU run), as the reference gives None with no backend up; the
+    snapshot never initializes a context of its own."""
+    try:
+        torch = sys.modules.get("torch")
+        if torch is None or not torch.cuda.is_initialized():
+            return None
+        dev = torch.cuda.current_device() if device is None else device
+        ms = torch.cuda.memory_stats(dev)
+        return {
+            "bytes_in_use": int(ms.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(ms.get("allocated_bytes.all.peak", 0)),
+            "bytes_limit": int(
+                torch.cuda.get_device_properties(dev).total_memory),
+        }
+    except Exception:
+        return None
+
 
 # one cached /proc/self/statm descriptor per process (re-opened after a
 # fork), read with pread under a lock so two threads never race on it

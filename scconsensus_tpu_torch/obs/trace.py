@@ -1,35 +1,39 @@
 """Nested-span tracer with explicit device-sync boundaries.
 
-The port's copy of ``scconsensus_tpu/obs/trace.py:63-544``, framework
-free apart from the drain. A span records its submitted wall (host
-dispatch time) and, for sync-eligible spans, the device-synced wall:
-``torch.cuda.synchronize`` drains the card at the boundary, so queued
-kernels cannot land one span's compute on whichever later span first
-blocks. Spans nest (``stage`` spans hold ``detail`` children); entering
-a span publishes its tracer to a contextvar, so deep code opens child
-spans through the module-level :func:`span` without threading a tracer
-through every signature, and with no active tracer that is a no-op sink.
+The port's copy of ``scconsensus_tpu/obs/trace.py:63-545``. A span
+records its submitted wall (host dispatch time) and, for sync-eligible
+spans, the device-synced wall: ``torch.cuda.synchronize`` drains the card
+at the boundary, so queued kernels cannot land one span's compute on
+whichever later span first blocks. Spans nest (``stage`` spans hold
+``detail`` children); entering a span publishes its tracer to a
+contextvar, so deep code opens child spans through the module-level
+:func:`span` without threading a tracer through every signature, and with
+no active tracer that is a no-op sink.
 
-Left out against the reference: the profiler-annotate mode
-(``Tracer(annotate=True)``, a ``jax.profiler`` call there) raises
-``NotImplementedError``; the compile listener, ``compile_stats`` and the
-run-record views (``as_dict``, the legacy stage records, the stage log
-line) wait for the run-record schema (ROADMAP A10); the flight
-recorder's views (``open_stack``, ``live_span_records``,
-``ambient_stage``) wait for the live recorder. ``sample_device``
-snapshots the card's allocator counters.
+``Tracer(annotate=True)`` wraps every span in
+``torch.profiler.record_function(name)``, so span windows appear in a
+``torch.profiler`` timeline beside the CUDA kernels they launched (the
+kernel capture, ``obs.kernels``, joins the two); outside a profiler
+window an annotation costs one no-op call. The run-record views are the
+reference's: ``stage_records``, ``span_records``, ``open_stack``,
+``live_span_records``, ``total_s``, ``as_dict`` and :func:`ambient_stage`.
+``compile_stats`` is None: the port compiles no XLA program (its one
+hand kernel is built by nvcc before the run), so its records carry no
+``device.compile``. ``sample_device`` snapshots the card's allocator
+counters (``obs.device.memory_snapshot``) at each synced span exit.
 """
 
 from __future__ import annotations
 
 import contextvars
 import itertools
+import json
 import logging
 import threading
 import time
 import weakref
 from contextlib import contextmanager
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from scconsensus_tpu_torch.config import env_flag
 
@@ -39,8 +43,10 @@ __all__ = [
     "span",
     "current_tracer",
     "current_span",
+    "ambient_stage",
     "last_tracer",
     "device_drain",
+    "summarize_record",
     "new_trace_id",
 ]
 
@@ -84,6 +90,30 @@ def last_tracer() -> "Optional[Tracer]":
     ref = _LAST_TRACER
     return ref() if ref is not None else None
 
+_LOG_LIST_CAP = 16
+
+
+def summarize_record(rec: Dict[str, Any]) -> Dict[str, Any]:
+    """Log-line rendering of a record: long lists (e.g. the per-pair DE
+    counts at K=44 → 946 entries) are summarized; the STORED record — what
+    metrics/bench consumers read — keeps the full values. Recurses into
+    nested dicts (the wilcox stage's ``occupancy`` probe carries a
+    per-bucket list that can run tens of entries at 1M-cell shapes)."""
+    out: Dict[str, Any] = {}
+    for k, v in rec.items():
+        if isinstance(v, dict):
+            out[k] = summarize_record(v)
+        elif isinstance(v, (list, tuple)) and len(v) > _LOG_LIST_CAP:
+            out[k] = {
+                "n": len(v),
+                "head": list(v[:_LOG_LIST_CAP]),
+                "sum": sum(v) if v and isinstance(v[0], (int, float)) else None,
+            }
+        else:
+            out[k] = v
+    return out
+
+
 def device_drain() -> bool:
     """Block until every kernel queued on the card has retired
     (``torch.cuda.synchronize``). Returns False when torch is not imported
@@ -101,14 +131,6 @@ def device_drain() -> bool:
         return True
     except Exception:
         return False
-
-
-def _memory_snapshot() -> Dict[str, Any]:
-    """The card's allocator counters: bytes allocated now and at peak."""
-    import torch
-
-    return {"allocated_bytes": int(torch.cuda.memory_allocated()),
-            "peak_bytes": int(torch.cuda.max_memory_allocated())}
 
 
 _WARNED_SYNC_VALUES = set()
@@ -165,6 +187,25 @@ class Span:
         self._token = None
         self._t_enter = 0.0
 
+    # -- dict-style back-compat surface -----------------------------------
+    def __setitem__(self, key: str, value: Any) -> None:
+        self.attrs[key] = value
+
+    def __getitem__(self, key: str) -> Any:
+        return self.attrs[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.attrs
+
+    def get(self, key: str, default: Any = None) -> Any:
+        return self.attrs.get(key, default)
+
+    def setdefault(self, key: str, default: Any = None) -> Any:
+        return self.attrs.setdefault(key, default)
+
+    def update(self, *a, **kw) -> None:
+        self.attrs.update(*a, **kw)
+
     # -- typed metrics -----------------------------------------------------
     @property
     def metrics(self):
@@ -181,6 +222,17 @@ class Span:
         """Headline wall: device-synced when a sync ran, else submitted."""
         return (self.wall_synced_s if self.wall_synced_s is not None
                 else self.wall_submitted_s)
+
+    def stage_record(self) -> Dict[str, Any]:
+        """Legacy StageTimer-shaped record (``{"stage", ..., "wall_s"}``)."""
+        rec: Dict[str, Any] = {"stage": self.name, **self.attrs}
+        rec["wall_s"] = round(self.wall_s, 4)
+        rec["wall_submitted_s"] = round(self.wall_submitted_s, 4)
+        if self.wall_synced_s is not None:
+            rec["wall_synced_s"] = round(self.wall_synced_s, 4)
+        if self.synced:
+            rec["synced"] = True
+        return rec
 
     def record(self) -> Dict[str, Any]:
         """Full span record (the run-record schema's ``spans[]`` entry)."""
@@ -217,22 +269,30 @@ class Tracer:
     """Collects a span tree for one run.
 
     ``sync``: 'stage' | 'all' | 'off' (default from the SCC_TRACE_SYNC
-    flag). ``annotate=True`` (profiler annotations) is not ported and
-    raises. ``sample_device=True`` snapshots the card's allocated and
-    peak bytes at each synced span exit.
+    flag). ``annotate=True`` also wraps each span in
+    ``torch.profiler.record_function`` so spans show up in a profiler
+    timeline. ``sample_device=True`` snapshots the card's live and peak
+    bytes at each synced span exit (None on the CPU). With a ``logger``,
+    every finished stage span logs one summarized line.
     """
 
-    def __init__(self, sync: Optional[str] = None, annotate: bool = False,
+    def __init__(self, logger: Optional[logging.Logger] = None,
+                 sync: Optional[str] = None, annotate: bool = False,
                  sample_device: bool = True):
-        if annotate:
-            raise NotImplementedError(
-                "the tracer's profiler-annotate mode is not ported yet")
         self.t_origin = time.perf_counter()
         self.spans: List[Span] = []          # finished spans, completion order
+        self.logger = logger
         self.sync = sync if sync in ("stage", "all", "off") else _sync_mode()
+        self.annotate = annotate
         self.sample_device = sample_device
+        # wall-clock of the last span enter/exit: a live reader's progress
+        # signal
+        self.last_transition_unix = time.time()
         self._stack: List[Span] = []
         self._ids = itertools.count()
+        # per-stage-name entry counts: the Nth time a stage span named X
+        # opens, _stage_entries[X] == N
+        self._stage_entries: Dict[str, int] = {}
         self._lock = threading.Lock()
         global _LAST_TRACER
         _LAST_TRACER = weakref.ref(self)
@@ -258,7 +318,20 @@ class Tracer:
                 len(self._stack), kind, dict(attrs),
             )
             self._stack.append(sp)
+            if kind == "stage":
+                self._stage_entries[name] = \
+                    self._stage_entries.get(name, 0) + 1
+            self.last_transition_unix = time.time()
         do_sync = self._should_sync(kind, sync)
+        ann = None
+        if self.annotate:
+            try:
+                from torch.profiler import record_function
+
+                ann = record_function(name)
+                ann.__enter__()
+            except Exception:
+                ann = None
         if do_sync:
             # entry boundary: queued work from the PREDECESSOR retires now,
             # so it cannot be billed to this span
@@ -276,14 +349,25 @@ class Tracer:
                 sp.wall_synced_s = time.perf_counter() - sp._t_enter
             if sp.synced and self.sample_device:
                 try:
-                    sp.device_mem = _memory_snapshot()
+                    from scconsensus_tpu_torch.obs import device as obs_device
+
+                    sp.device_mem = obs_device.memory_snapshot()
                 except Exception:
                     pass
+            if ann is not None:
+                ann.__exit__(None, None, None)
             _ACTIVE.reset(sp._token)
             with self._lock:
                 if self._stack and self._stack[-1] is sp:
                     self._stack.pop()
                 self.spans.append(sp)
+                self.last_transition_unix = time.time()
+            if self.logger is not None and kind == "stage":
+                self.logger.info(
+                    "stage %s",
+                    json.dumps(summarize_record(sp.stage_record()),
+                               default=str),
+                )
 
     def add_completed_span(self, name: str, wall_s: float,
                            kind: str = "detail", synced: bool = False,
@@ -310,7 +394,86 @@ class Tracer:
                 sp.synced = True
                 sp.wall_synced_s = wall_s
             self.spans.append(sp)
+            self.last_transition_unix = time.time()
         return sp
+
+    # -- views -------------------------------------------------------------
+    def stage_records(self) -> List[Dict[str, Any]]:
+        return [s.stage_record() for s in self.spans if s.kind == "stage"]
+
+    def span_records(self) -> List[Dict[str, Any]]:
+        return [s.record() for s in self.spans]
+
+    def open_stack(self) -> List[Dict[str, Any]]:
+        """Snapshot of the currently open spans, outermost first: name,
+        kind, depth, span_id/parent_id, and the wall elapsed since entry.
+        Thread-safe (a live reader calls it from its own thread while the
+        run thread is mid-span)."""
+        now = time.perf_counter()
+        with self._lock:
+            stack = list(self._stack)
+        return [{
+            "name": s.name,
+            "span_id": s.span_id,
+            "parent_id": s.parent_id,
+            "depth": s.depth,
+            "kind": s.kind,
+            "elapsed_s": round(max(now - s._t_enter, 0.0), 4),
+        } for s in stack]
+
+    def live_span_records(self) -> List[Dict[str, Any]]:
+        """Finished span records PLUS provisional records for still-open
+        spans (wall = elapsed so far, ``synced`` False, ``attrs["open"]``
+        True). A mid-run record built only from finished spans would carry
+        dangling parent_ids (children of a still-open stage complete
+        first) and lose what was running when the process died."""
+        now = time.perf_counter()
+        with self._lock:
+            done = list(self.spans)
+            stack = list(self._stack)
+        out = [s.record() for s in done]
+        for s in stack:
+            out.append({
+                "name": s.name,
+                "span_id": s.span_id,
+                "parent_id": s.parent_id,
+                "depth": s.depth,
+                "kind": s.kind,
+                "t0_s": round(s.t0_s, 6),
+                "wall_submitted_s": round(max(now - s._t_enter, 0.0), 6),
+                "wall_synced_s": None,
+                "synced": False,
+                "attrs": {**s.attrs, "open": True},
+            })
+        return out
+
+    def total_s(self) -> float:
+        return sum(s.wall_s for s in self.spans if s.kind == "stage")
+
+    def compile_stats(self) -> Optional[Dict[str, Any]]:
+        """None: the port compiles no XLA program (the hand kernel is
+        built by nvcc before it launches, not during the run), so there is
+        no compile listener and the record carries no ``device.compile``
+        (the reference returns None without its listener as well)."""
+        return None
+
+    def as_dict(self) -> Dict[str, Any]:
+        from scconsensus_tpu_torch.obs.export import (
+            SCHEMA_NAME,
+            SCHEMA_VERSION,
+        )
+
+        out: Dict[str, Any] = {
+            "stages": self.stage_records(),
+            "total_s": self.total_s(),
+            "spans": self.span_records(),
+            "schema": SCHEMA_NAME,
+            "schema_version": SCHEMA_VERSION,
+        }
+        cs = self.compile_stats()
+        if cs is not None:
+            out["compile"] = cs
+        return out
 
 
 def current_tracer() -> Optional[Tracer]:
@@ -325,6 +488,26 @@ def current_span() -> Optional[Span]:
         return None
     with tr._lock:
         return tr._stack[-1] if tr._stack else None
+
+
+def ambient_stage() -> Tuple[Optional[str], int]:
+    """``(stage_name, entry_ordinal)`` of the innermost open stage-kind
+    span, or ``(None, 0)`` with no stage open. Contextvar first, then
+    :func:`last_tracer`, so off-thread observers resolve the stage the
+    run thread is in. Thread-safe; never raises."""
+    tr = _ACTIVE.get()
+    if tr is None:
+        tr = last_tracer()
+    if tr is None:
+        return (None, 0)
+    try:
+        with tr._lock:
+            for s in reversed(tr._stack):
+                if s.kind == "stage":
+                    return (s.name, tr._stage_entries.get(s.name, 1))
+    except Exception:
+        pass
+    return (None, 0)
 
 
 @contextmanager

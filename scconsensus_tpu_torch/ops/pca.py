@@ -9,6 +9,9 @@ arbitrary, as with irlba; euclidean distances and Ward are sign-invariant.
 ``omega`` (F, k) replaces the port's own draw of the random projection.
 The reference draws it from ``jax.random.PRNGKey(seed)``, which torch
 cannot reproduce; ``carry.omega_from_reference`` hands that draw over.
+The port's own draw comes from torch's CPU generator and is then moved
+to the data's device, so a run on the card and a run on the CPU project
+through the same matrix (the card's generator draws other numbers).
 """
 
 from __future__ import annotations
@@ -35,9 +38,9 @@ def _subspace_basis(x: torch.Tensor, n_components: int, seed: int,
     mean = torch.mean(x, dim=0)
     xc = x - mean[None, :]
     if omega is None:
-        gen = torch.Generator(device=x.device).manual_seed(int(seed))
-        omega = torch.randn((f, k), generator=gen, device=x.device,
-                            dtype=x.dtype)
+        gen = torch.Generator().manual_seed(int(seed))
+        omega = torch.randn((f, k), generator=gen,
+                            dtype=x.dtype).to(x.device)
     else:
         if tuple(omega.shape) != (f, k):
             raise ValueError(

@@ -1,7 +1,8 @@
 """Batched midranks with tie statistics.
 
-The torch form of ``scconsensus_tpu/ops/ranks.py`` ``masked_midranks``
-(:27-58). Ties resolve to midranks exactly as
+The torch form of ``scconsensus_tpu/ops/ranks.py``: ``masked_midranks``
+(:27-58) and ``rank_sum_groups`` (:61-81). Ties resolve to midranks
+exactly as
 R's ``rank()``: every member of a tie run gets the average of the ranks
 the run spans, and the run sizes give the variance correction Σ(t³−t) of
 the normal-approximation Wilcoxon test. Invalid (padded) entries sort to
@@ -10,10 +11,11 @@ one static shape. Ranks are halves and tie sums integers, exact in
 float32 below 2^24 elements.
 
 Reference-parity API off ``refine()``'s path: only the sort-midrank
-Wilcoxon tile (``ops.wilcoxon.wilcoxon_pairs_tile``) uses it, for the
-fused step and ``parallel.sharded_de.sharded_wilcox_logp``; the DE
-ladder ranks with the scan body (``ops.ranksum_allpairs``). Its removal
-from both packages is queued.
+Wilcoxon tile (``ops.wilcoxon.wilcoxon_pairs_tile``) uses
+``masked_midranks``, for the fused step and
+``parallel.sharded_de.sharded_wilcox_logp``, and ``rank_sum_groups`` is
+the statistical tests' oracle; the DE ladder ranks with the scan body
+(``ops.ranksum_allpairs``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["masked_midranks"]
+__all__ = ["masked_midranks", "rank_sum_groups"]
 
 
 def masked_midranks(values: torch.Tensor, mask: torch.Tensor
@@ -48,3 +50,26 @@ def masked_midranks(values: torch.Tensor, mask: torch.Tensor
         -1, order, torch.where(valid_sorted, mid, torch.zeros_like(mid)))
     return ranks, tie_sum
 
+
+
+def rank_sum_groups(values: torch.Tensor, group1_mask: torch.Tensor,
+                    group2_mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank sum of group 1 within the union of both groups, batched over
+    rows.
+
+    values: (B, n) rows (e.g. genes × pair cells); group1_mask and
+    group2_mask: (B, n) or (n,) boolean membership, disjoint. Returns
+    (rank_sum_1, tie_sum), (B,) each: rank_sum_1 is the sum of the
+    midranks of group 1's entries among the pooled entries, R's
+    ``sum(r[seq_along(x)])``."""
+    group1_mask = torch.as_tensor(group1_mask, device=values.device)
+    group2_mask = torch.as_tensor(group2_mask, device=values.device)
+    if group1_mask.ndim == 1:
+        group1_mask = group1_mask.expand(values.shape)
+    if group2_mask.ndim == 1:
+        group2_mask = group2_mask.expand(values.shape)
+    ranks, tie_sum = masked_midranks(values, group1_mask | group2_mask)
+    rs1 = torch.sum(torch.where(group1_mask, ranks, torch.zeros_like(ranks)),
+                    dim=-1)
+    return rs1, tie_sum

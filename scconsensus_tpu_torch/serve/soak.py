@@ -8,13 +8,13 @@
 The port of ``scconsensus_tpu/serve/soak.py``. Builds (or loads) a
 deterministic demo consensus model under ``DIR``, drives a replayable
 request set through :class:`ConsensusServer` under whatever
-``SCC_FAULT_PLAN`` is set, and writes one summary JSON: the ``serving``
-section (checked by ``validate_serving``), a per-request outcome list
-and a sha256 over the returned labels in request order. The exit code is
-the chaos contract:
+``SCC_FAULT_PLAN`` is set, and writes one summary JSON: a run record
+(``obs.export``) carrying the ``serving`` section, validated, a
+per-request outcome list and a sha256 over the returned labels in
+request order. The exit code is the chaos contract:
 
   0  every submitted request ended as exactly one typed outcome and the
-     serving section validates;
+     run record validates;
   1  the contract broke (a request vanished, validation failed);
   3  with ``--expect-refusal``: the model loaded when a typed refusal was
      expected.
@@ -23,9 +23,7 @@ The model build, the request set and classify are seeded and the model
 is frozen, so two clean runs over the same ``DIR`` give identical label
 hashes: the kill-and-restart check is ``sha(restart) == sha(reference)``.
 
-Against the reference: the summary holds the ``serving`` section where
-the reference holds a whole run record (``build_run_record``); the
-run-record schema waits for ROADMAP A10. ``--device`` (default ``cuda``)
+The summary's keys are the reference's. ``--device`` (default ``cuda``)
 picks where the model and the server run.
 """
 
@@ -138,12 +136,16 @@ def run_soak(model_dir: str, n_requests: int = 24, cells_per: int = 16,
     """Drive the request set through a server; returns the summary dict
     (see the module doc). ModelLoadError propagates: the caller decides
     whether a refusal was the expected outcome."""
+    from scconsensus_tpu_torch.device import resolve_device
+    from scconsensus_tpu_torch.obs.export import (
+        build_run_record,
+        validate_run_record,
+    )
     from scconsensus_tpu_torch.serve.driver import (
         ConsensusServer,
         ServeConfig,
     )
     from scconsensus_tpu_torch.serve.errors import ServeError
-    from scconsensus_tpu_torch.serve.metrics import validate_serving
     from scconsensus_tpu_torch.serve.model import (
         MODEL_STAGE,
         load_consensus_model,
@@ -203,7 +205,15 @@ def run_soak(model_dir: str, n_requests: int = 24, cells_per: int = 16,
         for t in threads:
             t.join(timeout=120.0)
         section = server.serving_section()
-    validate_serving(section)
+    rec = build_run_record(
+        metric="serve soak p99 latency",
+        value=(section.get("latency_ms") or {}).get("p99"),
+        unit="ms",
+        extra={"config": "serve-soak",
+               "platform": resolve_device(device).type},
+        serving=section,
+    )
+    validate_run_record(rec)
 
     resolved = [o for o in outcomes if o is not None]
     h = hashlib.sha256()
@@ -218,7 +228,7 @@ def run_soak(model_dir: str, n_requests: int = 24, cells_per: int = 16,
         "labels_sha": h.hexdigest(),
         "outcome_counts": _tally(resolved),
         "outcomes": resolved,
-        "serving": section,
+        "record": rec,
     }
 
 

@@ -3,12 +3,18 @@
 The port's copy of ``scconsensus_tpu/stream/budget.py``. Two budgets, one
 ledger:
 
-  * ``SCC_STREAM_HOST_BUDGET_MB``: the bound the record is judged by.
-    Peak process RSS (the kernel's high-water mark,
-    ``obs.device.host_peak_rss_bytes``) must stay under it for the run's
-    ``streaming.budget.within_budget`` claim to validate. Sampled on
-    every charge; a breach of the current RSS raises typed
-    :class:`HostBudgetExceeded` before the next allocation.
+  * ``SCC_STREAM_HOST_BUDGET_MB``: the bound the record is judged by,
+    taken over the process's baseline: the peak RSS (the kernel's
+    high-water mark, ``obs.device.host_peak_rss_bytes``) sampled when the
+    accountant is built. A torch process with CUDA up starts at ~4.8 GB
+    resident, above the 4,096 MB default, so the budget bounds what the
+    run adds to the process it runs in. The peak RSS must stay at or
+    under baseline + budget for the run's
+    ``streaming.budget.within_budget`` claim to validate (the section's
+    ``limit_mb`` is that sum; ``budget_mb`` and ``baseline_rss_mb`` are
+    its parts). Sampled on every charge; a charge that would take the
+    current RSS past baseline + budget raises typed
+    :class:`HostBudgetExceeded` before the allocation.
   * ``SCC_STREAM_STAGE_BUDGET_MB``: the bound the streaming layer
     enforces on its own buffers (loaded CSR chunks, the DE window's
     staging, the dense embed, the (N, n_pcs) scores): each is
@@ -107,15 +113,15 @@ class HostBudgetAccountant:
                     )
                 self._sample_rss_locked()
                 # enforcement reads the CURRENT rss (what halving can
-                # actually lower); the record's within_budget claim is
-                # judged by the monotone high-water mark sampled above —
-                # in a dedicated worker process the two meet at the
-                # streaming peak, in a long-lived host process only the
-                # current value is actionable
+                # actually lower) against the budget over the baseline;
+                # the record's within_budget claim is judged by the
+                # monotone high-water mark sampled above against the same
+                # bound
                 cur = self._current_rss()
-                if cur + nbytes > self.limit_bytes:
+                if cur + nbytes > self.effective_limit_bytes:
                     raise HostBudgetExceeded(
-                        "rss", nbytes, cur, self.limit_bytes, what,
+                        "rss", nbytes, cur, self.effective_limit_bytes,
+                        what,
                     )
                 self.staged += nbytes
                 self.peak_staged = max(self.peak_staged, self.staged)
@@ -209,12 +215,20 @@ class HostBudgetAccountant:
         with self._lock:
             self._progress.update(kw)
 
+    @property
+    def effective_limit_bytes(self) -> int:
+        """The RSS bound: the budget over the baseline RSS."""
+        return self.baseline_rss + self.limit_bytes
+
     def budget_fields(self) -> Dict[str, Any]:
-        """The section builder's budget inputs (stream.record)."""
+        """The section builder's budget inputs (stream.record):
+        ``limit_mb`` is the bound the peak is judged by (baseline +
+        budget), ``budget_mb`` the configured budget over the baseline."""
         with self._lock:
             self._sample_rss_locked()
             return {
-                "limit_mb": self.limit_bytes / MB,
+                "limit_mb": self.effective_limit_bytes / MB,
+                "budget_mb": self.limit_bytes / MB,
                 "stage_limit_mb": self.stage_limit_bytes / MB,
                 "baseline_rss_mb": self.baseline_rss / MB,
                 "peak_rss_mb": self.peak_rss / MB,

@@ -9,9 +9,14 @@ there). One section per out-of-core run::
       window: {initial_rows, final_rows, halvings},
       ckpt:   {initial_every, final_every},      # ENOSPC degradation
       budget: {limit_mb, stage_limit_mb, baseline_rss_mb, peak_rss_mb,
-               peak_staged_mb, within_budget},
+               peak_staged_mb, within_budget, budget_mb?},
       complete: bool,
     }
+
+The port's accountant judges a run by the budget over the process's
+baseline RSS (``stream.budget``): ``limit_mb`` is baseline + budget, and
+the extra key ``budget_mb`` the budget itself, so both packages'
+validators read the same claim.
 
 Validation contract:
 
@@ -45,14 +50,17 @@ def build_streaming_section(
     limit_mb: float, stage_limit_mb: float,
     baseline_rss_mb: Optional[float], peak_rss_mb: Optional[float],
     peak_staged_mb: float, complete: bool,
+    budget_mb: Optional[float] = None,
 ) -> Dict[str, Any]:
     """Assemble one schema-conforming section (the single construction
     point, so the field list cannot drift from the validator).
     ``within_budget`` is COMPUTED here, never asserted by the caller — a
     run with no peak evidence gets ``within_budget: false`` by
-    construction."""
+    construction. ``budget_mb`` (the port's accountant) is the budget
+    over the baseline RSS whose sum is ``limit_mb``; the key is left out
+    when not given, as the reference's builder has none."""
     peak_ok = isinstance(peak_rss_mb, (int, float))
-    return {
+    sec = {
         "chunks": {
             "planned": int(planned),
             "completed": int(fresh) + int(resumed),
@@ -84,6 +92,9 @@ def build_streaming_section(
         },
         "complete": bool(complete),
     }
+    if budget_mb is not None:
+        sec["budget"]["budget_mb"] = round(float(budget_mb), 3)
+    return sec
 
 
 def _require(cond: bool, msg: str) -> None:

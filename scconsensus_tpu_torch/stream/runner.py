@@ -36,7 +36,10 @@ then the typed error propagates); a disk-class per-chunk checkpoint
 write failure doubles the checkpoint granularity before failing typed; a
 torn chunk quarantines and recomputes through the store's generator.
 
-``result.metrics`` holds ``device``, ``stage_walls_s``, ``union_size``,
+``result.metrics`` holds the tracer's ``as_dict()`` (``stages``,
+``total_s``, ``spans``, ``schema``, ``schema_version``; each stage runs
+inside a tracer span of the reference's name, the tracer owned by
+``timer``), ``device``, ``stage_walls_s``, ``union_size``,
 ``per_pair_de_counts``, ``n_genes``, ``n_cells``, ``tree``,
 ``silhouette``, ``stream`` (``embed_regime`` "dense" or "gram", the
 chunk loads and their seconds by stage, the ingest's chunks and seconds,
@@ -55,7 +58,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from scconsensus_tpu_torch.config import ReclusterConfig
+from scconsensus_tpu_torch.config import (
+    ReclusterConfig,
+    refuse_unported_flags,
+)
 from scconsensus_tpu_torch.device import resolve_device
 from scconsensus_tpu_torch.stream import record as stream_record
 from scconsensus_tpu_torch.stream.budget import (
@@ -64,6 +70,7 @@ from scconsensus_tpu_torch.stream.budget import (
 )
 from scconsensus_tpu_torch.stream.store import ChunkedCSRStore
 from scconsensus_tpu_torch.utils.artifacts import ArtifactStore
+from scconsensus_tpu_torch.utils.logging import StageTimer, get_logger
 from scconsensus_tpu_torch.utils.timing import StageClock
 
 __all__ = ["streaming_refine"]
@@ -160,6 +167,7 @@ def streaming_refine(
     regen: Optional[Callable[[int, int], Any]] = None,
     device=None,
     omega: Optional[torch.Tensor] = None,
+    timer: Optional[StageTimer] = None,
 ):
     """Run the refine pipeline out-of-core against ``store``.
 
@@ -168,7 +176,9 @@ def streaming_refine(
     (the synthetic workloads pass their seeded generator; ingested data
     without one fails typed on a torn chunk). ``device``: "cuda" by
     default, "cpu" only when asked for. ``omega``: the dense embed's
-    random projection, as for ``refine()``. Returns a
+    random projection, as for ``refine()``. ``timer``: the
+    ``utils.logging.StageTimer`` whose tracer times the stages (default:
+    a new one logging to ``get_logger()``). Returns a
     ``models.pipeline.ReclusterResult`` whose ``metrics`` carry the
     validated ``streaming`` section. Only ``config.method == "wilcox"``
     runs out-of-core.
@@ -183,7 +193,9 @@ def streaming_refine(
             f"{config.method!r}) — the NB/edgeR path is not sharded "
             "out-of-core yet"
         )
+    refuse_unported_flags()
     dev = resolve_device(device)
+    timer = timer or StageTimer(get_logger())
     robust_record.begin_run()
     robust_integrity.begin_run()
     G, N = store.shape
@@ -224,7 +236,7 @@ def streaming_refine(
     with acct:
         result = _streaming_impl(
             store, lab, config, gene_names, stages, state, acct, regen,
-            _guard, groups_sha, dev, omega,
+            _guard, groups_sha, dev, omega, timer,
         )
 
     # -- the validated streaming section ---------------------------------
@@ -242,6 +254,7 @@ def streaming_refine(
         peak_rss_mb=bud["peak_rss_mb"],
         peak_staged_mb=bud["peak_staged_mb"],
         complete=(completed == store.n_chunks),
+        budget_mb=bud["budget_mb"],
     )
     stream_record.validate_streaming(section)  # the emitter self-checks
     result.metrics["streaming"] = section
@@ -350,7 +363,7 @@ def _fetch(x: torch.Tensor) -> np.ndarray:
 
 
 def _streaming_impl(store, lab, config, gene_names, stages, state, acct,
-                    regen, _guard, groups_sha, dev, omega):
+                    regen, _guard, groups_sha, dev, omega, timer):
     from scconsensus_tpu_torch.de.engine import (
         PairwiseDEResult,
         _all_pairs,
@@ -375,7 +388,7 @@ def _streaming_impl(store, lab, config, gene_names, stages, state, acct,
     from scconsensus_tpu_torch.robust.faults import corrupt_value
 
     G, N = store.shape
-    clock = StageClock(dev)
+    clock = StageClock(dev, tracer=timer.tracer)
     load = _ChunkLoads(store, regen)
     ingest = {"chunks": 0, "s": 0.0}
 
@@ -878,6 +891,7 @@ def _streaming_impl(store, lab, config, gene_names, stages, state, acct,
     )
     acct.sample_rss()
     metrics = {
+        **timer.as_dict(),
         "device": str(dev),
         "stage_walls_s": dict(clock.walls),
         "union_size": int(union.size),

@@ -15,15 +15,13 @@ ingest resumes into the same matrix), runs ``streaming_refine`` with
 ``DIR/stages`` as the resumable progress store, and writes one summary
 JSON. The exit code is the chaos contract:
 
-  0  the run completed all chunks, its ``streaming`` section validates
-     (``stream.record.validate_streaming``), its ``robustness`` section
-     validates when present, and every deepSplit has labels;
+  0  the run completed all chunks, its run record (``obs.export``,
+     with the ``streaming`` and, when present, ``robustness`` sections)
+     validates, and every deepSplit has labels;
   1  the contract broke.
 
-The reference's summary also carries a run record (``build_run_record``),
-whose schema waits for the port's ``obs/export``; this worker keeps the
-sections themselves instead. The other keys, and ``labels_sha``, are the
-reference's, so the two packages' workers can be held to each other.
+The summary's keys, its run record (``record``) and ``labels_sha`` are
+the reference's, so the two packages' workers can be held to each other.
 ``--device`` defaults to ``cuda``.
 
 :func:`chunk_generator` is also the brain10m generator: the same planted
@@ -128,9 +126,11 @@ def run_stream_soak(
     """One deterministic out-of-core run; returns the summary dict (see
     the module doc)."""
     from scconsensus_tpu_torch.config import ReclusterConfig, env_flag
-    from scconsensus_tpu_torch.robust.record import validate_robustness
+    from scconsensus_tpu_torch.obs.export import (
+        build_run_record,
+        validate_run_record,
+    )
     from scconsensus_tpu_torch.stream.budget import HostBudgetAccountant
-    from scconsensus_tpu_torch.stream.record import validate_streaming
     from scconsensus_tpu_torch.stream.runner import streaming_refine
     from scconsensus_tpu_torch.stream.store import ChunkedCSRStore
 
@@ -159,11 +159,19 @@ def run_stream_soak(
     wall = time.perf_counter() - t0
     section = result.metrics["streaming"]
     rb = result.metrics.get("robustness")
+    rec = build_run_record(
+        metric=f"stream soak: {n_cells}-cell out-of-core refine",
+        value=round(wall, 3), unit="seconds",
+        extra={"config": "stream-soak",
+               "platform": result.metrics["device"].split(":")[0],
+               "n_cells": n_cells, "n_genes": n_genes},
+        spans=result.metrics.get("spans") or [],
+        streaming=section,
+        robustness=rb,
+    )
     invalid = None
     try:
-        validate_streaming(section)
-        if rb is not None:
-            validate_robustness(rb)
+        validate_run_record(rec)
     except ValueError as e:
         invalid = str(e)
     have_all_cuts = all(
@@ -183,8 +191,7 @@ def run_stream_soak(
         "within_budget": section["budget"]["within_budget"],
         "peak_rss_mb": section["budget"]["peak_rss_mb"],
         "de_resumed": bool((rb or {}).get("resume_points")),
-        "streaming": section,
-        "robustness": rb,
+        "record": rec,
     }
 
 

@@ -25,9 +25,9 @@ once the covering ``de`` artifact lands; ``load_many`` reads and checks
 several stages on parallel threads (a resume's ladder blocks). Each file
 is read once and hashed over those bytes. The hashing is the robustness
 layer's own cost and is timed onto ``robust.record``'s ``consumed_s``,
-as in the reference. Left out against the reference
-until a caller in the port needs it: the ``SCC_ROBUST_CHECKSUM`` switch
-(checksums are always written and verified here).
+as in the reference. ``SCC_ROBUST_CHECKSUM=0`` turns the checksums off,
+as ``scconsensus_tpu/utils/artifacts.py:233-237`` does: saves write no
+``_integrity`` and loads verify none.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from scconsensus_tpu_torch.config import env_flag
 from scconsensus_tpu_torch.io.sparsemat import DeviceCSR, is_sparse
 from scconsensus_tpu_torch.obs.export import (
     ATOMIC_TMP_PREFIX as _TMP_PREFIX,
@@ -120,6 +121,11 @@ def config_fingerprint(obj: Any, n_hex: int = 12) -> str:
     like its value."""
     blob = json.dumps(obj, sort_keys=True, default=str, separators=(",", ":"))
     return hashlib.sha256(blob.encode()).hexdigest()[:n_hex]
+
+
+def _checksums_on() -> bool:
+    """``SCC_ROBUST_CHECKSUM`` (default on), read at each save and load."""
+    return bool(env_flag("SCC_ROBUST_CHECKSUM"))
 
 
 def file_sha256(path: str) -> str:
@@ -279,6 +285,7 @@ class ArtifactStore:
             return
 
         writer = np.savez_compressed if compress else np.savez
+        checksums = _checksums_on()
         integrity: Dict[str, Any] = {}
 
         def _wz(tmp):
@@ -287,15 +294,17 @@ class ArtifactStore:
             buf = io.BytesIO()
             writer(buf, **{k: np.asarray(v) for k, v in arrays.items()})
             data = buf.getbuffer()
-            with _robust_record.timed():
-                integrity["sha256"] = hashlib.sha256(data).hexdigest()
-            integrity["size"] = len(data)
+            if checksums:
+                with _robust_record.timed():
+                    integrity["sha256"] = hashlib.sha256(data).hexdigest()
+                integrity["size"] = len(data)
             with open(tmp, "wb") as f:
                 f.write(data)
 
         def _seal(tmp):
             # between serialize and replace: the sidecar, meta before arrays
-            _write_sidecar(integrity)
+            if checksums or meta is not None:
+                _write_sidecar(integrity if checksums else None)
 
         _atomic_bytes_writer(npz, _wz, inspect_fn=_seal)
         # the fault plan's post-write corruption (artifact:<stage>): a
@@ -338,7 +347,7 @@ class ArtifactStore:
         with open(npz, "rb") as f:
             data = f.read()
         digest = (hashlib.sha256(data).hexdigest()
-                  if meta.get("_integrity") else None)
+                  if meta.get("_integrity") and _checksums_on() else None)
         return meta, data, digest
 
     @staticmethod

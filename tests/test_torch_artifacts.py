@@ -180,6 +180,39 @@ def test_the_sidecar_checksum_is_the_reference_s(tmp_path):
         ref.load("union")
 
 
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_checksums_follow_scc_robust_checksum(tmp_path, monkeypatch, pkg):
+    """SCC_ROBUST_CHECKSUM=0: saves stamp no _integrity and loads verify
+    none, so an arrays file replaced behind a checksummed sidecar loads;
+    with the default (on) the same store refuses it. Both packages give
+    the same verdicts."""
+    mod = artifacts if pkg == "port" else ref_artifacts
+    monkeypatch.setenv("SCC_ROBUST_CHECKSUM", "0")
+    off = mod.ArtifactStore(str(tmp_path / "off"))
+    off.save("union", {"idx": np.arange(5)}, meta={"k": 1})
+    with open(tmp_path / "off" / "union.json") as f:
+        assert json.load(f) == {"k": 1}
+    off.save("bare", {"idx": np.arange(3)})
+    assert not os.path.exists(tmp_path / "off" / "bare.json")
+    np.testing.assert_array_equal(off.load("bare")[0]["idx"], np.arange(3))
+
+    monkeypatch.delenv("SCC_ROBUST_CHECKSUM")
+    root = tmp_path / "on"
+    on = mod.ArtifactStore(str(root))
+    on.save("union", {"idx": np.arange(5)}, meta={"k": 1})
+    with open(root / "union.json") as f:
+        assert "_integrity" in json.load(f)
+    # other valid arrays behind the old sidecar
+    with open(root / "union.npz", "wb") as f:
+        np.savez_compressed(f, idx=np.arange(7))
+    monkeypatch.setenv("SCC_ROBUST_CHECKSUM", "0")
+    np.testing.assert_array_equal(mod.ArtifactStore(str(root)).load(
+        "union")[0]["idx"], np.arange(7))
+    monkeypatch.delenv("SCC_ROBUST_CHECKSUM")
+    with pytest.raises(mod.ArtifactCorrupt, match="checksum mismatch"):
+        mod.ArtifactStore(str(root)).load("union")
+
+
 @pytest.mark.parametrize("kind", ["numpy", "tensor", "csr", "device_csr"])
 def test_input_fingerprint_equals_the_reference(case, kind):
     data, labels = case

@@ -121,7 +121,10 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
             "stream/budget.py", "stream/record.py", "stream/runner.py",
             "stream/soak.py", "stream/store.py", "robust/elastic.py",
             "parallel/mesh.py", "parallel/sharded_de.py", "parallel/ring.py",
-            "parallel/step.py", "parallel/validate.py", "ops/ranks.py"} <= rel
+            "parallel/step.py", "parallel/validate.py", "ops/ranks.py",
+            "robust/soak.py", "obs/kernels.py", "obs/export.py",
+            "utils/logging.py", "ops/treecut_direct.py",
+            "de/edger_direct.py"} <= rel
     bad = [
         f"{os.path.relpath(p, REPO)}:{line} imports {mod}"
         for p in files for mod, line in _imported_roots(p)
@@ -159,6 +162,10 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
             lambda: port.pooled_multi_cut_silhouette(
                 data.T, [np.arange(240) % 3], n_centroids=8),
     }
+    from scconsensus_tpu_torch.robust.soak import run_integrity_soak
+
+    calls["run_integrity_soak"] = lambda: run_integrity_soak(
+        "/nonexistent", n_cells=40, n_genes=20)
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -204,14 +211,22 @@ def test_config_round_trips_from_the_reference_json():
         config_from_reference('{"not_a_field": 1}')
 
 
+UNPORTED_FLAG_VALUES = {
+    "SCC_OBS_TRANSFERS": "1", "SCC_OBS_RESIDENCY": "audit",
+    "SCC_OBS_COST": "1", "SCC_WILCOX_PROBE": "1", "SCC_OBS_HEARTBEAT": "0.5",
+    "SCC_OBS_STALL_S": "30", "SCC_HOSTPROF": "1", "SCC_COMPILELOG": "1",
+    "SCC_GRAPHS": "1",
+}
+
+
 @pytest.mark.parametrize("case", ["method", "sparse_method", "fleet_route",
-                                  "fleet_swap", "wire_request", "annotate"])
+                                  "fleet_swap", "wire_request",
+                                  *UNPORTED_FLAG_VALUES])
 def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     import json
 
     import scipy.sparse as sp
 
-    from scconsensus_tpu_torch.obs.trace import Tracer
     from scconsensus_tpu_torch.robust import faults
 
     data, labels = _tiny()
@@ -232,6 +247,25 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
                 faults.reset()
         return run
 
+    if case in UNPORTED_FLAG_VALUES:
+        # a reference flag of refine() the port does not handle yet is
+        # refused when set, by refine() and by streaming_refine() alike
+        from scconsensus_tpu_torch.config import ENV_FLAGS
+        from scconsensus_tpu_torch.stream.store import ChunkedCSRStore
+
+        assert ENV_FLAGS[case].doc == ref_config.ENV_FLAGS[case].doc
+        # its off value runs
+        monkeypatch.setenv(case, "0" if case != "SCC_OBS_RESIDENCY"
+                           else "off")
+        port.refine(data, labels, ReclusterConfig(), device="cpu")
+        monkeypatch.setenv(case, UNPORTED_FLAG_VALUES[case])
+        with pytest.raises(NotImplementedError, match=case):
+            port.refine(data, labels, ReclusterConfig(), device="cpu")
+        store = ChunkedCSRStore.create(str(tmp_path / "c"), 120, 240, 32)
+        with pytest.raises(NotImplementedError, match=case):
+            port.streaming_refine(store, labels, ReclusterConfig(),
+                                  device="cpu")
+        return
     run = {
         # "mast" is a method the reference refuses as well
         "method": lambda: port.refine(
@@ -244,11 +278,111 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
         "fleet_route": _plan_naming("fleet_route"),
         "fleet_swap": _plan_naming("fleet_swap"),
         "wire_request": _plan_naming("wire_request"),
-        # the profiler-annotate mode is a jax.profiler call in the reference
-        "annotate": lambda: Tracer(annotate=True),
     }[case]
     with pytest.raises(NotImplementedError):
         run()
+
+
+# --------------------------------------------------------------------------
+# the package surface (ROADMAP C14) and the landmark flags (C12)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sub", ["", "consensus", "models", "de", "ops",
+                                 "utils"])
+def test_every_all_equals_the_reference(sub):
+    import importlib
+
+    ours = importlib.import_module(
+        "scconsensus_tpu_torch" + (f".{sub}" if sub else ""))
+    ref = importlib.import_module(
+        "scconsensus_tpu" + (f".{sub}" if sub else ""))
+    assert ours.__all__ == ref.__all__
+    for name in ours.__all__:
+        assert getattr(ours, name) is not None, name
+
+
+def test_the_reference_imports_work_on_the_port():
+    from scconsensus_tpu_torch import ReclusterResult, __version__
+    from scconsensus_tpu_torch.consensus import contingency_table
+    from scconsensus_tpu_torch.models import refine
+    from scconsensus_tpu_torch.models.pipeline import (
+        ReclusterResult as PipelineResult,
+    )
+    from scconsensus_tpu_torch.ops import rank_sum_groups, wilcoxon_exact_host
+    from scconsensus_tpu_torch.utils import StageTimer, get_logger
+
+    assert refine is port.refine and ReclusterResult is PipelineResult
+    assert __version__ == "0.1.0"
+    assert callable(contingency_table) and callable(rank_sum_groups)
+    assert callable(wilcoxon_exact_host) and callable(get_logger)
+    assert StageTimer().tracer is not None
+
+
+TREE_FLAGS = ("SCC_TREE_EXACT", "SCC_TREE_LANDMARK_THRESHOLD",
+              "SCC_TREE_LANDMARK_K", "SCC_TREE_LANDMARK_C",
+              "SCC_ROBUST_CHECKSUM", "SCC_TRACE_DIR")
+
+
+@pytest.mark.parametrize("name", TREE_FLAGS)
+def test_new_flags_carry_the_reference_registration(name):
+    from scconsensus_tpu_torch.config import ENV_FLAGS
+
+    ours, ref = ENV_FLAGS[name], ref_config.ENV_FLAGS[name]
+    assert (ours.name, ours.type, ours.default, ours.doc) == (
+        ref.name, ref.type, ref.default, ref.doc)
+
+
+@pytest.mark.parametrize("case", [
+    # (env, config fields, n_cells): ROADMAP C12's two cases first
+    ({"SCC_TREE_LANDMARK_THRESHOLD": "1000"}, {}, 5_000),
+    ({"SCC_TREE_EXACT": "1"}, {}, 1_000_000),
+    ({}, {}, 1_000_000),
+    ({}, {}, 200_000),
+    ({"SCC_TREE_LANDMARK_K": "300", "SCC_TREE_LANDMARK_C": "3.5"}, {},
+     500_000),
+    # config fields win over the flags
+    ({"SCC_TREE_LANDMARK_THRESHOLD": "1000", "SCC_TREE_LANDMARK_K": "300",
+      "SCC_TREE_LANDMARK_C": "3.5"},
+     {"landmark_threshold": 4000, "landmark_k": 128, "landmark_c": 1.5},
+     5_000),
+    ({"SCC_TREE_LANDMARK_THRESHOLD": "1000"}, {"landmark_threshold": 9000},
+     5_000),
+    ({"SCC_TREE_EXACT": "0", "SCC_TREE_LANDMARK_THRESHOLD": "10"},
+     {"landmark_sketch": 2000, "landmark_linkage": "knn"}, 50),
+], ids=["c12-threshold", "c12-exact", "default-1m", "at-threshold",
+        "k-and-c", "config-wins", "config-threshold", "exact-off"])
+def test_landmark_policy_equals_the_reference(case, monkeypatch):
+    env, fields, n = case
+    for name in TREE_FLAGS[:4]:
+        monkeypatch.delenv(name, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ours = ReclusterConfig(**fields).landmark_policy(n)
+    ref = ref_config.ReclusterConfig(**fields).landmark_policy(n)
+    assert ours == ref
+    if env == {"SCC_TREE_LANDMARK_THRESHOLD": "1000"} and not fields:
+        assert ours is not None and ours["threshold"] == 1000
+    if env.get("SCC_TREE_EXACT") == "1":
+        assert ours is None
+
+
+def test_the_landmark_flags_reach_refine(monkeypatch):
+    """SCC_TREE_LANDMARK_THRESHOLD moves refine()'s tree onto the
+    landmark branch, as in the reference."""
+    from scconsensus_tpu_torch.utils.synthetic import synthetic_scrna
+
+    data, truth, _ = synthetic_scrna(n_genes=120, n_cells=600, n_clusters=3,
+                                     seed=3)
+    labels = np.array([f"c{v}" for v in truth])
+    cfg = ReclusterConfig(approx_threshold=300, n_pool_centroids=64,
+                          landmark_k=32, deep_split_values=(1,))
+    monkeypatch.setenv("SCC_TREE_LANDMARK_THRESHOLD", "500")
+    res = port.refine(data, labels, cfg, device="cpu", mesh=None)
+    assert res.metrics["landmark"]["threshold"] == 500
+    assert res.metrics["tree"]["landmark"] is True
+    monkeypatch.setenv("SCC_TREE_EXACT", "1")
+    res = port.refine(data, labels, cfg, device="cpu", mesh=None)
+    assert res.metrics["landmark"] is None
 
 
 @pytest.fixture

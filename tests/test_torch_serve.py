@@ -44,6 +44,7 @@ from scconsensus_tpu.serve import driver as ref_driver
 from scconsensus_tpu.serve import errors as ref_errors
 from scconsensus_tpu.serve import metrics as ref_metrics
 from scconsensus_tpu.serve import model as ref_model_mod
+from scconsensus_tpu.obs import export as ref_export
 from scconsensus_tpu.serve import soak as ref_soak
 from scconsensus_tpu.utils import artifacts as ref_artifacts
 from scconsensus_tpu.utils.synthetic import noisy_labeling, synthetic_scrna
@@ -55,6 +56,7 @@ from scconsensus_tpu_torch.carry import (
 from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
 from scconsensus_tpu_torch.ops.pca import pca_basis, pca_scores
 from scconsensus_tpu_torch.robust import faults, record
+from scconsensus_tpu_torch.obs import export as port_export
 from scconsensus_tpu_torch.serve import driver, errors, metrics
 from scconsensus_tpu_torch.serve import model as model_mod
 from scconsensus_tpu_torch.serve import soak
@@ -790,10 +792,15 @@ def test_soak_accounting_matches_the_reference(tmp_path):
     assert ours["ok"] and ours["resolved"] == ours["requests"] == 8
     assert ours["outcome_counts"] == ref["outcome_counts"] == \
         {"ok": 6, "quarantined": 2}
-    metrics.validate_serving(ours["serving"])
-    assert ours["serving"]["requests"] == ref["record"]["serving"][
-        "requests"]
-    assert _keys(ours["serving"]) == _keys(ref["record"]["serving"])
+    # the summary carries a whole run record, as the reference's does,
+    # and each package's validator takes the other's
+    assert set(ours) == set(ref)
+    ref_export.validate_run_record(ours["record"])
+    port_export.validate_run_record(ref["record"])
+    metrics.validate_serving(ours["record"]["serving"])
+    assert ours["record"]["serving"]["requests"] == ref["record"][
+        "serving"]["requests"]
+    assert _keys(ours["record"]["serving"]) == _keys(ref["record"]["serving"])
 
 
 # --------------------------------------------------------------------------
@@ -839,7 +846,7 @@ def test_sigkill_mid_batch_then_restart_identical_labels(tmp_path):
     assert restart["model_built"] is False
     assert restart["model_fp"] == ref["model_fp"]
     assert restart["labels_sha"] == ref["labels_sha"]
-    metrics.validate_serving(restart["serving"])
+    metrics.validate_serving(restart["record"]["serving"])
 
 
 def test_soak_expect_refusal_on_a_corrupt_model(tmp_path):

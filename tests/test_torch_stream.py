@@ -247,18 +247,65 @@ def test_charge_release_ledger_equals_the_reference():
 def test_breach_is_typed_before_the_allocation(kind):
     kw = (dict(budget_mb=1 << 14, stage_budget_mb=1.0) if kind == "staged"
           else dict(budget_mb=1, stage_budget_mb=1 << 14))
+    # the port's RSS bound is the budget over the accountant's baseline
+    # (the peak RSS when it was built): a charge past the whole baseline
+    # plus the 1 MB budget breaks it in both packages (a charge books
+    # bytes, it allocates none)
+    straw = (200 * 1024 if kind == "staged"
+             else host_peak_rss_bytes() + 8 * MB)
     msgs = []
     for a in _accountants(**kw):
         if kind == "staged":
             a.charge(900 * 1024, "big")
         with pytest.raises(RuntimeError) as ei:
-            a.charge(200 * 1024, "straw")
+            a.charge(straw, "straw")
         assert ei.value.kind == kind and ei.value.what == "straw"
         # the refused charge was not booked
         assert a.staged == (900 * 1024 if kind == "staged" else 0)
         msgs.append(str(ei.value).split(" on top of ")[0])
     assert isinstance(ei.value, RuntimeError)
     assert msgs[0] == msgs[1]
+
+
+def test_default_budget_is_taken_over_the_baseline_rss(monkeypatch):
+    """A torch process with CUDA up starts at ~4.8 GB resident, above the
+    4,096 MB default: the budget bounds what the run adds over the
+    baseline, so the first charge goes through, a charge past baseline +
+    budget is refused, and the section records both parts and validates
+    in both packages."""
+    from scconsensus_tpu_torch.obs import device as obs_device
+
+    rss = {"cur": 4800 * MB, "peak": 4800 * MB}
+    monkeypatch.setattr(obs_device, "host_rss_bytes", lambda: rss["cur"])
+    monkeypatch.setattr(obs_device, "host_peak_rss_bytes",
+                        lambda: rss["peak"])
+    monkeypatch.delenv("SCC_STREAM_HOST_BUDGET_MB", raising=False)
+    a = HostBudgetAccountant(stage_budget_mb=1 << 14)
+    assert a.baseline_rss == 4800 * MB and a.limit_bytes == 4096 * MB
+    a.charge(64 * MB, "first")            # 4,864 MB resident: allowed
+    rss["cur"] = rss["peak"] = 4800 * MB + 4000 * MB
+    a.charge(64 * MB, "inside")           # 8,864 MB: still inside
+    with pytest.raises(HostBudgetExceeded) as ei:
+        a.charge(200 * MB, "over")        # 9,000 MB > 4,800 + 4,096
+    assert ei.value.kind == "rss"
+    assert ei.value.limit_bytes == (4800 + 4096) * MB
+    f = a.budget_fields()
+    assert f["limit_mb"] == 4800 + 4096 and f["budget_mb"] == 4096
+    assert f["baseline_rss_mb"] == 4800 and f["peak_rss_mb"] == 8800
+    sec = stream_record.build_streaming_section(
+        planned=1, fresh=1, resumed=0, recomputed=0, quarantined=0,
+        window_initial=32, window_final=32, halvings=0, ckpt_initial=1,
+        ckpt_final=1, limit_mb=f["limit_mb"],
+        stage_limit_mb=f["stage_limit_mb"],
+        baseline_rss_mb=f["baseline_rss_mb"], peak_rss_mb=f["peak_rss_mb"],
+        peak_staged_mb=f["peak_staged_mb"], complete=True,
+        budget_mb=f["budget_mb"])
+    assert sec["budget"]["within_budget"] is True
+    assert sec["budget"]["budget_mb"] == 4096.0
+    stream_record.validate_streaming(sec)
+    ref_stream_record.validate_streaming(sec)
+    # the same peak against the budget alone would be over it
+    assert not f["peak_rss_mb"] <= f["budget_mb"]
 
 
 def test_transfers_tally_by_boundary():
