@@ -175,16 +175,49 @@ checkout, and exits non-zero on the first phase that fails:
      the launcher: the default shape, ``--stream`` at the default host
      budget, ``--stream --stream-window 16``, ``--mesh 8`` and
      ``--device cpu``; each exits 0 with a validated run record, all
-     with one ``labels_sha``.
+     with one ``labels_sha``;
+ 31. phase 7's run under ``SCC_OBS_RESIDENCY=audit``,
+     ``SCC_OBS_TRANSFERS=1`` and ``SCC_HOSTPROF=1`` (records under
+     ``OUT_DIR/phase31/``), twice: phase 7's bits, the declared
+     crossings ``input_staging``, ``funnel_counts``,
+     ``embed_scores_fetch``, ``silhouette_slab_fetch`` and
+     ``label_fetch`` made, d2h and h2d bytes by stage and boundary, the
+     implicit syncs by stage and line, the exported record carrying
+     ``residency``, ``profile``, ``residency_burndown``,
+     ``host_profile`` and ``memory_timeline`` and validated, the
+     auditor's ``consumed_cpu_s`` under 2 % of the wall (best of 2), the
+     audited wall beside phase 7's; then one run under a counting
+     ``TorchFunctionMode`` prices the two ways to see crossings (the
+     patched entry points against a mode's dispatch on every call);
+ 32. phase 7's run under ``SCC_OBS_RESIDENCY=enforce``: phase 7's bits,
+     no violation, every stored d2h event on a declared boundary; an
+     undeclared ``.cpu()`` inside a stage span raises ``ResidencyError``
+     naming the span and the line; phase 26's 4-shard mesh once under
+     enforce, no violation, phase 26's labels;
+ 33. (in phase 29's run, with ``SCC_OBS_COST=1``) the ``kernels``
+     section's ``vs_cost_model`` for ``wilcox_test``, the record's
+     ``profile`` with the card's time under ``silhouette``, each
+     stage's cost-model FLOPs, bytes and rates;
+ 34. phase 7's run under ``SCC_WILCOX_PROBE=1``: phase 7's bits, every
+     bucket's synced wall and sort-only time, the bucket walls within
+     ``wilcox_test``'s wall, the sort and contraction split;
+ 35. three child processes run phase 7's refine under a
+     ``LiveRecorder`` with a 1 s heartbeat: a clean one, one with
+     ``SCC_OBS_STALL_S=3`` and a 6 s stall in stage ``tree`` (a
+     ``stall`` event with the stacks), one held in ``tree`` by the same
+     stall and sent SIGTERM there (a valid partial record stamped
+     ``signal`` with the open stage, ingested by the evidence ledger as
+     partial).
 
 Phases 19 and 22 also validate the run records of the serve and stream
 soak workers' summaries.
 
 Phases run in the order 1–5, 12, 15, 20, 25, 28, 6–8, 13, 19, 16–18,
-21, 26, 27, 29, 9–11, 14, 22–24, 30, so that the 26k data serves phases
-7–8, 13, 19, 16–18, 21, 26, 27 and 29 (phase 19 while phase 7's result
-is alive) and is freed before the larger ones; the line before the
-kernel record gives the total time.
+21, 26, 27, 29 (with 33), 31, 32, 34, 35, 9–11, 14, 22–24, 30, so that
+the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26, 27, 29 and
+31–34 (phase 19 while phase 7's result is alive) and is freed before
+the larger ones; the line before the kernel record gives the total
+time.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -3484,11 +3517,14 @@ def _cu_kernel(name: str):
 
 
 def phase_trace_full(data, truth, cons, wilcox_ref, main_rec) -> tuple:
-    """Phase 29: phase 7's run again with ``SCC_TRACE_DIR`` and
-    ``SCC_OBS_KERNELS`` under ``OUT_DIR``: phase 7's bits, both
-    exported files and the ``kernels`` section validated, the hand
-    kernel's sweeps under span ``silhouette`` as many as the launch
-    counter and the wrapper's plan give. Returns (launches, the printed
+    """Phases 29 and 33: phase 7's run again with ``SCC_TRACE_DIR``,
+    ``SCC_OBS_KERNELS`` under ``OUT_DIR`` and ``SCC_OBS_COST``: phase
+    7's bits, both exported files and the ``kernels`` section validated,
+    the hand kernel's sweeps under span ``silhouette`` as many as the
+    launch counter and the wrapper's plan give; the ``kernels`` section's
+    ``vs_cost_model`` for ``wilcox_test`` and the record's ``profile``
+    with the card's time under ``silhouette``, each stage's cost-model
+    FLOPs, bytes and rates printed. Returns (launches, the printed
     numbers)."""
     import shutil
 
@@ -3507,7 +3543,8 @@ def phase_trace_full(data, truth, cons, wilcox_ref, main_rec) -> tuple:
     shutil.rmtree(root, ignore_errors=True)
     trace_dir = os.path.join(root, "trace")
     kern_dir = os.path.join(root, "kernels")
-    with _env(SCC_TRACE_DIR=trace_dir, SCC_OBS_KERNELS=kern_dir):
+    with _env(SCC_TRACE_DIR=trace_dir, SCC_OBS_KERNELS=kern_dir,
+              SCC_OBS_COST="1"):
         res, launches = _run_full(
             "trace-26k", lambda: recluster_de_consensus_fast(
                 data, cons, device="cuda"), truth)
@@ -3578,6 +3615,32 @@ def phase_trace_full(data, truth, cons, wilcox_ref, main_rec) -> tuple:
         "record_spans": len(rec["spans"]),
         "by_stage_device_s": sec["by_stage_device_s"],
     }
+    # phase 33: the cost model beside the profiler's device time
+    vs = sec.get("vs_cost_model") or {}
+    wt = vs.get("wilcox_test") or {}
+    prof = (rec.get("profile") or {}).get("stages") or {}
+    sil = prof.get("silhouette") or {}
+    if not wt.get("flops") or not sil.get("device_s"):
+        raise AssertionError(
+            f"[cost-26k] vs_cost_model wilcox_test {wt}, profile "
+            f"silhouette {sil}")
+    cost = rec["extra"].get("stage_throughput") or {}
+    for name, row in sorted(cost.items()):
+        v = vs.get(name) or {}
+        log(f"[cost-26k] {name}: {row['flops']!r} FLOPs, "
+            f"{row['bytes_accessed']!r} bytes, {row['transcendentals']!r} "
+            f"transcendentals in {row['kernels']} costed calls; wall "
+            f"{row['wall_s']!r} s, {row.get('achieved_gflops')!r} GFLOP/s "
+            f"and {row.get('achieved_gbps')!r} GB/s by wall; device "
+            f"{v.get('device_time_s')!r} s, "
+            f"{v.get('achieved_gflops_device')!r} GFLOP/s and "
+            f"{v.get('achieved_gbps_device')!r} GB/s by device time")
+    log(f"[cost-26k] profile silhouette: {json.dumps(sil)}; the .cu's "
+        f"kernels {sum(r['device_time_s'] for r in mine.values())!r} s "
+        "of it")
+    out["stage_cost"] = cost
+    out["vs_cost_model"] = vs
+    out["profile_silhouette"] = sil
     log("[trace-26k] top kernels by device time:")
     for row in sec["top"]:
         log(f"[trace-26k]   {row['device_time_s']!r} s x {row['count']} "
@@ -3664,6 +3727,453 @@ def phase_soak_workers(launcher) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 31-35: refine() under the reference's observation flags
+# ---------------------------------------------------------------------------
+
+# the declared crossings the audited 26k Wilcoxon run must make (phase 31)
+AUDIT_BOUNDARIES = ("input_staging", "funnel_counts", "embed_scores_fetch",
+                    "silhouette_slab_fetch", "label_fetch")
+NEW_SECTIONS = ("residency", "profile", "residency_burndown",
+                "host_profile", "memory_timeline")
+
+
+def _implicit_syncs(spans) -> dict:
+    """The residency auditor's count of synchronizing operations no
+    patched call made, by stage span and source line (span metrics
+    ``implicit_sync:<file>:<line>``)."""
+    out = {}
+    for s in spans:
+        for name, m in (s.get("metrics") or {}).items():
+            if name.startswith("implicit_sync:"):
+                key = f"{s['name']}@{name[len('implicit_sync:'):]}"
+                out[key] = out.get(key, 0) + int(m.get("value") or 0)
+    return out
+
+
+def _per_call_s(fn, reps: int = 20000) -> float:
+    """Host seconds a call of ``fn`` takes, over ``reps`` calls."""
+    for _ in range(200):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
+
+
+def _crossing_hook_costs(data, cons, truth, wilcox_ref) -> dict:
+    """The two ways to see crossings, priced on the 26k run: the
+    patched entry points (the auditor's) pay a wrapper on the patched
+    methods' calls; a ``torch.overrides.TorchFunctionMode`` pays a Python
+    dispatch on every torch call. One run under a counting mode gives
+    both call counts; each per-call overhead is measured on the card."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.obs.residency import ResidencyAuditor
+
+    T = torch.Tensor
+    patched = {T.cpu, T.cuda, T.to, T.item, T.tolist, T.numpy, T.__bool__,
+               T.__int__, T.__float__, T.copy_, torch.as_tensor,
+               torch.tensor, torch.from_numpy}
+
+    class Counting(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = 0
+            self.patched = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.calls += 1
+            if func in patched:
+                self.patched += 1
+            return func(*args, **(kwargs or {}))
+
+    mode = Counting()
+    with mode:
+        res, launches = _run_full(
+            "hook-mode-26k", lambda: recluster_de_consensus_fast(
+                data, cons, device="cuda"), truth)
+    _same_bits("hook-mode-26k", res, wilcox_ref)
+    x = torch.ones(8, device="cuda")
+    torch.cuda.synchronize()
+    plain_view = _per_call_s(lambda: x.view(-1))
+    with Counting():
+        mode_view = _per_call_s(lambda: x.view(-1))
+    plain_to = _per_call_s(lambda: x.to(torch.float32))
+    with ResidencyAuditor(mode="audit"):
+        hook_to = _per_call_s(lambda: x.to(torch.float32))
+    wall = wilcox_ref["wall_s"]
+    out = {
+        "torch_calls": mode.calls, "patched_calls": mode.patched,
+        "mode_per_call_s": mode_view - plain_view,
+        "patch_per_call_s": hook_to - plain_to,
+        "mode_wall_s": res.metrics["wall_s"], "phase7_wall_s": wall,
+    }
+    out["mode_share"] = mode.calls * out["mode_per_call_s"] / wall
+    out["patch_share"] = mode.patched * out["patch_per_call_s"] / wall
+    log(f"[hook-cost] {mode.calls} torch calls in the 26k run, "
+        f"{mode.patched} of them to patched entry points; a "
+        f"TorchFunctionMode costs {out['mode_per_call_s']!r} s a call "
+        f"({out['mode_share']!r} of phase 7's wall), the patches "
+        f"{out['patch_per_call_s']!r} s a patched call "
+        f"({out['patch_share']!r}); the run under the counting mode "
+        f"{out['mode_wall_s']!r} s against phase 7's {wall!r} s")
+    return out, launches
+
+
+def phase_audit_full(data, truth, cons, wilcox_ref) -> tuple:
+    """Phase 31: phase 7's run under ``SCC_OBS_RESIDENCY=audit``,
+    ``SCC_OBS_TRANSFERS`` and ``SCC_HOSTPROF`` (and ``SCC_TRACE_DIR``
+    under ``OUT_DIR/phase31/``), twice: phase 7's bits, the declared
+    crossings the path makes, transfer bytes by stage, the exported
+    record with its five new sections validated, the auditor's
+    ``consumed_cpu_s`` under 2 % of the wall (best of 2), the audited
+    wall beside phase 7's, and the two hook designs priced. Returns
+    (launches, the printed numbers)."""
+    import shutil
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.obs import residency
+    from scconsensus_tpu_torch.obs.export import validate_run_record
+
+    root = os.path.join(OUT_DIR, "phase31")
+    shutil.rmtree(root, ignore_errors=True)
+    runs, launches = [], 0
+    for i in range(2):
+        tag = f"audit-26k-{i}"
+        trace_dir = os.path.join(root, f"run{i}")
+        residency.reset_cpu()
+        with _env(SCC_OBS_RESIDENCY="audit", SCC_OBS_TRANSFERS="1",
+                  SCC_HOSTPROF="1", SCC_TRACE_DIR=trace_dir):
+            res, n = _run_full(tag, lambda: recluster_de_consensus_fast(
+                data, cons, device="cuda"), truth)
+        consumed = residency.consumed_cpu_s()
+        launches += n
+        _same_bits(tag, res, wilcox_ref)
+        if not np.array_equal(res.de.de_mask.cpu().numpy(),
+                              wilcox_ref["de_mask"]):
+            raise AssertionError(f"[{tag}] the DE mask differs")
+        m = res.metrics
+        rep = m["residency"]
+        missing = set(AUDIT_BOUNDARIES) - set(rep["by_boundary"])
+        if missing:
+            raise AssertionError(f"[{tag}] no crossing at {sorted(missing)}"
+                                 f": {rep['by_boundary']}")
+        with open(os.path.join(trace_dir, "run_record.json")) as f:
+            rec = json.load(f)
+        absent = [k for k in NEW_SECTIONS if k not in rec]
+        if absent:
+            raise AssertionError(f"[{tag}] the record lacks {absent}")
+        validate_run_record(rec)
+        hp = rec["host_profile"]
+        share = consumed / m["wall_s"]
+        run = {"wall_s": m["wall_s"], "consumed_cpu_s": consumed,
+               "share": share, "to_host": rep["to_host"],
+               "to_device": rep["to_device"], "by_stage": rep["by_stage"],
+               "by_boundary": rep["by_boundary"],
+               "events_dropped": rep["events_dropped"],
+               "transfers": m["transfers"],
+               "implicit_syncs": _implicit_syncs(m["spans"]),
+               "host_samples": hp["n_samples"],
+               "host_sampler_self_s": hp["sampler_self_s"],
+               "blocking_wait_s": sum(r["causes"]["blocking_wait"]
+                                      for r in hp["stages"].values()),
+               "rss_peak_bytes": rec["memory_timeline"]["rss_peak_bytes"],
+               "hbm_peak_bytes": rec["memory_timeline"].get(
+                   "hbm_peak_bytes"),
+               "burndown": {k: rec["residency_burndown"][k] for k in
+                            ("total_bytes", "todo_item2_bytes")}}
+        runs.append(run)
+        log(f"[{tag}] wall {m['wall_s']!r} s against phase 7's "
+            f"{wilcox_ref['wall_s']!r} s; auditor {consumed!r} s "
+            f"({share!r} of the wall); d2h {json.dumps(rep['to_host'])}, "
+            f"h2d {json.dumps(rep['to_device'])}")
+        log(f"[{tag}] bytes by stage: " + json.dumps(rep["by_stage"]))
+        log(f"[{tag}] bytes by boundary: " + json.dumps(rep["by_boundary"]))
+        log(f"[{tag}] transfer watch: " + json.dumps(m["transfers"]))
+        log(f"[{tag}] implicit syncs by stage@line: "
+            + json.dumps(run["implicit_syncs"]))
+        log(f"[{tag}] host profile: {hp['n_samples']} samples, sampler "
+            f"{hp['sampler_self_s']!r} s, blocking_wait "
+            f"{run['blocking_wait_s']!r} s; rss peak "
+            f"{run['rss_peak_bytes']} bytes, hbm peak "
+            f"{run['hbm_peak_bytes']} bytes; burn-down "
+            + json.dumps(run["burndown"]))
+    best = min(r["share"] for r in runs)
+    log(f"[audit-26k] the auditor's best share {best!r} (limit "
+        f"{LAYER_SHARE_LIMIT})")
+    if not best < LAYER_SHARE_LIMIT:
+        raise AssertionError("[audit-26k] the auditor costs 2 % or more of "
+                             "the wall")
+    hooks, n = _crossing_hook_costs(data, cons, truth, wilcox_ref)
+    launches += n
+    out = {"runs": runs, "best_share": best, "hooks": hooks}
+    log("[audit-26k] " + json.dumps(out, default=str))
+    return launches, out
+
+
+def phase_enforce_full(data, truth, cons, wilcox_ref, mesh_ref) -> int:
+    """Phase 32: phase 7's run under ``SCC_OBS_RESIDENCY=enforce`` (phase
+    7's bits, no violation, every stored d2h event on a declared
+    boundary); an undeclared ``.cpu()`` inside a stage span raises
+    ``ResidencyError`` naming the span and this file's line; phase 26's
+    4-shard mesh run once under enforce with no violation and phase 26's
+    labels. Returns the launches."""
+    import torch
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.obs.residency import (
+        ResidencyAuditor,
+        ResidencyError,
+    )
+    from scconsensus_tpu_torch.obs.trace import Tracer
+    from scconsensus_tpu_torch.parallel import make_mesh
+
+    def check(tag, res):
+        rep = res.metrics["residency"]
+        d2h = [e for e in rep["events"] if e["direction"] == "d2h"]
+        loose = [e for e in d2h if e["boundary"] is None]
+        log(f"[{tag}] mode {rep['mode']}: {len(rep['violations'])} "
+            f"violations, {len(d2h)} stored d2h events "
+            f"({rep['to_host']['calls']} in all), {len(loose)} on no "
+            "boundary; boundaries " + json.dumps(rep["by_boundary"]))
+        if rep["mode"] != "enforce" or rep["violations"] or loose \
+                or not d2h:
+            raise AssertionError(f"[{tag}] {rep['violations']} {loose}")
+
+    with _env(SCC_OBS_RESIDENCY="enforce"):
+        res, launches = _run_full(
+            "enforce-26k", lambda: recluster_de_consensus_fast(
+                data, cons, device="cuda"), truth)
+    _same_bits("enforce-26k", res, wilcox_ref)
+    check("enforce-26k", res)
+    del res
+    t = torch.ones(4, device="cuda")
+    tr = Tracer()
+    try:
+        with ResidencyAuditor(mode="enforce"), \
+                tr.span("silhouette", kind="stage"):
+            t.cpu()
+    except ResidencyError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("[enforce-undeclared] an undeclared .cpu() "
+                             "did not raise")
+    log(f"[enforce-undeclared] {msg}")
+    if "span silhouette" not in msg or \
+            f"{os.path.basename(__file__)}:" not in msg:
+        raise AssertionError("[enforce-undeclared] the error names neither "
+                             "the span nor the line")
+    with _env(SCC_OBS_RESIDENCY="enforce"):
+        res, n = _run_full(
+            "enforce-mesh-26k", lambda: recluster_de_consensus_fast(
+                data, cons, device="cuda",
+                mesh=make_mesh(4, device="cuda")), truth)
+    check("enforce-mesh-26k", res)
+    for key, want in mesh_ref["summary"]["labels"].items():
+        if not np.array_equal(res.dynamic_labels[key], want):
+            raise AssertionError(f"[enforce-mesh-26k] {key}: labels differ "
+                                 "from phase 26's")
+    return launches + n
+
+
+def phase_probe_full(data, truth, cons, wilcox_ref) -> tuple:
+    """Phase 34: phase 7's run under ``SCC_WILCOX_PROBE=1``: phase 7's
+    bits, every bucket with its synced ``wall_s`` and sort-only
+    ``sort_s``, the buckets' walls summing to no more than
+    ``wilcox_test``'s; the sort and contraction split printed."""
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+
+    with _env(SCC_WILCOX_PROBE="1"):
+        res, launches = _run_full(
+            "probe-26k", lambda: recluster_de_consensus_fast(
+                data, cons, device="cuda"), truth)
+    _same_bits("probe-26k", res, wilcox_ref)
+    lad = res.metrics["wilcox_ladder"]
+    buckets = lad["buckets"]
+    if not buckets or any("wall_s" not in b or "sort_s" not in b
+                          for b in buckets):
+        raise AssertionError("[probe-26k] a bucket lacks wall_s or sort_s")
+    walls = sum(b["wall_s"] for b in buckets)
+    sorts = sum(b["sort_s"] for b in buckets)
+    stage = res.metrics["stage_walls_s"]["wilcox_test"]
+    out = {"buckets": len(buckets), "bucket_walls_s": walls,
+           "sort_s": sum(b["sort_s"] for b in buckets),
+           "wilcox_test_s": stage, "ladder_wall_s": lad.get("ladder_wall_s"),
+           "by_bucket": [{k: b.get(k) for k in
+                          ("window", "n_genes", "wall_s", "sort_s",
+                           "tied_runs_p50", "tied_runs_max")}
+                         for b in buckets]}
+    log(f"[probe-26k] {len(buckets)} buckets: walls {walls!r} s, of them "
+        f"sort {sorts!r} s, the rest (ranks, contraction, p) "
+        f"{walls - sorts!r} s; wilcox_test {stage!r} s; ladder "
+        f"{lad.get('ladder_wall_s')!r} s")
+    log("[probe-26k] " + json.dumps(out))
+    if walls > stage:
+        raise AssertionError("[probe-26k] the bucket walls exceed "
+                             "wilcox_test's")
+    return launches, out
+
+
+_LIVE_CHILD = """
+import os, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+from scconsensus_tpu_torch import recluster_de_consensus_fast
+from scconsensus_tpu_torch.obs.live import LiveRecorder
+from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+
+data, truth, cons = chip_smoke.phase_full_data()
+rec = LiveRecorder({base!r}, metric="refine() under the flight recorder",
+                   extra={{"config": "flagship_26k", "platform": "gpu",
+                          "method": "wilcox"}}, heartbeat_s=1.0).start()
+distance_cluster_sums.launches = 0
+recluster_de_consensus_fast(data, cons, device="cuda")
+rec.stop()
+print("LIVE_LAUNCHES", distance_cluster_sums.launches, flush=True)
+"""
+
+
+def _hb_lines(path: str) -> list:
+    try:
+        with open(path) as f:
+            return [json.loads(ln) for ln in f if ln.strip().startswith("{")]
+    except (OSError, ValueError):
+        return []
+
+
+def _live_child(tag: str, root: str, env: dict, stop_at=None) -> dict:
+    """One phase-35 child: phase 7's refine under a ``LiveRecorder`` with a
+    1 s heartbeat. With ``stop_at``, SIGTERM it once a heartbeat shows
+    that stage span open. Returns its exit code, stream, partial record
+    and launches."""
+    import signal
+
+    base = os.path.join(root, tag)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _LIVE_CHILD.format(repo=REPO, base=base)],
+        env=dict(os.environ, **env), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    try:
+        if stop_at is not None:
+            hb = base + "_heartbeat.jsonl"
+            while proc.poll() is None and time.perf_counter() - t0 < 300:
+                if any(any(s["name"] == stop_at for s in
+                           ln.get("open_spans") or [])
+                       for ln in _hb_lines(hb) if ln.get("t") == "hb"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+                time.sleep(0.2)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    launches = [int(ln.split()[1]) for ln in out.splitlines()
+                if ln.startswith("LIVE_LAUNCHES ")]
+    try:
+        with open(base + "_partial.json") as f:
+            partial = json.load(f)
+    except (OSError, ValueError):
+        partial = None
+    lines = _hb_lines(base + "_heartbeat.jsonl")
+    log(f"[live-{tag}] exit {proc.returncode} after {wall!r} s; "
+        f"{sum(ln.get('t') == 'hb' for ln in lines)} heartbeats, events "
+        f"{sorted({ln.get('t') for ln in lines})}")
+    return {"rc": proc.returncode, "lines": lines, "partial": partial,
+            "launches": launches[0] if launches else 0, "wall_s": wall,
+            "stderr": err}
+
+
+LIVE_STAGE = "tree"  # the stage phase 35 stalls in and signals during
+
+
+def phase_live() -> tuple:
+    """Phase 35: three children run phase 7's refine under a
+    ``LiveRecorder`` (1 s heartbeat): a clean one (the heartbeat carries
+    the open spans, RSS, the card's memory and progress; the final
+    partial is stamped ``clean``); one with ``SCC_OBS_STALL_S=3`` and a
+    6 s stall fault inside stage ``tree`` (its stream has a ``stall``
+    event with the stacks and the open stage); one held in stage ``tree``
+    by the same fault and sent SIGTERM there (a partial record stamped
+    ``signal`` naming the open stage, valid, which the ledger ingests as
+    partial). Returns (launches, the printed numbers)."""
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch.obs.export import validate_run_record
+    from scconsensus_tpu_torch.obs.ledger import (
+        Ledger,
+        is_partial_entry,
+        is_partial_record,
+    )
+
+    root = tempfile.mkdtemp(prefix="scc-live-")
+    try:
+        clean = _live_child("clean", root, {})
+        hbs = [ln for ln in clean["lines"] if ln.get("t") == "hb"]
+        if clean["rc"] != 0 or not hbs or \
+                (clean["partial"] or {}).get("termination", {}).get(
+                    "cause") != "clean":
+            raise AssertionError(f"[live-clean] rc {clean['rc']}: "
+                                 f"{clean['stderr'][-1500:]}")
+        need = ("open_spans", "rss_bytes", "progress_unix", "hbm")
+        if not any(all(k in h for k in need) and h["open_spans"]
+                   for h in hbs):
+            raise AssertionError(f"[live-clean] no heartbeat with {need}")
+        validate_run_record(clean["partial"])
+
+        plan = os.path.join(root, "stall.json")
+        with open(plan, "w") as f:
+            json.dump({"faults": [{"site": f"stage:{LIVE_STAGE}",
+                                   "class": "stall", "stall_s": 6.0}]}, f)
+        stall = _live_child("stall", root, {"SCC_OBS_STALL_S": "3",
+                                            "SCC_FAULT_PLAN": plan})
+        events = [ln for ln in stall["lines"] if ln.get("t") == "stall"]
+        if stall["rc"] != 0 or not events or not events[0].get("stack") \
+                or not any(s["name"] == LIVE_STAGE
+                           for s in events[0]["open_spans"]):
+            raise AssertionError(f"[live-stall] rc {stall['rc']}, stall "
+                                 f"events {len(events)}: "
+                                 f"{stall['stderr'][-1500:]}")
+        log(f"[live-stall] stall after {events[0]['since_progress_s']!r} s "
+            f"in {[s['name'] for s in events[0]['open_spans']]}; stack dump "
+            f"{len(events[0]['stack'])} characters")
+
+        # held in the stage by the same stall, so the signal lands there
+        term = _live_child("sigterm", root, {"SCC_FAULT_PLAN": plan},
+                           stop_at=LIVE_STAGE)
+        part = term["partial"]
+        t = (part or {}).get("termination") or {}
+        if term["rc"] != -15 or t.get("cause") != "signal" or \
+                t.get("last_span") is None or not any(
+                    s["name"] == LIVE_STAGE for s in t["open_spans"]):
+            raise AssertionError(f"[live-sigterm] rc {term['rc']}, "
+                                 f"termination {t}: "
+                                 f"{term['stderr'][-1500:]}")
+        validate_run_record(part)
+        entry = Ledger(os.path.join(root, "evidence")).ingest(part)
+        if not (is_partial_record(part) and is_partial_entry(entry)):
+            raise AssertionError(f"[live-sigterm] the ledger entry is not "
+                                 f"partial: {entry}")
+        log(f"[live-sigterm] partial record: cause {t['cause']}, last span "
+            f"{t['last_span']}, open {[s['name'] for s in t['open_spans']]}"
+            f"; ledger entry {entry['file']} termination "
+            f"{entry['termination']}")
+        out = {"clean_s": clean["wall_s"], "stall_s": stall["wall_s"],
+               "sigterm_s": term["wall_s"], "heartbeats": len(hbs),
+               "stall_since_progress_s": events[0]["since_progress_s"],
+               "partial_last_span": t["last_span"]}
+        log("[live] " + json.dumps(out))
+        return clean["launches"] + stall["launches"], out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     # started before torch is imported (see _LAUNCHER)
     launcher = _start_launcher()
@@ -3713,9 +4223,14 @@ def _main(launcher) -> int:
     elastic_launches = phase_elastic(data, truth, cons, mesh_ref, launcher)
     trace_launches, trace_out = phase_trace_full(data, truth, cons,
                                                  wilcox_ref, rec)
+    audit_launches, _ = phase_audit_full(data, truth, cons, wilcox_ref)
+    enforce_launches = phase_enforce_full(data, truth, cons, wilcox_ref,
+                                          mesh_ref)
+    probe_launches, _ = phase_probe_full(data, truth, cons, wilcox_ref)
     phase_contract(data, cons, csr)
     del data, csr, wilcox_ref
     torch.cuda.empty_cache()
+    live_launches, _ = phase_live()
     phase_scale_small()
     tm_launches = phase_tm100k()
     torch.cuda.empty_cache()
@@ -3753,7 +4268,11 @@ def _main(launcher) -> int:
                "stream_small": stream_small_launches,
                "stream_20k": stream_20k_launches,
                "stream_1m": stream_1m_launches,
-               "trace_26k": trace_launches}
+               "trace_26k": trace_launches,
+               "wilcox_26k_residency_audit": audit_launches,
+               "wilcox_26k_residency_enforce": enforce_launches,
+               "wilcox_26k_probe": probe_launches,
+               "wilcox_26k_live": live_launches}
     log(f"[total] every phase in {time.perf_counter() - t_start!r} s")
     # times from the Wilcoxon path's inputs; launches from every full path
     # (serving classifies with plain tensor code: no launch)

@@ -12,10 +12,14 @@ capture ``SCC_OBS_KERNELS`` (over ``torch.profiler`` here), the four
 ``SCC_TREE_*`` landmark flags, the ``SCC_SERVE_*`` knobs, the fault plan,
 the retry budget and backoff, ``SCC_ROBUST_CHECKSUM``, ``SCC_ELASTIC`` and
 ``SCC_ELASTIC_MIN_DEVICES``, ``SCC_INTEGRITY``, request tracing, the SLO
-objectives and the four ``SCC_STREAM_*`` flags. It also registers the
-flags the reference's ``refine()`` reads that the port does not handle
-yet (``UNPORTED_FLAGS``): :func:`refuse_unported_flags` raises
-``NotImplementedError`` when one of them is set, so none is dropped
+objectives, the four ``SCC_STREAM_*`` flags and the observation flags
+of ``refine()`` (the residency auditor, the transfer watch, the cost
+model, the flight recorder and its stall watchdog, the host profiler,
+the evidence ledger's directory and the Wilcoxon probe). It also
+registers the two flags the reference's bench worker arms that the port
+does not handle yet (``UNPORTED_FLAGS``: ``SCC_COMPILELOG``,
+``SCC_GRAPHS``): :func:`refuse_unported_flags` raises
+``NotImplementedError`` when one of them is set, so neither is dropped
 silently.
 """
 
@@ -195,7 +199,8 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "to tracer spans, and summarized as the run record's "
                 "kernels section (top-K kernels by device time). Unset = "
                 "off."),
-        # --- registered, not handled yet: refuse_unported_flags() ---
+        # --- observation flags of refine() (obs.residency, obs.device,
+        # obs.cost, obs.live, obs.hostprof, obs.ledger, the Wilcoxon probe) ---
         EnvFlag("SCC_OBS_TRANSFERS", bool, False,
                 "Wrap refine() in obs.device.TransferWatch: count explicit "
                 "host<->device transfer bytes and flag oversized host "
@@ -215,6 +220,14 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "recorder dumps all-thread stacks into the heartbeat "
                 "stream, bumps the stall counter, and (with "
                 "SCC_OBS_STALL_TRACE set) opens a profiler capture."),
+        EnvFlag("SCC_OBS_STALL_TRACE", str, None,
+                "Directory for on-demand jax.profiler capture windows "
+                "(stall escalation and SIGUSR1 both write here; unset = "
+                "no capture, stack dumps only)."),
+        EnvFlag("SCC_EVIDENCE_DIR", str, None,
+                "Evidence-ledger directory override (default <cwd>/evidence"
+                "; bench.py anchors it next to itself). The test suite "
+                "points it at a tmp dir."),
         EnvFlag("SCC_OBS_RESIDENCY", str, "off",
                 "Host<->device residency auditor (obs.residency): 'off' "
                 "(default), 'audit' (record every transfer with direction, "
@@ -232,6 +245,16 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "timeline — landed as the run record's host_profile and "
                 "memory_timeline sections. bench.py workers default it "
                 "on."),
+        EnvFlag("SCC_HOSTPROF_HZ", float, 50.0,
+                "Sampling rate (Hz) of the SCC_HOSTPROF stack/memory "
+                "sampler. 50 Hz = one _current_frames walk + one statm "
+                "pread every 20 ms; overhead is pinned under the perf "
+                "gate's 50 ms noise floor by test."),
+        EnvFlag("SCC_WILCOX_PROBE", bool, False,
+                "Synced per-bucket occupancy DIAGNOSIS of the Wilcoxon "
+                "window ladder (serializes dispatch; tied-run counts and a "
+                "sort-only timing are fetched per bucket)."),
+        # --- registered, not handled yet: refuse_unported_flags() ---
         EnvFlag("SCC_COMPILELOG", bool, False,
                 "Per-stage JAX compile/retrace telemetry "
                 "(obs.compilelog): jax.monitoring compile events stamped "
@@ -249,10 +272,6 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "bench.py workers default it on; serve never arms it "
                 "(capture lowers+compiles an AOT copy of each "
                 "program)."),
-        EnvFlag("SCC_WILCOX_PROBE", bool, False,
-                "Synced per-bucket occupancy DIAGNOSIS of the Wilcoxon "
-                "window ladder (serializes dispatch; tied-run counts and a "
-                "sort-only timing are fetched per bucket)."),
         # --- tree stage (the landmark recluster) ---
         EnvFlag("SCC_TREE_LANDMARK_THRESHOLD", int, 200_000,
                 "Cell count above which the pooled tree stage switches "
@@ -442,15 +461,7 @@ def env_flag(name: str, env: Optional[Mapping[str, str]] = None) -> Any:
 
 # The flags the reference's refine() path reads that the port does not
 # handle yet, each with the value that means "off": a set one raises.
-UNPORTED_FLAGS = ("SCC_OBS_TRANSFERS", "SCC_OBS_RESIDENCY", "SCC_OBS_COST",
-                  "SCC_WILCOX_PROBE", "SCC_OBS_HEARTBEAT", "SCC_OBS_STALL_S",
-                  "SCC_HOSTPROF", "SCC_COMPILELOG", "SCC_GRAPHS")
-
-
-def _is_off(name: str, value: Any) -> bool:
-    if name == "SCC_OBS_RESIDENCY":
-        return str(value).strip().lower() in ("off", *_FALSY)
-    return not value
+UNPORTED_FLAGS = ("SCC_COMPILELOG", "SCC_GRAPHS")
 
 
 def refuse_unported_flags(env: Optional[Mapping[str, str]] = None) -> None:
@@ -458,7 +469,7 @@ def refuse_unported_flags(env: Optional[Mapping[str, str]] = None) -> None:
     ``UNPORTED_FLAGS`` that is set (to a value other than its off state):
     the port must not accept a reference flag and ignore it."""
     for name in UNPORTED_FLAGS:
-        if not _is_off(name, env_flag(name, env)):
+        if env_flag(name, env):
             raise NotImplementedError(
                 f"{name} is a flag of the reference that the port does "
                 "not handle yet; unset it")

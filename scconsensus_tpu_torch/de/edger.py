@@ -45,6 +45,8 @@ import torch
 
 from scconsensus_tpu_torch.de.engine import _cid_from_groups, _next_pow2
 from scconsensus_tpu_torch.obs import quality as obs_quality
+from scconsensus_tpu_torch.obs import residency
+from scconsensus_tpu_torch.obs.cost import attach_cost
 from scconsensus_tpu_torch.io.sparsemat import (
     DeviceCSR,
     column_sums,
@@ -272,7 +274,11 @@ def run_edger_pairs(
         cid = _cid_from_groups(cell_idx_of, N)
         kept = cid >= 0
         lib = column_sums(counts)
-        lib_all = lib.cpu().numpy()
+        # the NB driver's host reads of its statistics (library sizes,
+        # subsample nnz, common dispersions, the exact tails' largest
+        # total) are declared with the DE result's fetch
+        with residency.boundary("de_result_fetch"):
+            lib_all = lib.cpu().numpy()
         libsum_c = np.array([lib_all[ci].sum() for ci in cell_idx_of],
                             np.float32)
         n_of = np.array([ci.size for ci in cell_idx_of], np.float32)
@@ -300,7 +306,8 @@ def run_edger_pairs(
         Ns = int(sub_cells.numel())
         # genes in ascending subsample nnz: each table block's gamma window
         # (the gammainc part) hugs its own largest positive count
-        sub_nnz = (sub_counts > 0).sum(dim=1).cpu().numpy()
+        with residency.boundary("de_result_fetch"):
+            sub_nnz = (sub_counts > 0).sum(dim=1).cpu().numpy()
         sub_order = np.argsort(sub_nnz, kind="stable")
 
         deltas, r_grid, rho_nodes, h = _node_grid()
@@ -327,9 +334,13 @@ def run_edger_pairs(
         for b0 in range(0, G, sgc):
             ids = sub_order[b0:b0 + sgc]
             tid = _t(ids.astype(np.int64))
-            table[tid], zs[tid] = _sub_table_sorted_chunk(
-                sub_counts[tid], lib_sub, cid_sub, rates[tid], common_lib,
-                phi, r_nodes, int(sub_nnz[ids[-1]]), sub_onehot)
+            kargs = (sub_counts[tid], lib_sub, cid_sub, rates[tid],
+                     common_lib, phi, r_nodes, int(sub_nnz[ids[-1]]),
+                     sub_onehot)
+            # the NB node-table build is the driver's hot kernel: priced
+            # on the ambient (edger_*) span when SCC_OBS_COST is on
+            attach_cost(None, _sub_table_sorted_chunk, *kargs)
+            table[tid], zs[tid] = _sub_table_sorted_chunk(*kargs)
         return table, zs
 
     with clock.detail("edger_pilot_table"):
@@ -346,12 +357,14 @@ def run_edger_pairs(
         for p0 in range(0, P, _PAIR_CHUNK):
             pi, pj = _pairs(p0)
             keep = (Zy[:, pi] + Zy[:, pj]) > _ROWSUM_FILTER
-            cl = _cl_grid_pairs(table0[:, pi], table0[:, pj], w_grid,
-                                zs0[:, pi], zs0[:, pj], t_ns[pi], t_ns[pj],
-                                keep, t_r_grid)
+            kargs = (table0[:, pi], table0[:, pj], w_grid, zs0[:, pi],
+                     zs0[:, pj], t_ns[pi], t_ns[pj], keep, t_r_grid)
+            attach_cost(None, _cl_grid_pairs, *kargs)
+            cl = _cl_grid_pairs(*kargs)
             parts.append(common_dispersion_grid(cl, deltas))
         t_common = torch.cat(parts)
-        common = t_common.cpu().numpy()
+        with residency.boundary("de_result_fetch"):
+            common = t_common.cpu().numpy()
     del table0, zs0
     if obs_quality.enabled():
         # a NaN/Inf dispersion here poisons every tagwise grid and exact
@@ -414,7 +427,8 @@ def run_edger_pairs(
     # support width. Routing depends only on the total.
     with clock.detail("edger_exact_small"):
         tot = (torch.round(s1) + torch.round(s2)).reshape(-1)
-        max_total = float(tot.max())
+        with residency.boundary("de_result_fetch"):
+            max_total = float(tot.max())
         s_max = int(min(_EXACT_SMAX,
                         _next_pow2(max(int(max_total) + 2, 64))))
         buckets, sb = [], 64

@@ -71,12 +71,13 @@ unknown method raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from scconsensus_tpu_torch.config import ReclusterConfig
+from scconsensus_tpu_torch.config import ReclusterConfig, env_flag
 from scconsensus_tpu_torch.device import resolve_device
 from scconsensus_tpu_torch.io.sparsemat import (
     DeviceCSR,
@@ -97,7 +98,9 @@ from scconsensus_tpu_torch.ops.multipletests import (
     bh_adjust_masked,
 )
 from scconsensus_tpu_torch.obs import quality as obs_quality
+from scconsensus_tpu_torch.obs import residency
 from scconsensus_tpu_torch.obs import trace as obs_trace
+from scconsensus_tpu_torch.obs.cost import attach_cost
 from scconsensus_tpu_torch.ops import ranksum_allpairs as _ranksum
 from scconsensus_tpu_torch.ops.ranksum_allpairs import (
     chunk_genes_for_budget,
@@ -158,7 +161,8 @@ class PairwiseDEResult:
 
     def de_counts(self) -> np.ndarray:
         """Per-pair DE gene counts (P ints to the host)."""
-        return self.de_mask.sum(dim=1).cpu().numpy()
+        with residency.boundary("funnel_counts"):
+            return self.de_mask.sum(dim=1).cpu().numpy()
 
     def to_store(self) -> Tuple[Dict[str, np.ndarray], Dict]:
         """(arrays, meta) for the ``ArtifactStore``: the same array keys
@@ -169,13 +173,15 @@ class PairwiseDEResult:
             return v.cpu().numpy() if isinstance(v, torch.Tensor) \
                 else np.asarray(v)
 
-        arrays = {f: host(getattr(self, f)) for f in self._ARRAY_FIELDS}
-        for f in self._OPT_ARRAY_FIELDS:
-            v = getattr(self, f)
-            if v is not None:
-                arrays[f] = host(v)
-        for k, v in (self.aux or {}).items():
-            arrays[f"aux_{k}"] = host(v)
+        with residency.boundary("de_result_fetch"):
+            arrays = {f: host(getattr(self, f))
+                      for f in self._ARRAY_FIELDS}
+            for f in self._OPT_ARRAY_FIELDS:
+                v = getattr(self, f)
+                if v is not None:
+                    arrays[f] = host(v)
+            for k, v in (self.aux or {}).items():
+                arrays[f"aux_{k}"] = host(v)
         return arrays, {
             "cluster_names": self.cluster_names,
             "skip_reasons": self.skip_reasons or [],
@@ -202,10 +208,12 @@ class PairwiseDEResult:
                 np.ascontiguousarray(v)).to(dev)
 
         host = {"pair_i", "pair_j", "pair_skipped"}
-        fields = {f: (arrays.get(f) if f in host else dev_t(arrays.get(f)))
-                  for f in cls._ARRAY_FIELDS + cls._OPT_ARRAY_FIELDS}
-        aux = {k[len("aux_"):]: dev_t(v) for k, v in arrays.items()
-               if k.startswith("aux_")}
+        with residency.boundary("input_staging"):
+            fields = {f: (arrays.get(f) if f in host
+                          else dev_t(arrays.get(f)))
+                      for f in cls._ARRAY_FIELDS + cls._OPT_ARRAY_FIELDS}
+            aux = {k[len("aux_"):]: dev_t(v) for k, v in arrays.items()
+                   if k.startswith("aux_")}
         return cls(
             cluster_names=list(meta["cluster_names"]), **fields,
             aux=aux or None,
@@ -333,8 +341,9 @@ def as_device_matrix(data, device: torch.device):
             "freed the caching allocator's blocks before re-upload",
         )
 
-    return robust_retry.RetryPolicy(max_attempts=2).call(
-        _upload, site="input_staging", degrade=_evict)
+    with residency.boundary("input_staging"):
+        return robust_retry.RetryPolicy(max_attempts=2).call(
+            _upload, site="input_staging", degrade=_evict)
 
 
 def free_device_cache(dev: torch.device) -> None:
@@ -442,8 +451,9 @@ class _WilcoxCkpt:
         of host time for nothing."""
         from scconsensus_tpu_torch.parallel.mesh import mesh_shape_meta
 
-        arrays = {k: o[:n_rows].cpu().numpy()
-                  for k, o in zip(("lp", "u", "ts"), out)}
+        with residency.boundary("de_ckpt_fetch"):
+            arrays = {k: o[:n_rows].cpu().numpy()
+                      for k, o in zip(("lp", "u", "ts"), out)}
         self.store.save(key, arrays,
                         meta={"mesh_shape": mesh_shape_meta(self.mesh)},
                         compress=False)
@@ -593,10 +603,11 @@ def _run_wilcox(
     dev = data.device
     K = len(cell_idx_of)
     n_of = np.array([ci.size for ci in cell_idx_of], np.int32)
-    cid = torch.as_tensor(_cid_from_groups(cell_idx_of, N), device=dev)
-    tn = torch.as_tensor(n_of, device=dev)
-    tpi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
-    tpj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
+    with residency.boundary("input_staging"):
+        cid = torch.as_tensor(_cid_from_groups(cell_idx_of, N), device=dev)
+        tn = torch.as_tensor(n_of, device=dev)
+        tpi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
+        tpj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
     n1_pairs, n2_pairs = n_of[pair_i], n_of[pair_j]
     gc = min(chunk_genes_for_budget(N, K), _next_pow2(G))
     if mesh is not None:
@@ -609,26 +620,34 @@ def _run_wilcox(
     # modelling one bad device stops firing once the supervisor evicts it
     live_dev_ids = list(mesh.ids) if mesh is not None else [0]
 
-    def _rank_sums(vals, kcid, window=0):
+    def _rank_sums(vals, kcid, window=0, span=None):
         if mesh is not None:
             return sharded_allpairs_ranksum(vals, kcid, tn, tpi, tpj, K,
                                             mesh=mesh, window=window)
+        # the chunk body's FLOPs and bytes on the bucket span (SCC_OBS_COST)
+        attach_cost(span, ranksum_body, vals, kcid, tn, tpi, tpj, K,
+                    window=window)
         return ranksum_body(vals, kcid, tn, tpi, tpj, K, window=window)
 
     # O(G) ints to plan the ladder; the decomposition needs zeros as the
     # minimum, so any negative value sends every gene to full width
     compact = isinstance(data, DeviceCSR)
-    if compact:
-        windowed = not bool((data.values < 0).any())
-        nnz_g = data.stored_per_row()
-    else:
-        windowed = not bool((data < 0).any())
-        nnz_g = (data > 0).sum(dim=1).cpu().numpy()
+    with residency.boundary("wilcox_ladder_plan"):
+        if compact:
+            windowed = not bool((data.values < 0).any())
+            nnz_g = data.stored_per_row()
+        else:
+            windowed = not bool((data < 0).any())
+            nnz_g = (data > 0).sum(dim=1).cpu().numpy()
     if windowed:
         route = "csr-compacted" if compact else "dense-device"
     else:
         route = "csr-chunked" if compact else "dense-chunked"
     buckets: List[Dict] = []
+    # SCC_WILCOX_PROBE: synced per-bucket walls, a sort-only timing and the
+    # rows' value-run counts (a diagnosis: it serializes the ladder)
+    probe_on = bool(env_flag("SCC_WILCOX_PROBE"))
+    t_ladder = time.perf_counter()
     if ladder is not None:
         ladder.update(
             route=route, windowed=bool(windowed),
@@ -636,7 +655,7 @@ def _run_wilcox(
                    else "csr-compacted" if compact else "dense-device"),
             kernel="mesh-scan" if mesh is not None else "scan",
             n_genes=int(G), n_cells=int(N),
-            n_clusters=int(K), buckets=buckets)
+            n_clusters=int(K), probe_synced=probe_on, buckets=buckets)
 
     def _audit(out, unit_key, unit, vals, cids, n_rows, full_rows):
         """The integrity tier on one bucket's fresh output: the injected
@@ -697,23 +716,26 @@ def _run_wilcox(
                     g0 = g1
                     recover.bucket_done()
                     continue
+            t_bucket = time.perf_counter()
             with recover, obs_trace.span(
-                    "wilcox_bucket", window=int(w), n_genes=int(ids.size)):
+                    "wilcox_bucket", window=int(w),
+                    n_genes=int(ids.size)) as bspan:
                 faults.fault_point("wilcox_bucket")
                 if compact:
                     # compacted input always runs zero-block mode
                     vals, kcid = data.window_rows(ids, w, cid)
                 else:
-                    vals = data.index_select(
-                        0, torch.as_tensor(ids, device=dev))
+                    with residency.boundary("wilcox_ladder_plan"):
+                        t_ids = torch.as_tensor(ids, device=dev)
+                    vals = data.index_select(0, t_ids)
                     kcid = cid
                 out = _audit(
-                    _rank_sums(vals, kcid, window=weff),
+                    _rank_sums(vals, kcid, window=weff, span=bspan),
                     int(w), f"window:{int(w)}", vals, kcid, int(ids.size),
                     full_rows=not compact)
                 real = int(nnz_sorted[g0:g1].sum())
                 padded = int(ids.size) * int(scan_w)
-                buckets.append({
+                brec = {
                     "window": w, "scan_width": int(scan_w),
                     "sort_width": int(sort_w), "n_genes": int(ids.size),
                     "padded_rows": int(ids.size), "real_elems": real,
@@ -722,7 +744,10 @@ def _run_wilcox(
                     "nnz_min": int(nnz_sorted[g0]),
                     "nnz_max": int(nnz_sorted[g1 - 1]),
                     "overflow_genes": 0,
-                })
+                }
+                if probe_on:
+                    _probe_bucket(brec, out, vals, weff, scan_w, t_bucket)
+                buckets.append(brec)
             if recover.retry:
                 continue  # re-enter at g0 with the (maybe halved) budget
             if ckpt is not None:
@@ -745,17 +770,23 @@ def _run_wilcox(
                 "wilcox_test", "bucket", ckpt.resumed, len(parts))
             # blocks written on a larger mesh: stamp the crossing
             ckpt.note_transitions()
+        if ladder is not None and probe_on:
+            obs_trace.device_drain()
+            ladder["ladder_wall_s"] = round(
+                time.perf_counter() - t_ladder, 4)
     else:
         # any negative value: full-width gene chunks (a CSR densifies one
         # chunk at a time on the device)
         for g0, g1, chunk in row_chunks(data, gc):
-            out = _audit(_rank_sums(chunk, cid),
+            out = _audit(_rank_sums(chunk, cid, span=None),
                          "chunk", f"chunk:{int(g0)}", chunk, cid,
                          int(g1 - g0), full_rows=True)
             parts.append((np.arange(g0, g1), out))
-    inv = torch.as_tensor(
-        np.argsort(np.concatenate([ids for ids, _ in parts]), kind="stable"),
-        device=dev)
+    with residency.boundary("wilcox_ladder_plan"):
+        inv = torch.as_tensor(
+            np.argsort(np.concatenate([ids for ids, _ in parts]),
+                       kind="stable"),
+            device=dev)
 
     def _gather(f: int) -> torch.Tensor:
         """Blocks in ladder order → (P, G) in gene order."""
@@ -767,10 +798,11 @@ def _run_wilcox(
     if small.size:
         # R's exact branch runs on the host by design: fetch only the
         # small pairs' rows (u and the tie indicator)
-        rows = torch.as_tensor(small, device=dev)
-        u_small = u_stat[rows].cpu().numpy()
-        tie_small = _gather(2)[rows].cpu().numpy()
-        lp_small = log_p[rows].cpu().numpy()
+        with residency.boundary("exact_small_pairs"):
+            rows = torch.as_tensor(small, device=dev)
+            u_small = u_stat[rows].cpu().numpy()
+            tie_small = _gather(2)[rows].cpu().numpy()
+            lp_small = log_p[rows].cpu().numpy()
         for r, p in enumerate(small):
             tiefree = tie_small[r] == 0
             if tiefree.any():
@@ -780,8 +812,33 @@ def _run_wilcox(
                 )
                 lp_small[r, np.nonzero(tiefree)[0]] = np.log(
                     pe).astype(np.float32)
-        log_p[rows] = torch.from_numpy(lp_small).to(dev)
+        with residency.boundary("exact_small_pairs"):
+            log_p[rows] = torch.from_numpy(lp_small).to(dev)
     return log_p, u_stat
+
+
+def _probe_bucket(brec: Dict, out, vals: torch.Tensor, window: int,
+                  scan_w: int, t_bucket: float) -> None:
+    """``SCC_WILCOX_PROBE``'s diagnosis of one finished bucket, onto its
+    record: the synced bucket wall, the sort-only pass over the same rows
+    (warmed once untimed first, so no first-call cost lands in it) and
+    the rows' value-run counts (distinct values in each sorted row's scan
+    window), fetched under ``obs_internal`` as measurement overhead."""
+    obs_trace.device_drain()
+    brec["wall_s"] = round(time.perf_counter() - t_bucket, 4)
+    _ranksum.sort_probe(vals, window)
+    obs_trace.device_drain()
+    t_s = time.perf_counter()
+    sv = _ranksum.sort_probe(vals, window).values
+    obs_trace.device_drain()
+    brec["sort_s"] = round(time.perf_counter() - t_s, 4)
+    sv = sv[:, :scan_w]
+    runs = (sv[:, 1:] != sv[:, :-1]).sum(dim=1) + 1
+    with residency.boundary("obs_internal"):
+        nr = runs.cpu().numpy()
+    if nr.size:
+        brec["tied_runs_p50"] = int(np.median(nr))
+        brec["tied_runs_max"] = int(nr.max())
 
 
 def streaming_wilcox_block(
@@ -803,8 +860,6 @@ def streaming_wilcox_block(
     windows, R's exact branch for small pairs, the same per-gene outputs,
     since rank tests are per gene. Returns device (P, Gb) log p and U;
     the caller owns the one fetch and the durable per-chunk store."""
-    from scconsensus_tpu_torch.obs import residency
-
     dev = resolve_device(device)
     with residency.boundary("input_staging"):
         slab = DeviceCSR.from_scipy(block, dev)
@@ -901,7 +956,8 @@ def pairwise_de(
             )
 
     def aggregates(cid: np.ndarray):
-        t_cid = torch.as_tensor(cid, device=dev)
+        with residency.boundary("input_staging"):
+            t_cid = torch.as_tensor(cid, device=dev)
         if isinstance(data, DeviceCSR):
             # gene chunks gathered from the triplet; detected = stored ≠ 0
             return csr_aggregates(data, t_cid, K)
@@ -910,9 +966,10 @@ def pairwise_de(
     with clock.stage("aggregates"):
         agg = aggregates(cell_idx)
 
-    pi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
-    pj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
-    ok = torch.as_tensor(pair_ok, device=dev)
+    with residency.boundary("input_staging"):
+        pi = torch.as_tensor(pair_i, dtype=torch.int64, device=dev)
+        pj = torch.as_tensor(pair_j, dtype=torch.int64, device=dev)
+        ok = torch.as_tensor(pair_ok, device=dev)
     pct1 = pct2 = u = aux = mean_gate = ladder = None
     if method == "edger":
         from scconsensus_tpu_torch.de.edger import run_edger_pairs
@@ -1074,5 +1131,6 @@ def de_gene_union(result: PairwiseDEResult, n_top: int = 30) -> np.ndarray:
                          torch.full_like(result.log_fc, -float("inf")))
     k = min(n_top, masked.shape[1])
     vals, idx = torch.topk(masked, k, dim=1)
-    vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+    with residency.boundary("de_union_topk"):
+        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
     return np.unique(idx[vals > -np.inf]).astype(np.int64)

@@ -224,7 +224,11 @@ def rows_dense(x, idx):
     if isinstance(x, DeviceCSR):
         return x.gather_rows(idx)
     if isinstance(x, torch.Tensor):
-        idx = torch.as_tensor(np.asarray(idx, np.int64), device=x.device)
+        from scconsensus_tpu_torch.obs import residency
+
+        with residency.boundary("input_staging"):
+            idx = torch.as_tensor(np.asarray(idx, np.int64),
+                                  device=x.device)
         return x.index_select(0, idx).float()
     return np.asarray(x[idx].toarray(), dtype=np.float32)
 
@@ -265,11 +269,15 @@ def mean_expm1(x) -> float:
     """mean(expm1(x)) over all G·N entries without densifying: the slow
     path's global threshold base (R/reclusterDEConsensus.R:36). A
     DeviceCSR sums its stored values in float64."""
-    if isinstance(x, DeviceCSR):
-        total = float(torch.expm1(x.values).sum(dtype=torch.float64))
-        return total / float(x.shape[0] * x.shape[1])
-    if isinstance(x, torch.Tensor):
-        return float(torch.mean(torch.expm1(x)))
+    from scconsensus_tpu_torch.obs import residency
+
+    # one scalar the slow path's gates read on the host
+    with residency.boundary("de_result_fetch"):
+        if isinstance(x, DeviceCSR):
+            total = float(torch.expm1(x.values).sum(dtype=torch.float64))
+            return total / float(x.shape[0] * x.shape[1])
+        if isinstance(x, torch.Tensor):
+            return float(torch.mean(torch.expm1(x)))
     total = float(np.expm1(x.data).sum())
     return total / float(x.shape[0] * x.shape[1])
 

@@ -66,15 +66,30 @@ present under ``SCC_INTEGRITY=audit|enforce``) and ``kernels`` (under
 
 Observability (``scconsensus_tpu/models/pipeline.py:61-206``): ``timer``
 (a ``utils.logging.StageTimer``; by default one logging each stage at
-INFO) owns the tracer. ``SCC_OBS_KERNELS=<dir>`` opens a
-``torch.profiler`` window around the run (``obs.kernels``), with the
-tracer in annotate mode, and joins every CUDA kernel to the span that
-launched it (``metrics["kernels"]``). ``SCC_TRACE_DIR=<dir>`` writes
-``<dir>/run_record.json`` and a Perfetto ``<dir>/trace.json`` after the
-run, from a ``finally``, so a failed run leaves them too. Capture and
-export are best effort: a failure logs a warning and never costs the
-result. A reference flag the port does not handle yet
-(``config.UNPORTED_FLAGS``) raises ``NotImplementedError`` when set.
+INFO) owns the tracer. ``SCC_OBS_TRANSFERS=1`` counts explicit
+host↔device copies (``obs.device.TransferWatch``,
+``metrics["transfers"]``). ``SCC_OBS_RESIDENCY=audit|enforce`` runs the
+pipeline under the residency auditor (``obs.residency``, with the run's
+device type as the device side: every crossing span-attributed on
+``metrics["residency"]``; enforce raises on a crossing outside the
+declared boundaries). ``SCC_OBS_COST=1`` prices the rank-sum and edgeR
+chunk bodies on their spans (``obs.cost``). ``SCC_OBS_KERNELS=<dir>``
+opens a ``torch.profiler`` window around the run (``obs.kernels``), with
+the tracer in annotate mode, and joins every CUDA kernel to the span that
+launched it (``metrics["kernels"]``, with ``vs_cost_model`` when the
+cost model ran). ``SCC_HOSTPROF=1`` samples the run thread
+(``obs.hostprof``; ``metrics["host_profile"]`` and
+``["memory_timeline"]``), started here unless a profiler is already
+active. ``SCC_WILCOX_PROBE=1`` times each Wilcoxon bucket
+(``metrics["wilcox_ladder"]``). ``SCC_TRACE_DIR=<dir>`` writes
+``<dir>/run_record.json`` (with every section above, and the
+``profile`` and ``residency_burndown`` joined from them) and a Perfetto
+``<dir>/trace.json`` after the run, from a ``finally``, so a failed run
+leaves them too. Capture and export are best effort: a failure logs a
+warning and never costs the result; no instrument changes a result. A
+reference flag the port does not handle yet (``config.UNPORTED_FLAGS``:
+``SCC_COMPILELOG``, ``SCC_GRAPHS``) raises ``NotImplementedError`` when
+set.
 
 Every ``method`` of the reference runs: "wilcox" (fast), "wilcoxon"
 (slow), "edger", and the fast-path Seurat tests "bimod", "t" and "roc".
@@ -139,6 +154,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -161,7 +177,11 @@ from scconsensus_tpu_torch.de.engine import (
 from scconsensus_tpu_torch.device import resolve_device
 from scconsensus_tpu_torch.io.sparsemat import nodg as count_detected
 from scconsensus_tpu_torch.io.sparsemat import rows_dense
+from scconsensus_tpu_torch.obs import hostprof
 from scconsensus_tpu_torch.obs import quality as obs_quality
+from scconsensus_tpu_torch.obs import residency as obs_residency
+from scconsensus_tpu_torch.obs.cost import stage_cost_summary
+from scconsensus_tpu_torch.obs.device import TransferWatch
 from scconsensus_tpu_torch.obs.kernels import KernelCapture
 from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
 from scconsensus_tpu_torch.ops import linkage
@@ -277,14 +297,32 @@ def refine(
         # the kernel join needs the spans' record_function windows in the
         # profiler's timeline: the tracer's annotate mode
         timer = StageTimer(get_logger(), trace=capture.enabled)
+    watch = None
+    if env_flag("SCC_OBS_TRANSFERS"):
+        watch = TransferWatch(device_types=(dev.type,))
+    auditor = None
+    if obs_residency.mode() != "off":
+        auditor = obs_residency.ResidencyAuditor(device_types=(dev.type,))
+    prof, own_prof = hostprof.active_profiler(), False
+    if prof is None and env_flag("SCC_HOSTPROF"):
+        prof, own_prof = hostprof.start_if_enabled(), True
+    result = None
     try:
-        with capture:
+        with obs_residency.audit_region(auditor), \
+                (watch if watch is not None else nullcontext()), capture:
             result = _refine_impl(data, labels, config, gene_names, dev,
                                   omega, timer, mesh)
     finally:
+        sections = _observations(timer, watch, auditor, capture, prof)
+        if own_prof:
+            hostprof.stop_active()
         trace_dir = env_flag("SCC_TRACE_DIR")
         if trace_dir:
-            _export_trace(trace_dir, timer)
+            _export_trace(trace_dir, timer, sections)
+    for key in ("transfers", "residency", "kernels", "host_profile",
+                "memory_timeline"):
+        if sections.get(key) is not None:
+            result.metrics[key] = sections[key]
     rb_section = robust_record.section()
     if rb_section is not None:
         # absent on healthy unfaulted runs: absence is the healthy signal
@@ -292,20 +330,39 @@ def refine(
     ig_section = robust_integrity.section()
     if ig_section is not None:
         result.metrics["integrity"] = ig_section
-    if capture.enabled:
-        try:
-            sec = capture.section(
-                span_records=result.metrics.get("spans") or [])
-            if sec is not None:
-                result.metrics["kernels"] = sec
-        except Exception as e:  # capture is evidence, never a crash
-            get_logger().warning("kernel capture section failed: %r", e)
     return result
 
 
-def _export_trace(trace_dir: str, timer: StageTimer) -> None:
-    """Best-effort post-run export of ``run_record.json`` and Perfetto's
-    ``trace.json``; never costs the pipeline result."""
+def _observations(timer: StageTimer, watch, auditor, capture,
+                  prof) -> Dict:
+    """The instruments' sections of one run (None where off): the
+    transfer watch, the residency audit, the kernel capture (with the
+    cost model's per-stage summary beside it) and the host profiler.
+    Built in the run's ``finally``, so a failed run's record has them."""
+    spans = timer.tracer.span_records()
+    stage_cost = stage_cost_summary(spans) or None
+    out = {
+        "transfers": watch.report() if watch is not None else None,
+        "residency": auditor.report() if auditor is not None else None,
+        "stage_throughput": stage_cost,
+        "kernels": None, "host_profile": None, "memory_timeline": None,
+    }
+    if capture.enabled:
+        try:
+            out["kernels"] = capture.section(span_records=spans,
+                                             stage_cost=stage_cost)
+        except Exception as e:  # capture is evidence, never a crash
+            get_logger().warning("kernel capture section failed: %r", e)
+    if prof is not None:
+        out.update(prof.sections())
+    return out
+
+
+def _export_trace(trace_dir: str, timer: StageTimer, sections: Dict) -> None:
+    """Best-effort post-run export of ``run_record.json`` (with the
+    instruments' sections, and the ``profile`` and ``residency_burndown``
+    joined from them) and Perfetto's ``trace.json``; never costs the
+    pipeline result."""
     try:
         import os
 
@@ -314,15 +371,28 @@ def _export_trace(trace_dir: str, timer: StageTimer) -> None:
             write_chrome_trace,
             write_json_atomic,
         )
+        from scconsensus_tpu_torch.obs.profile import profile_sections_of
 
         os.makedirs(trace_dir, exist_ok=True)
         tracer = timer.tracer
+        extra = {}
+        if sections.get("stage_throughput"):
+            extra["stage_throughput"] = sections["stage_throughput"]
         rec = build_run_record(
             metric="refine() pipeline trace",
             value=round(tracer.total_s(), 4),
             unit="seconds",
             tracer=tracer,
+            extra=extra,
+            transfers=sections.get("transfers"),
+            residency=sections.get("residency"),
+            kernels=sections.get("kernels"),
+            host_profile=sections.get("host_profile"),
+            memory_timeline=sections.get("memory_timeline"),
         )
+        for key, sec in profile_sections_of(rec).items():
+            if sec is not None:
+                rec[key] = sec
         write_json_atomic(os.path.join(trace_dir, "run_record.json"), rec)
         write_chrome_trace(os.path.join(trace_dir, "trace.json"),
                            tracer.span_records())
@@ -464,7 +534,8 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
             scores = sc
             # tree and cuts are host algorithms: the (N, n_pcs) scores
             # cross
-            return {"scores": sc.cpu().numpy()}
+            with obs_residency.boundary("embed_scores_fetch"):
+                return {"scores": sc.cpu().numpy()}
 
         def _embed_degrade(_attempt):
             # an allocation failure in embed: hand the allocator's cached
@@ -689,7 +760,8 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                     info["silhouette_method"] = "pooled-estimator"
 
     with clock.stage("nodg"):
-        nodg = _guard(lambda: count_detected(data), site="stage:nodg")
+        with obs_residency.boundary("label_fetch"):
+            nodg = _guard(lambda: count_detected(data), site="stage:nodg")
 
     # quality telemetry: the DE gate funnel, the window ladder's
     # occupancy, the cluster structure against the input labeling and the
@@ -721,7 +793,8 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
     union_names = (np.asarray(gene_names)[union] if gene_names is not None
                    else union.copy())
     if config.plot_name:
-        with clock.stage("report"):
+        # the plot's gene-row gather is a pipeline-tail output
+        with clock.stage("report"), obs_residency.boundary("label_fetch"):
             from scconsensus_tpu_torch.report.de_heatmap import (
                 cell_type_de_plot,
             )

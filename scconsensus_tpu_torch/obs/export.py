@@ -16,17 +16,22 @@ sections both have. Top-level keys:
                             ``compile``: the port compiles no XLA program
   extra                    free-form emitter extras
   termination              optional, validated as in the reference
-  quality, robustness, serving, slo, streaming, integrity, kernels, tunnel
+  quality, residency, kernels, robustness, serving, slo, streaming,
+  integrity, profile, residency_burndown, tunnel, host_profile,
+  memory_timeline
                            optional sections, each handed to the port's
-                           own validator (``obs.quality``, ``robust.record``,
-                           ``serve.metrics``, ``serve.slo``,
-                           ``stream.record``, ``robust.integrity``,
-                           ``obs.kernels``; ``tunnel`` inline)
+                           own validator (``obs.quality``,
+                           ``obs.residency``, ``obs.kernels``,
+                           ``robust.record``, ``serve.metrics``,
+                           ``serve.slo``, ``stream.record``,
+                           ``robust.integrity``, ``obs.profile``,
+                           ``obs.hostprof``; ``tunnel`` inline);
+                           ``host_profile`` and ``memory_timeline`` must
+                           be omitted when absent, never null
 
-A record carrying a section the port cannot validate yet (``residency``,
-``scenario``, ``loadgen``, ``profile``, ``residency_burndown``,
-``host_profile``, ``compile``, ``memory_timeline``, ``graphs``) raises
-``NotImplementedError`` naming it: it never passes unchecked.
+A record carrying a section the port cannot validate yet (``scenario``,
+``loadgen``, ``compile``, ``graphs``) raises ``NotImplementedError``
+naming it: it never passes unchecked.
 
 :func:`chrome_trace` converts span records to ``traceEvents`` complete
 ("X") events; open the file in Perfetto or chrome://tracing.
@@ -69,9 +74,7 @@ TERMINATION_CAUSES = ("clean", "signal", "stall", "crash")
 
 # sections of the reference's schema whose producers and validators the
 # port does not have yet, in the reference's keyword order
-UNPORTED_SECTIONS = ("residency", "scenario", "loadgen", "profile",
-                     "residency_burndown", "host_profile", "compile",
-                     "memory_timeline", "graphs")
+UNPORTED_SECTIONS = ("scenario", "loadgen", "compile", "graphs")
 
 
 def _device_section(tracer=None,
@@ -202,18 +205,32 @@ def _validate_tunnel(tun: Any) -> None:
 def _section_validators() -> Dict[str, Any]:
     """Section key → the port's validator (imported when a record is
     checked: each module is stdlib-level at import)."""
+    from scconsensus_tpu_torch.obs.hostprof import (
+        validate_host_profile,
+        validate_memory_timeline,
+    )
     from scconsensus_tpu_torch.obs.kernels import validate_kernels
+    from scconsensus_tpu_torch.obs.profile import (
+        validate_profile,
+        validate_residency_burndown,
+    )
     from scconsensus_tpu_torch.obs.quality import validate_quality
+    from scconsensus_tpu_torch.obs.residency import validate_residency
     from scconsensus_tpu_torch.robust.integrity import validate_integrity
     from scconsensus_tpu_torch.robust.record import validate_robustness
     from scconsensus_tpu_torch.serve.metrics import validate_serving
     from scconsensus_tpu_torch.serve.slo import validate_slo
     from scconsensus_tpu_torch.stream.record import validate_streaming
 
-    return {"quality": validate_quality, "kernels": validate_kernels,
+    return {"quality": validate_quality, "residency": validate_residency,
+            "kernels": validate_kernels,
             "robustness": validate_robustness, "serving": validate_serving,
             "slo": validate_slo, "streaming": validate_streaming,
-            "integrity": validate_integrity, "tunnel": _validate_tunnel}
+            "integrity": validate_integrity, "profile": validate_profile,
+            "residency_burndown": validate_residency_burndown,
+            "tunnel": _validate_tunnel,
+            "host_profile": validate_host_profile,
+            "memory_timeline": validate_memory_timeline}
 
 
 def validate_run_record(rec: Dict[str, Any]) -> None:
@@ -276,6 +293,11 @@ def validate_run_record(rec: Dict[str, Any]) -> None:
             raise NotImplementedError(
                 f"run record carries a {key!r} section, which the port "
                 "cannot validate yet")
+    # the host observatory's sections: absence is the marker for "the
+    # instrument never ran", so a present-but-null key is rejected
+    for key in ("host_profile", "memory_timeline"):
+        if key in rec and rec[key] is None:
+            raise ValueError(f"{key} must be omitted when absent, not null")
     for key, validate in _section_validators().items():
         sec = rec.get(key)
         if sec is not None:

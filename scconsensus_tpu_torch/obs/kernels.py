@@ -27,8 +27,13 @@ falls back to its own timestamp and is counted in ``n_unlinked``.
 The result is the run record's validated ``kernels`` section: top-K
 kernels by total device time, every kernel's count, time, span and stage
 (``by_kernel``), device time per span and per stage, and the total device
-time. There is no ``vs_cost_model``: the reference's cost model prices
-XLA programs, and ``SCC_OBS_COST`` is not ported. Capture is gated by
+time. Given ``obs.cost``'s per-stage summary (``SCC_OBS_COST``), the
+section gains ``vs_cost_model``: per stage its device time, wall, cost
+FLOPs and bytes, and the rates over device time. Its rows are the costed
+stages and every stage that ran kernels (a stage with no cost-model
+entry, such as ``silhouette`` with the hand kernel, carries its device
+time and null costs), so the run's ``profile`` shows every stage's
+device time. Capture is gated by
 ``SCC_OBS_KERNELS`` naming the capture directory; it is best effort: a
 profiler that fails to start or export records ``error`` and never
 crashes the run.
@@ -145,7 +150,8 @@ class KernelCapture:
         """The gzipped trace this window exported, or None."""
         return self.path
 
-    def section(self, span_records: Optional[List[Dict[str, Any]]] = None
+    def section(self, span_records: Optional[List[Dict[str, Any]]] = None,
+                stage_cost: Optional[Dict[str, Dict[str, Any]]] = None,
                 ) -> Optional[Dict[str, Any]]:
         """The run record's ``kernels`` section, or None when capture was
         off. A failure degrades to an error-stamped section: a capture
@@ -161,7 +167,7 @@ class KernelCapture:
                     "error": "no trace file produced"}
         try:
             sec = kernels_section(parse_trace_file(path), span_records or [],
-                                  top_k=self.top_k)
+                                  stage_cost=stage_cost, top_k=self.top_k)
         except Exception as e:
             return {"top": [], "n_events": 0, "total_device_time_s": 0.0,
                     "error": f"trace parse failed: {e!r}"[:200]}
@@ -280,10 +286,15 @@ def join_kernels_to_spans(kernels: List[Dict[str, Any]],
 
 def kernels_section(trace: Dict[str, Any],
                     span_records: List[Dict[str, Any]],
+                    stage_cost: Optional[Dict[str, Dict[str, Any]]] = None,
                     top_k: int = DEFAULT_TOP_K) -> Dict[str, Any]:
     """Build the ``kernels`` run-record section from a parsed trace.
     ``span_records``: the tracer's span records (their names and kinds
-    feed the join)."""
+    feed the join). ``stage_cost``: ``obs.cost``'s per-stage summary —
+    when given, the section gains ``vs_cost_model`` (module docstring),
+    with ``achieved_gflops_device`` / ``achieved_gbps_device``: cost
+    totals over summed device time, the rate wall-based attribution
+    understates whenever the host is the bottleneck."""
     kernels = device_op_events(trace)
     span_names = {s.get("name") for s in span_records
                   if isinstance(s, dict) and s.get("name")}
@@ -321,7 +332,7 @@ def kernels_section(trace: Dict[str, Any],
             if a["stages"] else None
         for key in ("spans", "stages", "device_time_us"):
             a.pop(key)
-    return {
+    sec = {
         "n_events": len(kernels),
         "n_kernels": len(agg),
         "n_unlinked": sum(1 for k in kernels if not k["linked"]),
@@ -340,6 +351,27 @@ def kernels_section(trace: Dict[str, Any],
                 by_stage.items(), key=lambda kv: -kv[1])
         },
     }
+    if stage_cost:
+        stages: Dict[str, Dict[str, Any]] = {}
+        for stage in sorted(set(stage_cost) | set(by_stage)):
+            cost = stage_cost.get(stage) or {}
+            dev_s = by_stage.get(stage, 0.0) / 1e6
+            row: Dict[str, Any] = {
+                "device_time_s": round(dev_s, 6),
+                "wall_s": cost.get("wall_s"),
+                "flops": cost.get("flops"),
+                "bytes_accessed": cost.get("bytes_accessed"),
+            }
+            if dev_s > 0:
+                if cost.get("flops"):
+                    row["achieved_gflops_device"] = round(
+                        cost["flops"] / dev_s / 1e9, 3)
+                if cost.get("bytes_accessed"):
+                    row["achieved_gbps_device"] = round(
+                        cost["bytes_accessed"] / dev_s / 1e9, 3)
+            stages[stage] = row
+        sec["vs_cost_model"] = stages
+    return sec
 
 
 # --------------------------------------------------------------------------

@@ -273,7 +273,11 @@ def de_funnel(result, config) -> Optional[Dict[str, Any]]:
     measures group-size skips only; on older stored results it degrades
     to a pct ∧ |logFC| recomputation (then the mean gate's rejections
     land in the tested drop)."""
-    with _timed():
+    from scconsensus_tpu_torch.obs.residency import boundary
+
+    # declared residency crossing: the funnel fetches ONLY (P,)-sized
+    # count vectors — the allowlisted funnel_counts boundary
+    with _timed(), boundary("funnel_counts"):
         tested = result.tested
         de_mask = result.de_mask
         P = int(len(result.pair_i))

@@ -45,16 +45,22 @@ def knn_ward_linkage(x, k: int = 15, mesh=None,
     optional ``parallel.mesh.Mesh`` around which the kNN sweep's cell
     blocks rotate (``parallel.ring.ring_knn``); the graph does not depend
     on it away from distance ties."""
+    from scconsensus_tpu_torch.obs import residency
+
     pts = x if isinstance(x, torch.Tensor) else None
-    x = np.ascontiguousarray(x.cpu().numpy() if pts is not None else x,
-                             np.float64)
+    # the kNN branch's tree is host Ward over the graph: the points and
+    # the (N, k) neighbour ids cross, as the pooled branch's pool does
+    with residency.boundary("tree_pool_fetch"):
+        x = np.ascontiguousarray(
+            x.cpu().numpy() if pts is not None else x, np.float64)
     n = x.shape[0]
     if n < 2:
         raise ValueError("need at least 2 points")
     k = min(k, n - 1)
     _, nbr = ring_knn(x.astype(np.float32) if pts is None else pts, k, mesh,
                       device=device)
-    nbr = nbr.cpu().numpy()
+    with residency.boundary("tree_pool_fetch"):
+        nbr = nbr.cpu().numpy()
 
     cap = 2 * n - 1
     cent = np.zeros((cap, x.shape[1]), np.float64)

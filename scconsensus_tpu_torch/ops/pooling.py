@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from scconsensus_tpu_torch.device import as_points
+from scconsensus_tpu_torch.obs import residency
 from scconsensus_tpu_torch.ops.distance import sq_dists
 from scconsensus_tpu_torch.ops.linkage import HClustTree, ward_linkage
 from scconsensus_tpu_torch.robust import faults
@@ -90,10 +91,12 @@ def _assign(points: torch.Tensor, cent: torch.Tensor, argmin) -> torch.Tensor:
                       for s in range(0, points.shape[0], _LLOYD_BLOCK)])
 
 
-def _host(cent: torch.Tensor, assign: torch.Tensor
+def _host(cent: torch.Tensor, assign: torch.Tensor, boundary: str
           ) -> Tuple[np.ndarray, np.ndarray]:
-    """Centroids (float64) and assignment on the host."""
-    return cent.cpu().numpy().astype(np.float64), assign.cpu().numpy()
+    """Centroids (float64) and assignment on the host, the declared
+    ``boundary``'s two crossings."""
+    with residency.boundary(boundary):
+        return cent.cpu().numpy().astype(np.float64), assign.cpu().numpy()
 
 
 def _used(cent: np.ndarray, assign: np.ndarray, m: int
@@ -120,7 +123,8 @@ def kmeans_pool(x, n_centroids: int, n_iter: int = 10, seed: int = 0,
     cent = init
     for _ in range(n_iter):
         cent = _update(xd, cent, _lloyd_argmin)
-    return _used(*_host(cent, _assign(xd, cent, _lloyd_argmin)), m)
+    return _used(*_host(cent, _assign(xd, cent, _lloyd_argmin),
+                        "tree_pool_fetch"), m)
 
 
 def pooled_ward_linkage(x, n_centroids: int = 4096, n_iter: int = 10,
@@ -190,7 +194,8 @@ def landmark_pool(x, n_landmarks: Optional[int] = None,
     cent = sk[torch.as_tensor(init_idx, device=xd.device)]
     for _ in range(n_iter):
         cent = _update(sk, cent, _nearest)
-    cent, assign = _host(cent, _assign(xd, cent, _nearest))
+    cent, assign = _host(cent, _assign(xd, cent, _nearest),
+                         "landmark_assign_fetch")
     # the integrity tier: the injected corruption site, occupancy
     # conservation, and once per run the float64 ghost replay of a seeded
     # 256-row block against the fetched landmarks; a detection raises

@@ -41,7 +41,8 @@ import torch
 
 from scconsensus_tpu_torch.ops.wilcoxon import wilcoxon_from_ranks
 
-__all__ = ["ranksum_body", "chunk_genes_for_budget", "ALLPAIRS_ELEM_BUDGET"]
+__all__ = ["ranksum_body", "sort_probe", "chunk_genes_for_budget",
+           "ALLPAIRS_ELEM_BUDGET"]
 
 # Element budget for the (Gc, K, N) working tensors (~6 live at once).
 ALLPAIRS_ELEM_BUDGET = 320_000_000
@@ -51,6 +52,14 @@ def chunk_genes_for_budget(n_cells: int, n_clusters: int) -> int:
     """Gene-chunk width keeping Gc·N·K under the working-set budget."""
     gc = max(8, ALLPAIRS_ELEM_BUDGET // max(n_cells * n_clusters, 1))
     return max(8, 1 << (int(gc).bit_length() - 1))  # floor power of two
+
+
+def sort_probe(chunk: torch.Tensor, window: int = 0):
+    """The body's first stage — the stable value sort of each gene row —
+    alone. The engine's occupancy probe (``SCC_WILCOX_PROBE=1``) times it
+    separately per bucket so the sort's cost splits out of the
+    contraction's."""
+    return torch.sort(-chunk if window > 0 else chunk, dim=1, stable=True)
 
 
 def ranksum_body(

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from scconsensus_tpu_torch.device import as_points
+from scconsensus_tpu_torch.obs import residency
 from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
 
 __all__ = [
@@ -97,8 +98,10 @@ def silhouette_widths(x, labels, device=None) -> np.ndarray:
     xd = as_points(x, device)
     if not valid.all():
         xd = xd[torch.as_tensor(np.nonzero(valid)[0], device=xd.device)]
-    ids = torch.as_tensor(inv.astype(np.int32)[:, None], device=xd.device)
-    sums = distance_cluster_sums(xd.contiguous(), ids, k).cpu().numpy()
+    with residency.boundary("silhouette_slab_fetch"):
+        ids = torch.as_tensor(inv.astype(np.int32)[:, None],
+                              device=xd.device)
+        sums = distance_cluster_sums(xd.contiguous(), ids, k).cpu().numpy()
     counts = np.bincount(inv, minlength=k).astype(np.float32)
     out[valid] = widths_from_cluster_sums(sums, counts, inv)
     return out
@@ -147,10 +150,11 @@ def multi_cut_silhouette(x: torch.Tensor, labels_list) -> List[
     on. Returns [(mean_si, per_cluster_dict), …]."""
     ids, k_total, cuts = cut_labels(labels_list)
     n = ids.shape[0]
-    sums_all = distance_cluster_sums(
-        x.to(torch.float32).contiguous(),
-        torch.from_numpy(ids).to(x.device), k_total,
-    ).cpu().numpy()
+    with residency.boundary("silhouette_slab_fetch"):
+        sums_all = distance_cluster_sums(
+            x.to(torch.float32).contiguous(),
+            torch.from_numpy(ids).to(x.device), k_total,
+        ).cpu().numpy()
     out = []
     c0 = 0
     for labels, valid, uniq, inv, counts in cuts:
@@ -212,7 +216,9 @@ def pooled_multi_cut_silhouette(
     n = xd.shape[0]
     if centroids is None or assign is None:
         centroids, assign = kmeans_pool(xd, n_centroids, seed=seed)
-    cents = torch.as_tensor(np.asarray(centroids, np.float32), device=dev)
+    with residency.boundary("silhouette_slab_fetch"):
+        cents = torch.as_tensor(np.asarray(centroids, np.float32),
+                                device=dev)
     assign = np.asarray(assign)
     m = cents.shape[0]
 
@@ -256,8 +262,9 @@ def pooled_multi_cut_silhouette(
             sums = d @ cm                                   # (b, k)
             sums[ok, ob] -= d_self[ok]
             w[rows[ok]] = _widths_on_device(sums[ok], counts, ob)
-    return [_aggregate_widths(w.cpu().numpy(), labels)
-            for labels, _k, _cm, _counts, _own, w in cuts]
+    with residency.boundary("silhouette_slab_fetch"):
+        return [_aggregate_widths(w.cpu().numpy(), labels)
+                for labels, _k, _cm, _counts, _own, w in cuts]
 
 
 def pooled_mean_cluster_silhouette(x, labels, n_centroids: int = 2048,

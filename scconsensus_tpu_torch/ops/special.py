@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from scconsensus_tpu_torch.obs import residency
+
 __all__ = ["FLT_MIN", "betainc", "flush_log"]
 
 # the smallest normal float32; also the floor of ops/negbin.py's _log_tail
@@ -73,7 +75,11 @@ def _lentz(a, b, x, n_iter: int, small: float, threshold: float):
         delta = c * d
         h = h * delta
         it += 1
-        if not bool(((delta - 1.0).abs() >= threshold).any()):
+        # the host loop's convergence read, one scalar a step, declared
+        # with the DE result's fetch
+        with residency.boundary("de_result_fetch"):
+            done = not bool(((delta - 1.0).abs() >= threshold).any())
+        if done:
             break
     return h
 

@@ -132,8 +132,11 @@ def sharded_silhouette_widths(
         return out
     onehot = np.zeros((n, k), np.float32)
     onehot[np.nonzero(valid)[0], inv_all] = 1.0
-    sums = ring_cluster_distance_sums(x, onehot, mesh,
-                                      axis_name).cpu().numpy()
+    from scconsensus_tpu_torch.obs import residency
+
+    with residency.boundary("silhouette_slab_fetch"):
+        sums = ring_cluster_distance_sums(x, onehot, mesh,
+                                          axis_name).cpu().numpy()
     iv = np.nonzero(valid)[0]
     out[iv] = widths_from_cluster_sums(sums[iv], onehot.sum(axis=0),
                                        inv_all)

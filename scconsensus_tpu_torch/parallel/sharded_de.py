@@ -28,6 +28,7 @@ import torch
 
 from scconsensus_tpu_torch.obs import trace as obs_trace
 from scconsensus_tpu_torch.ops.gates import ClusterAggregates
+from scconsensus_tpu_torch.obs.cost import attach_cost
 from scconsensus_tpu_torch.ops.ranksum_allpairs import ranksum_body
 from scconsensus_tpu_torch.ops.wilcoxon import wilcoxon_pairs_tile
 from scconsensus_tpu_torch.parallel.mesh import (
@@ -106,7 +107,7 @@ def sharded_aggregates(
     for host input)."""
     require_dense(data)
     mesh = require_mesh(mesh or make_mesh(axis_name=axis_name))
-    with obs_trace.span("sharded_aggregates", n_shards=mesh.size):
+    with obs_trace.span("sharded_aggregates", n_shards=mesh.size) as sp:
         fault_point("sharded:aggregates")
         x = _as_f32(data)
         out_dev = x.device if isinstance(data, torch.Tensor) \
@@ -125,6 +126,7 @@ def sharded_aggregates(
         else:
             require_dense(onehot)
             ops, _ = pad_and_shard(_as_f32(onehot), mesh, 0)
+        attach_cost(sp, _aggregates_on, mesh, dp, ops, out_dev)
         return _aggregates_on(mesh, dp, ops, out_dev)
 
 
@@ -174,9 +176,11 @@ def sharded_allpairs_ranksum(
         # fires per bucket: a device_loss plan can kill the mesh between
         # finished (checkpointed) buckets
         fault_point("sharded:ranksum")
-        return _ranksum_on(mesh, chunk, _as_tensor(cid).to(torch.int64),
-                           *(_as_tensor(t) for t in (n_of, pair_i, pair_j)),
-                           n_clusters=int(n_clusters), window=int(window))
+        args = (mesh, chunk, _as_tensor(cid).to(torch.int64),
+                *(_as_tensor(t) for t in (n_of, pair_i, pair_j)))
+        kw = dict(n_clusters=int(n_clusters), window=int(window))
+        attach_cost(None, _ranksum_on, *args, **kw)
+        return _ranksum_on(*args, **kw)
 
 
 def _wilcox_on(mesh: Mesh, data: torch.Tensor, idx, m1, m2, n1, n2
@@ -213,5 +217,6 @@ def sharded_wilcox_logp(
     if not isinstance(data, torch.Tensor):
         x = x.to(mesh.devices[0])
     with obs_trace.span("sharded_wilcox_logp", n_shards=mesh.size,
-                        n_genes=int(x.shape[0])):
+                        n_genes=int(x.shape[0])) as sp:
+        attach_cost(sp, _wilcox_on, mesh, x, idx, m1, m2, n1, n2)
         return _wilcox_on(mesh, x, idx, m1, m2, n1, n2)

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from scconsensus_tpu_torch.io.sparsemat import DeviceCSR, is_sparse
+from scconsensus_tpu_torch.obs import residency
 from scconsensus_tpu_torch.robust import record as robust_record
 
 __all__ = ["InputContractError", "CHECKS", "preflight"]
@@ -125,9 +126,11 @@ def preflight(data, labels, config) -> List[Dict[str, Any]]:
 
     # nonfinite_matrix — one reduction where the values lie
     vals = _values(data)
-    finite = (bool(torch.isfinite(vals).all())
-              if isinstance(vals, torch.Tensor)
-              else bool(np.isfinite(vals).all()))
+    # the one scalar the contract reads back from the staged matrix
+    with residency.boundary("input_staging"):
+        finite = (bool(torch.isfinite(vals).all())
+                  if isinstance(vals, torch.Tensor)
+                  else bool(np.isfinite(vals).all()))
     if not finite:
         c = _nonfinite_counts(vals)
         raise InputContractError(

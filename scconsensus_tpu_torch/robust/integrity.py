@@ -70,6 +70,7 @@ __all__ = [
     "enabled",
     "enforcing",
     "begin_run",
+    "live_summary",
     "current",
     "section",
     "validate_integrity",
@@ -296,6 +297,33 @@ class IntegrityLog:
                 out["events_dropped"] = self._n_dropped
             return out
 
+    def live_summary(self) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            if not (self.checks or self.replays_planned
+                    or self.mismatches):
+                return None
+            planned = sum(b[0] for b in self.checks.values())
+            run = sum(b[1] for b in self.checks.values())
+            passed = sum(b[2] for b in self.checks.values())
+            out: Dict[str, Any] = {
+                "mode": self.mode,
+                "checks_planned": planned,
+                "checks_run": run,
+                "checks_passed": passed,
+                "violations": len(self.violations),
+                "replays_run": self.replays_run,
+                "replays_planned": self.replays_planned,
+                "mismatches": len(self.mismatches),
+                "recomputes": self.recomputes,
+            }
+            if self.last_replay_unix is not None:
+                # ghost-replay lag: how stale the newest oracle
+                # comparison is
+                out["replay_age_s"] = round(
+                    max(time.time() - self.last_replay_unix, 0.0), 1
+                )
+            return out
+
 
 _RUN: Optional[IntegrityLog] = None
 
@@ -318,18 +346,31 @@ def section() -> Optional[Dict[str, Any]]:
     return _RUN.section() if _RUN is not None else None
 
 
+def live_summary() -> Optional[Dict[str, Any]]:
+    """Compact counters for one heartbeat tick (None = nothing to say)."""
+    return _RUN.live_summary() if _RUN is not None else None
+
+
 class timed:
     """``with timed():`` adds the block's thread-CPU time to the layer's
     self-measured overhead (the < 2 % audit guard reads it). Thread CPU,
     as in the reference; the device checks drain the card before they
-    enter, so a wait for earlier kernels is not billed here."""
+    enter, so a wait for earlier kernels is not billed here. The block's
+    host↔device copies are the residency auditor's declared
+    ``integrity_check`` crossings (the reference's
+    ``scconsensus_tpu/robust/integrity.py:514-902``)."""
 
     def __enter__(self):
+        from scconsensus_tpu_torch.obs import residency
+
+        self._bound = residency.boundary("integrity_check")
+        self._bound.__enter__()
         self._t0 = time.thread_time()
         return self
 
     def __exit__(self, *exc):
         current().add_consumed(time.thread_time() - self._t0)
+        self._bound.__exit__(*exc)
         return False
 
 

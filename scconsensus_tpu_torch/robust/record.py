@@ -46,6 +46,7 @@ __all__ = [
     "note_degradation",
     "note_resume_point",
     "note_mesh_transition",
+    "live_summary",
     "add_consumed",
     "section",
     "validate_robustness",
@@ -237,6 +238,39 @@ class timed:
 
 def section() -> Optional[Dict[str, Any]]:
     return _RUN.section() if _RUN is not None else None
+
+
+def live_summary() -> Optional[Dict[str, Any]]:
+    """Compact counters for one heartbeat tick (None = nothing to say)."""
+    run = _RUN
+    if run is None or run.empty():
+        return None
+    with run._lock:
+        out: Dict[str, Any] = {}
+        if run.faults:
+            out["faults"] = len(run.faults)
+        if run.retries:
+            out["retries"] = len(run.retries)
+            out["last_retry"] = dict(run.retries[-1])
+        if run.degradations:
+            out["degradations"] = len(run.degradations)
+        if run.resume_points:
+            out["resumes"] = len(run.resume_points)
+        if run.mesh_transitions:
+            # live mesh panel: current device count = the latest
+            # transition's destination
+            last = run.mesh_transitions[-1]
+            out["mesh"] = {
+                "transitions": len(run.mesh_transitions),
+                "devices": len(last.get("to_devices") or []),
+                "path": " → ".join(
+                    [str(len(run.mesh_transitions[0].get("from_devices")
+                             or []))]
+                    + [str(len(t.get("to_devices") or []))
+                       for t in run.mesh_transitions]
+                ),
+            }
+        return out or None
 
 
 # --------------------------------------------------------------------------

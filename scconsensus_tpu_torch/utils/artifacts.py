@@ -86,6 +86,13 @@ def input_fingerprint(data, labels) -> Dict[str, Any]:
     the host; its nnz is counted only at ≤ 1e7 elements (else −1), as the
     reference's device branch does. The same values give the reference's
     fingerprint."""
+    from scconsensus_tpu_torch.obs import residency
+
+    with residency.boundary("input_staging"):
+        return _input_fingerprint(data, labels)
+
+
+def _input_fingerprint(data, labels) -> str:
     h = hashlib.sha256()
     if isinstance(data, DeviceCSR):
         vals = data.values

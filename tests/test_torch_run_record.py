@@ -268,6 +268,60 @@ def test_a_section_the_port_cannot_validate_raises(section):
         export.validate_run_record(rec)
 
 
+def _ported_section(section):
+    """A small valid section of each kind the port now validates, built
+    by the port's own builders."""
+    from scconsensus_tpu_torch.obs import hostprof, profile
+
+    res = {"mode": "audit", "to_device": {"calls": 1, "bytes": 64},
+           "to_host": {"calls": 1, "bytes": 8},
+           "by_stage": {"de": {"to_host_bytes": 8, "to_device_bytes": 64,
+                               "calls": 2}},
+           "by_boundary": {"label_fetch": {"to_host_bytes": 8,
+                                           "to_device_bytes": 0,
+                                           "calls": 1}},
+           "events": [], "violations": []}
+    return {
+        "residency": res,
+        "profile": profile.build_profile(
+            [{"name": "de", "kind": "stage", "wall_synced_s": 1.5}],
+            residency=res),
+        "residency_burndown": profile.build_burndown(res),
+        "host_profile": hostprof.build_host_profile(
+            [(0.0, "de", "python", "a.py:f:1"),
+             (0.02, None, "blocking_wait", None)]),
+        "memory_timeline": hostprof.build_memory_timeline(
+            [(0.0, 1 << 20, None, "de"), (0.02, 2 << 20, 4096, None)]),
+    }[section]
+
+
+# (section, a corruption each validator must refuse)
+PORTED_SECTIONS = {
+    "residency": ("mode", "bogus"),
+    "profile": ("version", 9),
+    "residency_burndown": ("total_bytes", -1),
+    "host_profile": ("n_samples", 99),
+    "memory_timeline": ("rss_peak_bytes", 0),
+}
+
+
+@pytest.mark.parametrize("section", PORTED_SECTIONS)
+def test_a_ported_section_validates(section):
+    """A section the port now carries passes the port's validator and the
+    reference's, and a corrupt one fails both."""
+    sec = _ported_section(section)
+    rec = export.build_run_record("x", 1, **{section: sec})
+    export.validate_run_record(rec)
+    ref_export.validate_run_record(rec)
+    key, bad = PORTED_SECTIONS[section]
+    broken = copy.deepcopy(rec)
+    broken[section][key] = bad
+    for validate in (export.validate_run_record,
+                     ref_export.validate_run_record):
+        with pytest.raises(ValueError):
+            validate(broken)
+
+
 def test_chrome_trace_equals_the_reference(runs, tmp_path):
     spans = runs["got"].metrics["spans"]
     got = export.chrome_trace(spans)
