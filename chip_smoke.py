@@ -207,17 +207,45 @@ checkout, and exits non-zero on the first phase that fails:
      ``stall`` event with the stacks), one held in ``tree`` by the same
      stall and sent SIGTERM there (a valid partial record stamped
      ``signal`` with the open stage, ingested by the evidence ledger as
-     partial).
+     partial);
+ 36. phase 7's run in a fresh child process (from the launcher) with
+     ``SCC_COMPILELOG=1`` and ``SCC_GRAPHS=1`` armed as the reference's
+     bench worker arms them: phase 7's labels, DE mask and union with one
+     kernel launch; its run record's ``compile`` section (no compile, one
+     cache hit for each native library, printed with the stage that
+     loaded it) and ``graphs`` section (a passport for each program the
+     fast Wilcoxon path reaches, no capture error), validated; each
+     passport's transfer ops and host syncs by stage and line, beside
+     phase 31's implicit syncs;
+ 37. the records of phases 7, 29, 31 and 36 ingested into an evidence
+     ledger under a temporary path and ``obs.regress.gate_record`` of
+     phase 36's against the other three, every verdict printed; the graph
+     lane refused by the committed ratchet's fingerprint
+     (``evidence/NUMERIC_PINS.json``, read only), and a temporary ratchet
+     pinned from phase 36's passports and phase 31's boundary calls
+     passed with 0 regressed by a second passport run (phase 31's audited
+     config with the passports armed here, phase 31's crossings);
+     ``obs.attr.diff_records`` of phase 36 against phase 7, its top
+     suspect and the head of its report;
+ 38. the drift sentinel's pinned workload (``obs.regress.
+     reference_fingerprint``, edgeR at 80 × 200 × 3) on the card and on
+     the CPU, each against the committed ``reference`` pins (read only;
+     the drifted fields printed), the card held to the CPU by
+     ``check_drift`` (log p quantiles within phase 5's 2e-3, dispersion
+     quantiles within 50 %, label ARI 1.0; its own 1e-3 verdict
+     printed).
 
 Phases 19 and 22 also validate the run records of the serve and stream
-soak workers' summaries.
+soak workers' summaries. The compile log is armed before phase 2, and
+the script's own compile section (on a clean checkout, the nvcc and g++
+builds outside any span) is printed before the kernel record.
 
 Phases run in the order 1–5, 12, 15, 20, 25, 28, 6–8, 13, 19, 16–18,
-21, 26, 27, 29 (with 33), 31, 32, 34, 35, 9–11, 14, 22–24, 30, so that
-the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26, 27, 29 and
-31–34 (phase 19 while phase 7's result is alive) and is freed before
-the larger ones; the line before the kernel record gives the total
-time.
+21, 26, 27, 29 (with 33), 31, 32, 34, 35–38, 9–11, 14, 22–24, 30, so
+that the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26, 27, 29,
+31–34 and 37 (phase 19 while phase 7's result is alive) and is freed
+before the larger ones; the line before the kernel record gives the
+total time.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -227,6 +255,8 @@ on every call.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
+import functools
 import hashlib
 import io
 import json
@@ -2756,11 +2786,13 @@ BRAIN10M = dict(n_genes=2000, n_clusters=16, seed=11, density=0.02)
 BRAIN10M_KW = dict(approx_threshold=100_000, landmark_threshold=100_000,
                    silhouette_sample=50_000)
 STREAM_20K_CELLS = 20_000
-# phase 24's cell count: brain10m's 10,000,000 cut to 500,000; nothing
+# phase 24's cell count: brain10m's 10,000,000 cut to 250,000; nothing
 # else is cut. At 1,000,000 the phase took 482.6 s on the card (cold
 # 289.5 s, steady 182.3 s): the Gram embed's 560 chunk loads took
-# 137.9-141.0 s of each run and the cold run's ingest 101.7 s
-STREAM_SCALE_CELLS = 500_000
+# 137.9-141.0 s of each run and the cold run's ingest 101.7 s; at 500,000
+# its child took 211 s, the script's largest depth after phases 36-38
+# were added
+STREAM_SCALE_CELLS = 250_000
 MB = float(1 << 20)
 # On the card's machine ``import torch`` and CUDA init leave 4.8 GB
 # resident, above the 4,096 MB default host budget before any streaming
@@ -3656,6 +3688,7 @@ def phase_trace_full(data, truth, cons, wilcox_ref, main_rec) -> tuple:
         f"export {sec['export_s']!r} s; trace {sec['trace_bytes']} bytes "
         f"({sec['trace_gz_bytes']} gzipped)")
     log("[trace-26k] " + json.dumps(out))
+    out["record"] = _flagship_record(m, kernels=sec)
     return launches, out
 
 
@@ -3886,6 +3919,10 @@ def phase_audit_full(data, truth, cons, wilcox_ref) -> tuple:
                "burndown": {k: rec["residency_burndown"][k] for k in
                             ("total_bytes", "todo_item2_bytes")}}
         runs.append(run)
+        if i == 0:
+            records = [_flagship_record(
+                m, residency=rep, host_profile=m["host_profile"],
+                memory_timeline=m["memory_timeline"])]
         log(f"[{tag}] wall {m['wall_s']!r} s against phase 7's "
             f"{wilcox_ref['wall_s']!r} s; auditor {consumed!r} s "
             f"({share!r} of the wall); d2h {json.dumps(rep['to_host'])}, "
@@ -3911,6 +3948,7 @@ def phase_audit_full(data, truth, cons, wilcox_ref) -> tuple:
     launches += n
     out = {"runs": runs, "best_share": best, "hooks": hooks}
     log("[audit-26k] " + json.dumps(out, default=str))
+    out["record"] = records[0]
     return launches, out
 
 
@@ -4174,13 +4212,443 @@ def phase_live() -> tuple:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 36-38: the compile log and graph passports, the perf gate and
+# perf-diff attribution over the script's own records, the drift sentinel
+# ---------------------------------------------------------------------------
+
+# the run key every 26k Wilcoxon record of the script carries, so that the
+# evidence ledger files them under one baseline
+FLAGSHIP_KEY = {"config": "flagship_26k", "platform": "gpu",
+                "method": "wilcox"}
+# the programs the fast Wilcoxon path at 26k reaches (phase 36)
+WILCOX_PROGRAMS = ("gates.compute_aggregates_cid", "gates.pair_gates_fast",
+                   "wilcox.allpairs_ranksum_chunk", "embed.pca_scores")
+
+
+def _flagship_record(m: dict, **sections) -> dict:
+    """A 26k Wilcoxon run's record (``build_run_record``) from its
+    metrics, under ``FLAGSHIP_KEY``."""
+    from scconsensus_tpu_torch.obs.export import build_run_record
+
+    return build_run_record("refine() at 26k", m["wall_s"],
+                            spans=m["spans"], quality=m.get("quality"),
+                            extra=dict(FLAGSHIP_KEY), **sections)
+
+
+_PASSPORT_CHILD = """
+import json, os, sys, time
+# armed by their flags, as the reference's bench worker arms them
+os.environ["SCC_COMPILELOG"] = "1"
+os.environ["SCC_GRAPHS"] = "1"
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from scconsensus_tpu_torch.obs import compilelog, graphs
+from scconsensus_tpu_torch.obs import device as obs_device
+assert compilelog.install_and_mark() and graphs.install_and_mark()
+import chip_smoke
+from scconsensus_tpu_torch import recluster_de_consensus_fast
+from scconsensus_tpu_torch.obs.export import (validate_run_record,
+                                              write_json_atomic)
+from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+
+data, truth, cons = chip_smoke.phase_full_data()
+distance_cluster_sums.launches = 0
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+res = recluster_de_consensus_fast(data, cons, device="cuda")
+torch.cuda.synchronize()
+m = res.metrics
+m["wall_s"] = time.perf_counter() - t0
+rec = chip_smoke._flagship_record(m, compile=compilelog.snapshot(),
+                                  graphs=graphs.snapshot())
+validate_run_record(rec)
+write_json_atomic(os.path.join({root!r}, "run_record.json"), rec)
+np.savez(os.path.join({root!r}, "result.npz"),
+         union=res.de_gene_union_idx, de_mask=res.de.de_mask.cpu().numpy(),
+         **{{k.replace(": ", "_"): v for k, v in res.dynamic_labels.items()}})
+print("PASSPORT_CHILD " + json.dumps({{
+    "launches": distance_cluster_sums.launches,
+    "silhouettes": [i["silhouette"] for i in res.deep_split_info],
+    "cache_events": obs_device.cache_events(),
+    "compile_events": obs_device.compile_events()}}), flush=True)
+"""
+
+
+def _sync_sites(sec: dict) -> dict:
+    """``{stage: [kind op@where [program]]}`` of a graphs section's
+    transfer ops and host callbacks."""
+    out = {}
+    for name, p in sorted(sec["programs"].items()):
+        for kind, key in (("transfer", "op"), ("callback", "target")):
+            block = p["transfer_ops" if kind == "transfer" else
+                      "host_callbacks"]
+            for site in block["sites"]:
+                out.setdefault(p["stage"] or "(outside spans)", []).append(
+                    f"{kind} {site[key]}@{site['where']} [{name}]")
+    return out
+
+
+def phase_passports(launcher, wilcox_ref, audit_out) -> tuple:
+    """Phase 36: phase 7's run in a fresh child (from the launcher) with
+    ``SCC_COMPILELOG=1 SCC_GRAPHS=1``: phase 7's labels, DE mask and union
+    and one kernel launch; its record's ``compile`` section (no compile,
+    one cache hit per native library, printed with the stage that loaded
+    it) and ``graphs`` section (the fast Wilcoxon path's programs, no
+    capture error), validated; the passports' transfer ops and host syncs
+    by stage and line beside phase 31's implicit syncs. Returns
+    (launches, the record, the printed numbers)."""
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch.obs.export import validate_run_record
+
+    root = tempfile.mkdtemp(prefix="scc-passports-")
+    try:
+        t0 = time.perf_counter()
+        proc = _launch(launcher, [sys.executable, "-c",
+                                  _PASSPORT_CHILD.format(repo=REPO,
+                                                         root=root)], 600)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc["stdout"].splitlines()
+                 if ln.startswith("PASSPORT_CHILD ")]
+        if proc["rc"] != 0 or not lines:
+            raise AssertionError(f"[passports-26k] the child failed: "
+                                 f"{proc['stderr'][-3000:]}")
+        child = json.loads(lines[0][len("PASSPORT_CHILD "):])
+        with open(os.path.join(root, "run_record.json")) as f:
+            rec = json.load(f)
+        z = np.load(os.path.join(root, "result.npz"))
+        got = {"union": z["union"], "de_mask": z["de_mask"],
+               "labels": {k: z[k.replace(": ", "_")]
+                          for k in wilcox_ref["labels"]}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    validate_run_record(rec)
+    for key in ("union", "de_mask"):
+        if not np.array_equal(got[key], wilcox_ref[key]):
+            raise AssertionError(f"[passports-26k] the {key} differs from "
+                                 "phase 7's")
+    for key, want in wilcox_ref["labels"].items():
+        if not np.array_equal(got["labels"][key], want):
+            raise AssertionError(f"[passports-26k] {key}: labels differ")
+    if child["silhouettes"] != wilcox_ref["silhouettes"] or \
+            child["launches"] != 1:
+        raise AssertionError(f"[passports-26k] silhouettes "
+                             f"{child['silhouettes']} or launches "
+                             f"{child['launches']} (want 1)")
+    comp = rec["compile"]
+    hits = {name: (stage, occ) for name, stage, occ in child["cache_events"]}
+    want_hits = {"scc/native/cuda_compile_cache_hit",
+                 "scc/native/ward_compile_cache_hit"}
+    if comp["compiles"] != 0 or comp["cache_hits"] != 2 or \
+            set(hits) != want_hits:
+        raise AssertionError(f"[passports-26k] compile section {comp}, "
+                             f"cache events {child['cache_events']}")
+    log("[passports-26k] compile section: " + json.dumps(comp))
+    for name, (stage, occ) in sorted(hits.items()):
+        log(f"[passports-26k] cache hit {name} in stage {stage} (entry "
+            f"{occ})")
+    sec = rec["graphs"]
+    progs = {p["program"] for p in sec["programs"].values()}
+    missing = set(WILCOX_PROGRAMS) - progs
+    if sec.get("errors") or missing:
+        raise AssertionError(f"[passports-26k] capture errors "
+                             f"{sec.get('errors')}, programs missing "
+                             f"{sorted(missing)}")
+    by_stage = {s: {k: row[k] for k in ("programs", "transfer_ops",
+                                         "host_callbacks")}
+                for s, row in sec["by_stage"].items()}
+    sites = _sync_sites(sec)
+    capture = sum(p["capture_s"] for p in sec["programs"].values())
+    implicit = audit_out["runs"][0]["implicit_syncs"]
+    out = {"process_s": wall, "wall_s": rec["value"],
+           "phase7_wall_s": wilcox_ref["wall_s"],
+           "passports": len(sec["programs"]), "capture_s": capture,
+           "totals": sec["totals"], "fingerprint": sec["fingerprint"],
+           "compile": comp, "cache_hits": hits}
+    log(f"[passports-26k] child {wall!r} s, refine wall {rec['value']!r} s "
+        f"against phase 7's {wilcox_ref['wall_s']!r} s; {len(progs)} "
+        f"programs in {len(sec['programs'])} passports, capture "
+        f"{capture!r} s; totals {json.dumps(sec['totals'])}; fingerprint "
+        f"{sec['fingerprint']['digest']} (torch "
+        f"{sec['fingerprint']['torch']}, {sec['fingerprint']['backend']}, "
+        f"{sec['fingerprint']['device_kind']})")
+    log("[passports-26k] by stage: " + json.dumps(by_stage))
+    for stage, rows in sorted(sites.items()):
+        for row in rows:
+            log(f"[passports-26k]   {stage}: {row}")
+    log(f"[passports-26k] the passports' sync sites (static census of "
+        f"aten ops) {sum(len(r) for r in sites.values())} against phase "
+        f"31's implicit syncs (the sync debug mode at run time) "
+        f"{json.dumps(implicit)}")
+    for name, p in sorted(sec["programs"].items()):
+        log(f"[passports-26k]   {name} (stage {p['stage']}): {p['ops']} "
+            f"ops, buffers {json.dumps(p['buffers'])}, capture "
+            f"{p['capture_s']!r} s")
+    log("[passports-26k] " + json.dumps(out, default=str))
+    return child["launches"], rec, out
+
+
+def _gate_baseline(led, history):
+    """The freshest clean baseline record's spans and stage costs, as the
+    reference's perf gate tool takes them."""
+    from scconsensus_tpu_torch.obs.ledger import is_partial_entry
+
+    for entry in reversed(history):
+        if is_partial_entry(entry):
+            continue
+        spans = led.load(entry["file"]).get("spans")
+        if spans:
+            return spans, entry.get("stage_cost")
+    return None, None
+
+
+def phase_gate(data, truth, cons, wilcox_ref, records, audit_out) -> tuple:
+    """Phase 37: the records of phases 7, 29, 31 and 36 ingested into a
+    fresh evidence ledger under a temporary path; ``gate_record`` of
+    phase 36's against the other three, every verdict printed; the graph
+    lane against the committed ratchet (``evidence/NUMERIC_PINS.json``,
+    read only: refused by fingerprint) and against a temporary ratchet
+    pinned from phase 36's passports and phase 31's boundary calls, which
+    a second passport run — phase 31's audited config with the passports
+    armed in this process — passes with 0 regressed and phase 31's
+    crossings; ``attr.diff_records`` of phase 36 against phase 7, its top
+    suspect and its report. Returns (launches, the printed numbers)."""
+    import copy
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch import recluster_de_consensus_fast
+    from scconsensus_tpu_torch.obs import attr, graphs, regress, residency
+    from scconsensus_tpu_torch.obs.export import validate_run_record
+    from scconsensus_tpu_torch.obs.ledger import Ledger, run_key
+
+    root = tempfile.mkdtemp(prefix="scc-gate-")
+    try:
+        led = Ledger(os.path.join(root, "evidence"))
+        files = {}
+        for i, (tag, rec) in enumerate(records.items()):
+            rec = copy.deepcopy(rec)
+            rec["run"]["created_unix"] = 1000.0 + i  # ledger order
+            files[tag] = led.ingest(rec)["file"]
+        cand = records["36"]
+        history = led.history(run_key(cand), exclude_files=[files["36"]])
+        spans, cost = _gate_baseline(led, history)
+        verdict = regress.gate_record(cand, history, baseline_spans=spans,
+                                      baseline_cost=cost)
+        with open(os.path.join(REPO, "evidence", regress.PINS_NAME)) as f:
+            pins_doc = json.load(f)
+        # the committed ratchet's one entry, which pins the five stages
+        # the port's passports fill, under a JAX fingerprint
+        committed = pins_doc["graph_ratchet"]["quick"]
+        gv, gnote = regress.graphs_verdicts(cand, committed)
+        if gv or not gnote or "different toolchain" not in gnote:
+            raise AssertionError(f"[gate-26k] the committed ratchet was "
+                                 f"not refused: {gv}, {gnote}")
+        d = verdict.to_dict()
+        log(f"[gate-26k] phase 36 against phases 7, 29, 31: ok "
+            f"{d['ok']}, history {d['n_history']}, note {d['note']}")
+        for s in d["stages"]:
+            log(f"[gate-26k]   stage {json.dumps(s)}")
+        for key in ("transfers", "serving", "streaming", "slo", "loadgen"):
+            for v in d[key]:
+                log(f"[gate-26k]   {key} {json.dumps(v)}")
+        log(f"[gate-26k] regressions: "
+            f"{[r['stage'] for r in d['regressions']]}")
+        log(f"[gate-26k] committed ratchet (graph_ratchet.quick, digest "
+            f"{committed['fingerprint_digest']}): {gnote}")
+        # a ratchet pinned from phase 36's own passports
+        ratchet = {
+            "fingerprint_digest": cand["graphs"]["fingerprint"]["digest"],
+            "stages": graphs.stage_graph_counts(cand),
+            "boundaries": {b: {"calls": row["calls"]} for b, row in
+                           records["31"]["residency"]["by_boundary"]
+                           .items()}}
+        ack = graphs.ratchet_ack(ratchet)
+        log(f"[gate-26k] temporary ratchet (ack {ack}): "
+            + json.dumps(ratchet))
+        residency.reset_cpu()
+        graphs.install_and_mark(force=True)
+        try:
+            with _env(SCC_OBS_RESIDENCY="audit", SCC_OBS_TRANSFERS="1",
+                      SCC_HOSTPROF="1"):
+                res, launches = _run_full(
+                    "passport-audit-26k", lambda: recluster_de_consensus_fast(
+                        data, cons, device="cuda"), truth)
+            sec = graphs.snapshot()
+        finally:
+            graphs.reset()
+        _same_bits("passport-audit-26k", res, wilcox_ref)
+        if not np.array_equal(res.de.de_mask.cpu().numpy(),
+                              wilcox_ref["de_mask"]):
+            raise AssertionError("[passport-audit-26k] the DE mask differs")
+        m = res.metrics
+        rep = m["residency"]
+        was = audit_out["runs"][0]
+        syncs = _implicit_syncs(m["spans"])
+        same = (rep["by_boundary"] == was["by_boundary"]
+                and rep["to_host"] == was["to_host"]
+                and rep["to_device"] == was["to_device"]
+                and syncs == was["implicit_syncs"])
+        log(f"[passport-audit-26k] crossings with the passports armed: "
+            f"d2h {json.dumps(rep['to_host'])}, h2d "
+            f"{json.dumps(rep['to_device'])}, implicit syncs "
+            f"{json.dumps(syncs)}; the same as phase 31's: {same}")
+        if not same:
+            raise AssertionError(
+                f"[passport-audit-26k] the crossings moved: by boundary "
+                f"{rep['by_boundary']} against {was['by_boundary']}")
+        second = _flagship_record(m, residency=rep, graphs=sec)
+        second["extra"]["graph_ratchet_ack"] = ack
+        validate_run_record(second)
+        gv2, gnote2 = regress.graphs_verdicts(second, ratchet)
+        bad = [v.to_dict() for v in gv2 if v.regressed]
+        if gnote2 is not None or not gv2 or bad or sec.get("errors"):
+            raise AssertionError(f"[gate-26k] the second passport run "
+                                 f"against the temporary ratchet: "
+                                 f"{gnote2}, regressed {bad}, errors "
+                                 f"{sec.get('errors')}")
+        log(f"[gate-26k] second passport run: {len(gv2)} ratchet verdicts, "
+            f"0 regressed; wall {m['wall_s']!r} s against phase 7's "
+            f"{wilcox_ref['wall_s']!r} s and phase 31's "
+            f"{was['wall_s']!r} s")
+        for v in gv2:
+            log(f"[gate-26k]   {json.dumps(v.to_dict())}")
+        diff = attr.diff_records(cand, records["7"], "phase 36", "phase 7")
+        top = attr.top_suspect(diff)
+        log(f"[gate-26k] perf-diff top suspect: "
+            f"{json.dumps(top) if top else None}")
+        for line in attr.format_report(diff).splitlines()[:14]:
+            log(f"[gate-26k]   {line}")
+        out = {"ok": d["ok"], "regressions": d["regressions"],
+               "stages": d["stages"], "committed_note": gnote,
+               "ratchet_ack": ack, "ratchet_verdicts": len(gv2),
+               "second_wall_s": m["wall_s"], "top_suspect": top}
+        log("[gate-26k] " + json.dumps(out, default=str))
+        return launches, out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 38 holds the card to the CPU within the CPU's own spread when the
+# workload's input is multiplied by 1 + 1e-6 · N(0, 1) (8 seeds, measured
+# in the same run): the drift workload's compat-mode dispersions sit at
+# the low end of their grid and its log p quantiles follow them, so a
+# difference inside that spread cannot be told from float32 rounding of
+# the input. check_drift's own 1e-3 relative is printed beside it.
+DRIFT_NOISE_SEEDS = 8
+DRIFT_NOISE_REL = 1e-6
+
+
+def phase_drift() -> tuple:
+    """Phase 38: the drift sentinel's pinned workload (edgeR, 80 × 200 ×
+    3, seed 11) through the port on the card and on the CPU; each held to
+    ``evidence/NUMERIC_PINS.json``'s ``reference`` pins (read only) with
+    its drifted fields printed. The card is held to the CPU within the
+    CPU's own input-noise spread (above), label ARI 1.0; printed beside
+    it: ``check_drift``'s verdict at its own tolerance, and what rounding
+    the input to bfloat16 reads on the CPU. Returns (launches, the
+    printed numbers)."""
+    import torch
+
+    from scconsensus_tpu_torch.obs import regress
+
+    with open(os.path.join(REPO, "evidence", regress.PINS_NAME)) as f:
+        pins = regress.pins_for_dataset(json.load(f),
+                                        regress.REFERENCE_DATASET)
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+
+    t0 = time.perf_counter()
+    cpu = regress.reference_fingerprint(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    distance_cluster_sums.launches = 0
+    t0 = time.perf_counter()
+    card = regress.reference_fingerprint(ref_labels=cpu["_final_labels"],
+                                         device="cuda")
+    card_s = time.perf_counter() - t0
+    launches = distance_cluster_sums.launches
+    out = {"cpu_s": cpu_s, "card_s": card_s, "launches": launches}
+    for tag, fp in (("card", card), ("cpu", cpu)):
+        drifts = regress.check_drift(fp, pins)
+        out[f"{tag}_drifted"] = [d["field"] for d in drifts]
+        for d in drifts:
+            log(f"[drift-{tag}] {d['field']}: pinned {d['pinned']}, "
+                f"current {d['current']}")
+        log(f"[drift-{tag}] drifted fields against the committed pins: "
+            f"{out[f'{tag}_drifted']}")
+    strict = regress.check_drift(card, cpu)
+    out["card_vs_cpu_at_check_drift_tolerance"] = [d["field"]
+                                                   for d in strict]
+    log(f"[drift] card against CPU at check_drift's tolerance (rtol 1e-3, "
+        f"atol 1e-9): {json.dumps(strict)}")
+
+    t0 = time.perf_counter()
+    noise, runs = regress._input_noise_spread(
+        cpu, seeds=DRIFT_NOISE_SEEDS, rel=DRIFT_NOISE_REL, device="cpu")
+    out["noise_s"] = time.perf_counter() - t0
+    data, labels = regress._reference_workload()
+    bf16 = torch.from_numpy(data).to(torch.bfloat16).float().numpy()
+    out.update(
+        card_vs_cpu=regress._fingerprint_spread(card, cpu),
+        cpu_input_noise=noise, cpu_input_noise_runs=runs,
+        cpu_bf16_input=regress._fingerprint_spread(
+            regress._workload_fingerprint(bf16, labels, device="cpu"), cpu))
+    log(f"[drift] CPU against itself, input × (1 + {DRIFT_NOISE_REL} · "
+        f"N(0, 1)), {DRIFT_NOISE_SEEDS} seeds: {json.dumps(runs)}")
+    log(f"[drift] card against CPU {json.dumps(out['card_vs_cpu'])}; the "
+        f"CPU's input-noise spread {json.dumps(noise)}; the input rounded "
+        f"to bfloat16 on the CPU {json.dumps(out['cpu_bf16_input'])}; "
+        f"label ARI {card['label_ari']!r}; {launches} kernel launches on "
+        f"the card")
+    outside = [k for k, v in out["card_vs_cpu"].items() if v > noise[k]]
+    if outside or card["label_ari"] != 1.0 or launches < 1:
+        raise AssertionError(f"[drift] the card's fingerprint is not the "
+                             f"CPU's: outside the input-noise spread in "
+                             f"{outside}, label ARI {card['label_ari']}")
+    log("[drift] " + json.dumps(out))
+    return launches, out
+
+
+def _time_phases() -> dict:
+    """Wrap every ``phase_*`` function of this module (none calls another)
+    so that its wall, summed over its calls, lands in the returned dict,
+    printed at the end: the script's time accounted phase by phase."""
+    walls = {}
+
+    def timed(fn):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                walls[fn.__name__] = (walls.get(fn.__name__, 0.0)
+                                      + time.perf_counter() - t)
+        return run
+
+    g = globals()
+    for name in [n for n in g if n.startswith("phase_")]:
+        g[name] = timed(g[name])
+    return walls
+
+
+# a run still going after this many seconds prints every thread's stack
+# to stderr (the script must end within 1,200 s), so a hang leaves the
+# line it hangs on in the log
+HANG_DUMP_S = 1000
+
+
 def main() -> int:
+    faulthandler.dump_traceback_later(HANG_DUMP_S)
     # started before torch is imported (see _LAUNCHER)
     launcher = _start_launcher()
     try:
         return _main(launcher)
     finally:
         _stop_launcher(launcher)
+        faulthandler.cancel_dump_traceback_later()
 
 
 def _main(launcher) -> int:
@@ -4196,6 +4664,12 @@ def _main(launcher) -> int:
     sys.path.insert(0, REPO)
 
     t_start = time.perf_counter()
+    phase_walls = _time_phases()
+    # the compile log, armed before phase 2's builds: on a clean checkout
+    # it records the nvcc and g++ builds (printed at the end)
+    from scconsensus_tpu_torch.obs import compilelog
+
+    compilelog.install_and_mark(force=True)
     env = phase_env()
     phase_build()
     phase_kernel()
@@ -4208,6 +4682,7 @@ def _main(launcher) -> int:
     phase_oracles()
     data, truth, cons = phase_full_data()
     rec, dense_fast = phase_full(data, truth, cons)
+    records = {"7": _flagship_record(dense_fast.metrics)}
     erec, dense_edger = phase_edger_full(data, truth, cons)
     csr_launches, ecsr_launches, csr = phase_full_csr(
         data, truth, cons, dense_fast, dense_edger)
@@ -4223,14 +4698,24 @@ def _main(launcher) -> int:
     elastic_launches = phase_elastic(data, truth, cons, mesh_ref, launcher)
     trace_launches, trace_out = phase_trace_full(data, truth, cons,
                                                  wilcox_ref, rec)
-    audit_launches, _ = phase_audit_full(data, truth, cons, wilcox_ref)
+    records["29"] = trace_out.pop("record")
+    audit_launches, audit_out = phase_audit_full(data, truth, cons,
+                                                 wilcox_ref)
+    records["31"] = audit_out.pop("record")
     enforce_launches = phase_enforce_full(data, truth, cons, wilcox_ref,
                                           mesh_ref)
     probe_launches, _ = phase_probe_full(data, truth, cons, wilcox_ref)
     phase_contract(data, cons, csr)
-    del data, csr, wilcox_ref
+    del csr
     torch.cuda.empty_cache()
     live_launches, _ = phase_live()
+    passport_launches, records["36"], _ = phase_passports(
+        launcher, wilcox_ref, audit_out)
+    gate_launches, _ = phase_gate(data, truth, cons, wilcox_ref, records,
+                                  audit_out)
+    del data, wilcox_ref, records
+    torch.cuda.empty_cache()
+    drift_launches, _ = phase_drift()
     phase_scale_small()
     tm_launches = phase_tm100k()
     torch.cuda.empty_cache()
@@ -4272,7 +4757,15 @@ def _main(launcher) -> int:
                "wilcox_26k_residency_audit": audit_launches,
                "wilcox_26k_residency_enforce": enforce_launches,
                "wilcox_26k_probe": probe_launches,
-               "wilcox_26k_live": live_launches}
+               "wilcox_26k_live": live_launches,
+               "wilcox_26k_passports": passport_launches,
+               "wilcox_26k_passport_audit": gate_launches,
+               "drift_reference_card": drift_launches}
+    comp = compilelog.snapshot()
+    log("[compile] this process's compile log: " + json.dumps(comp))
+    if comp["cache_hits"] < 2 or comp["compiles"] > 2:
+        raise AssertionError(f"[compile] {comp}")
+    log("[phase-walls] " + json.dumps(phase_walls))
     log(f"[total] every phase in {time.perf_counter() - t_start!r} s")
     # times from the Wilcoxon path's inputs; launches from every full path
     # (serving classifies with plain tensor code: no launch)

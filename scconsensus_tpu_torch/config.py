@@ -15,12 +15,12 @@ the retry budget and backoff, ``SCC_ROBUST_CHECKSUM``, ``SCC_ELASTIC`` and
 objectives, the four ``SCC_STREAM_*`` flags and the observation flags
 of ``refine()`` (the residency auditor, the transfer watch, the cost
 model, the flight recorder and its stall watchdog, the host profiler,
-the evidence ledger's directory and the Wilcoxon probe). It also
-registers the two flags the reference's bench worker arms that the port
-does not handle yet (``UNPORTED_FLAGS``: ``SCC_COMPILELOG``,
-``SCC_GRAPHS``): :func:`refuse_unported_flags` raises
-``NotImplementedError`` when one of them is set, so neither is dropped
-silently.
+the evidence ledger's directory and the Wilcoxon probe), and the compile
+log's and the graph passports' four flags (``SCC_COMPILELOG``,
+``SCC_COMPILELOG_MAX_EVENTS``, ``SCC_GRAPHS``,
+``SCC_GRAPHS_MAX_PROGRAMS``). A reference flag the port does not handle
+would go in ``UNPORTED_FLAGS``, which :func:`refuse_unported_flags`
+refuses when set so that none is dropped silently; it is empty now.
 """
 
 from __future__ import annotations
@@ -254,7 +254,9 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "Synced per-bucket occupancy DIAGNOSIS of the Wilcoxon "
                 "window ladder (serializes dispatch; tied-run counts and a "
                 "sort-only timing are fetched per bucket)."),
-        # --- registered, not handled yet: refuse_unported_flags() ---
+        # --- the compile log and graph passports (obs.compilelog,
+        # obs.graphs); armed by the caller, as the reference's bench arms
+        # them ---
         EnvFlag("SCC_COMPILELOG", bool, False,
                 "Per-stage JAX compile/retrace telemetry "
                 "(obs.compilelog): jax.monitoring compile events stamped "
@@ -262,6 +264,11 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "aggregated (compiles, retraces, cache hits, compile "
                 "wall) into the run record's compile section. bench.py "
                 "workers default it on."),
+        EnvFlag("SCC_COMPILELOG_MAX_EVENTS", int, 65536,
+                "Cap on buffered compile/cache events per process "
+                "(obs.device): past the cap new events are dropped "
+                "rather than grow the buffer unboundedly in a "
+                "pathological retrace storm."),
         EnvFlag("SCC_GRAPHS", bool, False,
                 "Compiled-program observatory (obs.graphs): capture a "
                 "graph passport (op census, transfer ops, host "
@@ -272,6 +279,11 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
                 "bench.py workers default it on; serve never arms it "
                 "(capture lowers+compiles an AOT copy of each "
                 "program)."),
+        EnvFlag("SCC_GRAPHS_MAX_PROGRAMS", int, 256,
+                "Cap on captured graph passports per process "
+                "(obs.graphs): past the cap further programs are "
+                "dropped with a section error note rather than grow "
+                "capture cost unboundedly under a retrace storm."),
         # --- tree stage (the landmark recluster) ---
         EnvFlag("SCC_TREE_LANDMARK_THRESHOLD", int, 200_000,
                 "Cell count above which the pooled tree stage switches "
@@ -461,7 +473,8 @@ def env_flag(name: str, env: Optional[Mapping[str, str]] = None) -> Any:
 
 # The flags the reference's refine() path reads that the port does not
 # handle yet, each with the value that means "off": a set one raises.
-UNPORTED_FLAGS = ("SCC_COMPILELOG", "SCC_GRAPHS")
+# Empty since the compile log and the graph passports were ported.
+UNPORTED_FLAGS: Tuple[str, ...] = ()
 
 
 def refuse_unported_flags(env: Optional[Mapping[str, str]] = None) -> None:

@@ -33,6 +33,11 @@ torch needs no padding, and no result depends on the chunking. Every
 (P, G) result stays on the matrix's device. Under ``SCC_OBS_NUMERIC`` the
 common and tagwise dispersions and the exact test's log p pass the
 numeric sentinels (``obs.quality``), as in the reference.
+
+Graph passports (``obs.graphs``, ``SCC_GRAPHS``) under the reference's
+names (:292-298): ``_sub_table_sorted_chunk`` is
+``edger.sub_table_sorted_chunk``, ``_table_chunk`` is
+``edger.table_chunk``.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from scconsensus_tpu_torch.de.engine import _cid_from_groups, _next_pow2
 from scconsensus_tpu_torch.obs import quality as obs_quality
 from scconsensus_tpu_torch.obs import residency
 from scconsensus_tpu_torch.obs.cost import attach_cost
+from scconsensus_tpu_torch.obs.graphs import instrument as _passport
 from scconsensus_tpu_torch.io.sparsemat import (
     DeviceCSR,
     column_sums,
@@ -164,6 +170,11 @@ def _sub_table_sorted_chunk(sc, lib_sub, cid_sub, rates_chunk,
             x, mu_in.gather(1, win), mu_out.gather(1, win), phi))
     psub = torch.clamp(0.5 * (qn + qg), min=0.0)
     return _table_chunk(psub, sub_onehot, r_nodes)
+
+
+_sub_table_sorted_chunk = _passport("edger.sub_table_sorted_chunk",
+                                    _sub_table_sorted_chunk)
+_table_chunk = _passport("edger.table_chunk", _table_chunk)
 
 
 def _pair_zterm(zs_i, zs_j, ns_i, ns_j, r) -> torch.Tensor:

@@ -82,14 +82,16 @@ cost model ran). ``SCC_HOSTPROF=1`` samples the run thread
 ``["memory_timeline"]``), started here unless a profiler is already
 active. ``SCC_WILCOX_PROBE=1`` times each Wilcoxon bucket
 (``metrics["wilcox_ladder"]``). ``SCC_TRACE_DIR=<dir>`` writes
-``<dir>/run_record.json`` (with every section above, and the
-``profile`` and ``residency_burndown`` joined from them) and a Perfetto
-``<dir>/trace.json`` after the run, from a ``finally``, so a failed run
-leaves them too. Capture and export are best effort: a failure logs a
-warning and never costs the result; no instrument changes a result. A
-reference flag the port does not handle yet (``config.UNPORTED_FLAGS``:
-``SCC_COMPILELOG``, ``SCC_GRAPHS``) raises ``NotImplementedError`` when
-set.
+``<dir>/run_record.json`` (with every section above, the ``profile``
+and ``residency_burndown`` joined from them, and the ``compile`` and
+``graphs`` sections when the caller armed ``obs.compilelog`` and
+``obs.graphs``, under ``SCC_COMPILELOG`` and ``SCC_GRAPHS``) and a
+Perfetto ``<dir>/trace.json`` after the run, from a ``finally``, so a
+failed run leaves them too. Capture and export are best effort: a
+failure logs a warning and never costs the result; no instrument changes
+a result. A reference flag the port does not handle
+(``config.UNPORTED_FLAGS``, empty now) raises ``NotImplementedError``
+when set.
 
 Every ``method`` of the reference runs: "wilcox" (fast), "wilcoxon"
 (slow), "edger", and the fast-path Seurat tests "bimod", "t" and "roc".
@@ -186,6 +188,7 @@ from scconsensus_tpu_torch.obs.kernels import KernelCapture
 from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
 from scconsensus_tpu_torch.ops import linkage
 from scconsensus_tpu_torch.ops.colors import labels_to_colors
+from scconsensus_tpu_torch.ops.distance import pearson_unit_cells
 from scconsensus_tpu_torch.ops.knn_linkage import knn_ward_linkage
 from scconsensus_tpu_torch.ops.linkage import HClustTree, ward_linkage
 from scconsensus_tpu_torch.ops.pca import pca_scores, pca_scores_audited
@@ -371,6 +374,7 @@ def _export_trace(trace_dir: str, timer: StageTimer, sections: Dict) -> None:
             write_chrome_trace,
             write_json_atomic,
         )
+        from scconsensus_tpu_torch.obs import compilelog, graphs
         from scconsensus_tpu_torch.obs.profile import profile_sections_of
 
         os.makedirs(trace_dir, exist_ok=True)
@@ -389,6 +393,8 @@ def _export_trace(trace_dir: str, timer: StageTimer, sections: Dict) -> None:
             kernels=sections.get("kernels"),
             host_profile=sections.get("host_profile"),
             memory_timeline=sections.get("memory_timeline"),
+            compile=compilelog.snapshot(),
+            graphs=graphs.snapshot(),
         )
         for key, sec in profile_sections_of(rec).items():
             if sec is not None:
@@ -511,9 +517,7 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
             if config.distance == "pearson":
                 # centred unit-norm cells: euclidean distance between them
                 # is sqrt(2·(1 − r)), monotone in the Pearson distance
-                c = cols - cols.mean(dim=0, keepdim=True)
-                norm = torch.linalg.norm(c, dim=0, keepdim=True)
-                cols = c / torch.clamp(norm, min=1e-12)
+                cols = pearson_unit_cells(cols)
             cells = cols.T.contiguous()                      # (N, |U|)
             if robust_integrity.enabled():
                 # the audited embed: the same scores, plus the basis

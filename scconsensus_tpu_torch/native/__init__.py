@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from scconsensus_tpu_torch.obs.device import native_build_event
+
 __all__ = ["ward_native", "build"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -70,10 +72,13 @@ def _so_path(flags, tag: str) -> str:
 def build() -> Tuple[str, float]:
     """Compile ward.cpp if no build for this host exists yet. Returns
     (path of the .so, seconds spent compiling; 0.0 when already built).
-    Tries ``-march=native`` first and generic flags second."""
+    Tries ``-march=native`` first and generic flags second. Either
+    outcome is an event of the compile log
+    (``obs.device.native_build_event``): a build, or a cache hit."""
     tag = _host_tag()
     for flags in (_CFLAGS, _CFLAGS_FALLBACK):
         if os.path.exists(_so_path(flags, tag)):
+            native_build_event("ward", 0.0)
             return _so_path(flags, tag), 0.0
     t0 = time.perf_counter()
     first_err = None
@@ -84,7 +89,9 @@ def build() -> Tuple[str, float]:
             subprocess.run(["g++", *flags, _SRC, "-o", tmp], check=True,
                            capture_output=True, text=True)
             os.replace(tmp, so)
-            return so, time.perf_counter() - t0
+            secs = time.perf_counter() - t0
+            native_build_event("ward", secs)
+            return so, secs
         except subprocess.CalledProcessError as e:
             first_err = first_err or e
         finally:

@@ -1,8 +1,7 @@
 """Observability for the port: tracing, the run record and its instruments.
 
 The port's form of ``scconsensus_tpu/obs/__init__.py``, with the
-reference's ``__all__`` less ``compilelog`` and ``graphs`` (the compile
-and program observatories describe XLA programs and are not ported).
+reference's ``__all__``.
 
   * ``obs.trace`` — the span tracer every stage runs in;
   * ``obs.export`` — the ``scc-run-record`` schema, its validator and the
@@ -23,7 +22,19 @@ and program observatories describe XLA programs and are not ported).
     memory timeline (``SCC_HOSTPROF``);
   * ``obs.live`` — the flight recorder (``SCC_OBS_HEARTBEAT``,
     ``SCC_OBS_STALL_S``);
-  * ``obs.ledger`` — the evidence ledger (``SCC_EVIDENCE_DIR``).
+  * ``obs.ledger`` — the evidence ledger (``SCC_EVIDENCE_DIR``);
+  * ``obs.compilelog`` — the compile log: the native libraries' builds
+    and cache hits by stage, the run record's ``compile`` section
+    (``SCC_COMPILELOG``);
+  * ``obs.graphs`` — graph passports: the aten-operator census of each
+    instrumented stage program's first call (transfer ops, host syncs
+    with their lines, buffer bytes), keyed by torch's environment
+    fingerprint, the run record's ``graphs`` section (``SCC_GRAPHS``);
+  * ``obs.regress`` — the perf gate over ledger history (noise-banded
+    stage, transfer, serving, streaming, SLO, traffic and ratchet
+    verdicts) and the numeric-drift sentinel;
+  * ``obs.attr`` — perf-diff attribution: which cause moved a stage
+    between two records.
 """
 
 from scconsensus_tpu_torch.obs.trace import (
@@ -42,6 +53,7 @@ from scconsensus_tpu_torch.obs.live import (
 from scconsensus_tpu_torch.obs.metrics import MetricSet
 from scconsensus_tpu_torch.obs import quality  # noqa: F401
 from scconsensus_tpu_torch.obs import hostprof, kernels, residency  # noqa
+from scconsensus_tpu_torch.obs import compilelog, graphs  # noqa: F401
 from scconsensus_tpu_torch.obs.export import (
     SCHEMA_NAME,
     SCHEMA_VERSION,
@@ -57,6 +69,8 @@ __all__ = [
     "residency",
     "kernels",
     "hostprof",
+    "compilelog",
+    "graphs",
     "Span",
     "Tracer",
     "current_tracer",

@@ -7,7 +7,21 @@ The port's copy of ``memory_snapshot`` (``scconsensus_tpu/obs/device.py:
 layer's budget (``stream.budget``) judges a run by the peak and enforces
 against the current value. :class:`TransferWatch` (:321-411) counts
 explicit host↔device copies over the residency auditor's crossing hook.
-The compile listener is not ported: the port compiles no XLA program.
+
+The compile-event stream (:154-300): ``install_compile_listener``,
+``compile_mark``, ``compile_stats``, ``compile_events``, ``cache_mark``
+and ``cache_events``, with the reference's tuple shapes. The port compiles
+no XLA program; what it compiles are its two native libraries, at first
+use in a process: the CUDA kernel (nvcc, ``ops.cuda_kernels.build``) and
+the Ward library (g++, ``native.build``). Each builder reports through
+:func:`native_build_event`: a build that ran is a duration event named
+``scc/native/<library>_backend_compile`` (``obs.compilelog`` classifies
+it ``backend``) with its seconds, a library found already built is a
+cache hit ``scc/native/<library>_compile_cache_hit``. Both are stamped
+with the ambient stage and its entry ordinal
+(``obs.trace.ambient_stage``). The "listener" is the builders' own call,
+so installing it only opens the stream, once per process, as the
+reference's install does.
 """
 
 from __future__ import annotations
@@ -15,10 +29,12 @@ from __future__ import annotations
 import os
 import sys
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["memory_snapshot", "host_rss_bytes", "host_peak_rss_bytes",
-           "TransferWatch"]
+           "install_compile_listener", "compile_mark", "compile_stats",
+           "compile_events", "cache_mark", "cache_events",
+           "native_build_event", "TransferWatch"]
 
 
 def memory_snapshot(device=None) -> Optional[Dict[str, int]]:
@@ -86,6 +102,113 @@ def host_peak_rss_bytes() -> Optional[int]:
         return int(ru) if sys.platform == "darwin" else int(ru) * 1024
     except Exception:
         return None
+
+
+# --------------------------------------------------------------------------
+# compile events (the native builds)
+# --------------------------------------------------------------------------
+
+_COMPILE_LOCK = threading.Lock()
+# (name, secs, stage|None, stage_entry_ordinal), the reference's rich
+# tuples; consumers unpack with tolerance, as the reference's do
+_COMPILE_EVENTS: List[Tuple] = []
+_CACHE_EVENTS: List[Tuple] = []  # (name, stage|None, entry_ordinal)
+_LISTENER_STATE = {"installed": False}
+_EVENT_CAP = {"v": None}  # lazily resolved SCC_COMPILELOG_MAX_EVENTS
+
+
+def _event_cap() -> int:
+    if _EVENT_CAP["v"] is None:
+        try:
+            from scconsensus_tpu_torch.config import env_flag
+
+            _EVENT_CAP["v"] = int(
+                env_flag("SCC_COMPILELOG_MAX_EVENTS") or 65536)
+        except Exception:
+            _EVENT_CAP["v"] = 65536
+    return _EVENT_CAP["v"]
+
+
+def _ambient_stage() -> Tuple[Optional[str], int]:
+    try:
+        from scconsensus_tpu_torch.obs.trace import ambient_stage
+
+        return ambient_stage()
+    except Exception:
+        return (None, 0)
+
+
+def native_build_event(library: str, secs: float) -> None:
+    """Record one native library's load: ``secs`` > 0 is a build that ran
+    (a ``backend`` compile event of that many seconds), 0 a library found
+    built (a cache hit). Nothing is kept before the stream is installed,
+    as the reference keeps nothing before its listener."""
+    if not _LISTENER_STATE["installed"]:
+        return
+    stage, occ = _ambient_stage()
+    with _COMPILE_LOCK:
+        if secs > 0:
+            if len(_COMPILE_EVENTS) < _event_cap():
+                _COMPILE_EVENTS.append(
+                    (f"scc/native/{library}_backend_compile", float(secs),
+                     stage, occ))
+        elif len(_CACHE_EVENTS) < _event_cap():
+            _CACHE_EVENTS.append(
+                (f"scc/native/{library}_compile_cache_hit", stage, occ))
+
+
+def install_compile_listener() -> bool:
+    """Open the compile-event stream (once per process; idempotent).
+    Always True: the builders report to it directly."""
+    with _COMPILE_LOCK:
+        _LISTENER_STATE["installed"] = True
+        return True
+
+
+def compile_mark() -> int:
+    """Opaque position in the compile-event stream; pass to
+    :func:`compile_stats` to aggregate only the events after it."""
+    with _COMPILE_LOCK:
+        return len(_COMPILE_EVENTS)
+
+
+def compile_stats(since: int = 0) -> Dict[str, Any]:
+    """Aggregate compile events observed after ``since``."""
+    with _COMPILE_LOCK:
+        events = _COMPILE_EVENTS[since:]
+    by_event: Dict[str, Dict[str, float]] = {}
+    for ev in events:
+        rec = by_event.setdefault(ev[0], {"n": 0, "total_s": 0.0})
+        rec["n"] += 1
+        rec["total_s"] += ev[1]
+    for rec in by_event.values():
+        rec["total_s"] = round(rec["total_s"], 4)
+    return {
+        "events": len(events),
+        "total_s": round(sum(ev[1] for ev in events), 4),
+        "by_event": by_event,
+    }
+
+
+def compile_events(since: int = 0) -> List[Tuple]:
+    """Raw compile-event tuples after ``since``: ``(name, secs, stage,
+    entry_ordinal)``. obs.compilelog builds the run record's ``compile``
+    section from these."""
+    with _COMPILE_LOCK:
+        return list(_COMPILE_EVENTS[since:])
+
+
+def cache_mark() -> int:
+    """Opaque position in the cache-hit event stream."""
+    with _COMPILE_LOCK:
+        return len(_CACHE_EVENTS)
+
+
+def cache_events(since: int = 0) -> List[Tuple]:
+    """Raw cache-hit tuples ``(name, stage, entry_ordinal)`` after
+    ``since``."""
+    with _COMPILE_LOCK:
+        return list(_CACHE_EVENTS[since:])
 
 
 # --------------------------------------------------------------------------

@@ -8,30 +8,35 @@ sections both have. Top-level keys:
   schema, schema_version   "scc-run-record", 1
   metric/value/unit/vs_baseline
                            the run's headline
-  run                      {created_unix, platform?, torch_version?}
-                           (the reference records jax_version here)
+  run                      {created_unix, platform?, torch_version?,
+                            env_fingerprint?} (the reference records
+                            jax_version here; env_fingerprint is
+                            obs.graphs.environment_fingerprint, torch's)
   spans                    the tracer's span records
   device                   {memory: obs.device.memory_snapshot() or null,
-                            host_peak_rss_bytes, transfers?}; never
-                            ``compile``: the port compiles no XLA program
+                            host_peak_rss_bytes, compile?, transfers?};
+                            ``compile`` is the tracer's compile stats:
+                            the native builds since it was made
   extra                    free-form emitter extras
   termination              optional, validated as in the reference
   quality, residency, kernels, robustness, serving, slo, streaming,
   integrity, profile, residency_burndown, tunnel, host_profile,
-  memory_timeline
+  compile, memory_timeline, graphs
                            optional sections, each handed to the port's
                            own validator (``obs.quality``,
                            ``obs.residency``, ``obs.kernels``,
                            ``robust.record``, ``serve.metrics``,
                            ``serve.slo``, ``stream.record``,
                            ``robust.integrity``, ``obs.profile``,
-                           ``obs.hostprof``; ``tunnel`` inline);
-                           ``host_profile`` and ``memory_timeline`` must
-                           be omitted when absent, never null
+                           ``obs.hostprof``, ``obs.compilelog``,
+                           ``obs.graphs``; ``tunnel`` inline);
+                           ``host_profile``, ``compile``,
+                           ``memory_timeline`` and ``graphs`` must be
+                           omitted when absent, never null
 
 A record carrying a section the port cannot validate yet (``scenario``,
-``loadgen``, ``compile``, ``graphs``) raises ``NotImplementedError``
-naming it: it never passes unchecked.
+``loadgen``) raises ``NotImplementedError`` naming it: it never passes
+unchecked.
 
 :func:`chrome_trace` converts span records to ``traceEvents`` complete
 ("X") events; open the file in Perfetto or chrome://tracing.
@@ -74,7 +79,7 @@ TERMINATION_CAUSES = ("clean", "signal", "stall", "crash")
 
 # sections of the reference's schema whose producers and validators the
 # port does not have yet, in the reference's keyword order
-UNPORTED_SECTIONS = ("scenario", "loadgen", "compile", "graphs")
+UNPORTED_SECTIONS = ("scenario", "loadgen")
 
 
 def _device_section(tracer=None,
@@ -129,7 +134,8 @@ def build_run_record(
     (e.g. ``result.metrics["spans"]``), or neither. Each optional section
     is attached under its own key when given; :func:`validate_run_record`
     checks it. ``run`` records the torch version where the reference
-    records jax's, and only when torch is already imported."""
+    records jax's, and torch's environment fingerprint (the key of graph
+    passports and their ratchet), only when torch is already imported."""
     if spans is None:
         spans = tracer.span_records() if tracer is not None else []
     extra = dict(extra or {})
@@ -140,6 +146,16 @@ def build_run_record(
     if "torch" in sys.modules:  # never import torch here
         try:
             run["torch_version"] = sys.modules["torch"].__version__
+        except Exception:
+            pass
+        try:
+            from scconsensus_tpu_torch.obs.graphs import (
+                environment_fingerprint,
+            )
+
+            fp = environment_fingerprint()
+            if fp is not None:
+                run["env_fingerprint"] = fp
         except Exception:
             pass
     rec = {
@@ -205,6 +221,8 @@ def _validate_tunnel(tun: Any) -> None:
 def _section_validators() -> Dict[str, Any]:
     """Section key → the port's validator (imported when a record is
     checked: each module is stdlib-level at import)."""
+    from scconsensus_tpu_torch.obs.compilelog import validate_compile
+    from scconsensus_tpu_torch.obs.graphs import validate_graphs
     from scconsensus_tpu_torch.obs.hostprof import (
         validate_host_profile,
         validate_memory_timeline,
@@ -230,7 +248,9 @@ def _section_validators() -> Dict[str, Any]:
             "residency_burndown": validate_residency_burndown,
             "tunnel": _validate_tunnel,
             "host_profile": validate_host_profile,
-            "memory_timeline": validate_memory_timeline}
+            "compile": validate_compile,
+            "memory_timeline": validate_memory_timeline,
+            "graphs": validate_graphs}
 
 
 def validate_run_record(rec: Dict[str, Any]) -> None:
@@ -295,7 +315,7 @@ def validate_run_record(rec: Dict[str, Any]) -> None:
                 "cannot validate yet")
     # the host observatory's sections: absence is the marker for "the
     # instrument never ran", so a present-but-null key is rejected
-    for key in ("host_profile", "memory_timeline"):
+    for key in ("host_profile", "compile", "memory_timeline", "graphs"):
         if key in rec and rec[key] is None:
             raise ValueError(f"{key} must be omitted when absent, not null")
     for key, validate in _section_validators().items():

@@ -301,8 +301,10 @@ class HostProfiler:
                                   Optional[str]]] = []
         self._mem: List[Tuple[float, Optional[int], Optional[int],
                               Optional[str]]] = []
-        self._gc_by_stage: Dict[Optional[str], Dict[str, float]] = {}
-        self._gc_collections = 0
+        # (stage, pause_s) per collection, appended without the lock: a
+        # collection can start in any thread while that thread holds the
+        # lock (an allocation inside it), and the lock is not reentrant
+        self._gc_pauses: List[Tuple[Optional[str], float]] = []
         self._gc_t0: Optional[float] = None
         self._self_s = 0.0
         self._ticks = 0
@@ -322,14 +324,7 @@ class HostProfiler:
             if t0 is None:
                 return
             pause = time.perf_counter() - t0
-            stage = _ambient_stage_name()
-            with self._lock:
-                self._gc_collections += 1
-                row = self._gc_by_stage.setdefault(
-                    stage, {"pauses": 0, "pause_s": 0.0}
-                )
-                row["pauses"] += 1
-                row["pause_s"] += pause
+            self._gc_pauses.append((_ambient_stage_name(), pause))
         except Exception:
             pass  # a broken probe must not break collection itself
 
@@ -418,12 +413,14 @@ class HostProfiler:
         with self._lock:
             samples = list(self._samples)
             mem = list(self._mem)
-            gc_stat = {
-                "collections": self._gc_collections,
-                "by_stage": {k: dict(v)
-                             for k, v in self._gc_by_stage.items()},
-            }
             self_s = self._self_s
+        pauses = list(self._gc_pauses)
+        by_stage: Dict[Optional[str], Dict[str, float]] = {}
+        for stage, pause in pauses:
+            row = by_stage.setdefault(stage, {"pauses": 0, "pause_s": 0.0})
+            row["pauses"] += 1
+            row["pause_s"] += pause
+        gc_stat = {"collections": len(pauses), "by_stage": by_stage}
         return {
             "host_profile": build_host_profile(
                 samples, gc=gc_stat, period_s=self.period_s,

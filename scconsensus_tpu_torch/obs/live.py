@@ -36,8 +36,9 @@ going beside the run:
 The sampler thread keeps ticking while the run thread is blocked inside a
 device wait (the C++ wait releases the GIL), so the stream shows a live
 process with a frozen ``progress_unix`` and the exact span it froze in.
-The port compiles no XLA program, so compile events never count as
-progress and the heartbeat carries no ``compile`` panel.
+The port compiles no XLA program; its compile events (the native
+libraries' builds, ``obs.device``) do not count as progress, and the
+heartbeat carries no ``compile`` panel.
 """
 
 from __future__ import annotations
@@ -565,9 +566,11 @@ class LiveRecorder:
             "open_spans": tr.open_stack() if tr is not None else [],
             "stack": dump_all_stacks(),
         }
+        emitted = threading.Event()
         if self.capture_dir:
-            event["capture"] = self._spawn_capture("stall")
+            event["capture"] = self._spawn_capture("stall", after=emitted)
         self._emit(event)
+        emitted.set()
         self.flush_partial("stall")
 
     def toggle_capture(self) -> None:
@@ -601,14 +604,17 @@ class LiveRecorder:
             self._emit({"t": "capture", "ts": round(now, 3),
                         "trigger": "sigusr1", "dir": self.capture_dir})
 
-    def _spawn_capture(self, trigger: str) -> Optional[str]:
+    def _spawn_capture(self, trigger: str,
+                       after: threading.Event) -> Optional[str]:
         """Stall-escalation capture: a self-contained daemon thread runs
         start → sleep(capture_s) → stop and export, and emits the
         capture/capture-done events itself, so a wedged profiler start can
         never hang the sampler loop (the thread just parks and the state
         stays "open" — no retries, and the missing ``capture`` event in
         the stream is itself the diagnosis). Never the first torch
-        touch."""
+        touch. The thread starts the profiler only once ``after`` is set,
+        so the trigger's own event (the stall) precedes ``capture`` in
+        the stream even when a warm profiler starts at once."""
         if ("torch" not in sys.modules or not self.capture_dir
                 or self._capture_state != "idle"):
             return None
@@ -617,6 +623,7 @@ class LiveRecorder:
         cap_dir, cap_s = self.capture_dir, self.capture_s
 
         def _go():
+            after.wait()
             try:
                 prof = _start_profiler(cap_dir)
                 self._emit({"t": "capture", "ts": round(time.time(), 3),

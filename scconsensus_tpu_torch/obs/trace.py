@@ -17,10 +17,11 @@ kernel capture, ``obs.kernels``, joins the two); outside a profiler
 window an annotation costs one no-op call. The run-record views are the
 reference's: ``stage_records``, ``span_records``, ``open_stack``,
 ``live_span_records``, ``total_s``, ``as_dict`` and :func:`ambient_stage`.
-``compile_stats`` is None: the port compiles no XLA program (its one
-hand kernel is built by nvcc before the run), so its records carry no
-``device.compile``. ``sample_device`` snapshots the card's allocator
-counters (``obs.device.memory_snapshot``) at each synced span exit.
+``compile_stats`` aggregates the compile events since the tracer was
+built (``obs.device``: the native libraries' builds, the port's only
+compiles), so records carry ``device.compile`` as the reference's do.
+``sample_device`` snapshots the card's allocator counters
+(``obs.device.memory_snapshot``) at each synced span exit.
 """
 
 from __future__ import annotations
@@ -296,6 +297,10 @@ class Tracer:
         self._lock = threading.Lock()
         global _LAST_TRACER
         _LAST_TRACER = weakref.ref(self)
+        from scconsensus_tpu_torch.obs import device as obs_device
+
+        obs_device.install_compile_listener()
+        self._compile_mark = obs_device.compile_mark()
 
     # -- span lifecycle ----------------------------------------------------
     def _should_sync(self, kind: str, override: Optional[bool]) -> bool:
@@ -451,11 +456,11 @@ class Tracer:
         return sum(s.wall_s for s in self.spans if s.kind == "stage")
 
     def compile_stats(self) -> Optional[Dict[str, Any]]:
-        """None: the port compiles no XLA program (the hand kernel is
-        built by nvcc before it launches, not during the run), so there is
-        no compile listener and the record carries no ``device.compile``
-        (the reference returns None without its listener as well)."""
-        return None
+        """Compile events observed since this tracer was created: the
+        native libraries built in that window (``obs.device``)."""
+        from scconsensus_tpu_torch.obs import device as obs_device
+
+        return obs_device.compile_stats(since=self._compile_mark)
 
     def as_dict(self) -> Dict[str, Any]:
         from scconsensus_tpu_torch.obs.export import (

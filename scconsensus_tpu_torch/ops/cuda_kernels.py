@@ -38,6 +38,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from scconsensus_tpu_torch.obs.device import native_build_event
+
 __all__ = [
     "distance_cluster_sums",
     "distance_cluster_sums_reference",
@@ -97,9 +99,12 @@ def build() -> Tuple[str, float, str]:
 
     Returns (path of the .so, seconds spent compiling (0.0 when it was
     already built), the compiler's output — ptxas's register and shared
-    memory report for each kernel)."""
+    memory report for each kernel). Either outcome is an event of the
+    compile log (``obs.device.native_build_event``): a build, or a cache
+    hit."""
     so = _so_path()
     if os.path.exists(so):
+        native_build_event("cuda", 0.0)
         return so, 0.0, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}.so"
@@ -118,7 +123,9 @@ def build() -> Tuple[str, float, str]:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return so, time.perf_counter() - t0, proc.stdout + proc.stderr
+    secs = time.perf_counter() - t0
+    native_build_event("cuda", secs)
+    return so, secs, proc.stdout + proc.stderr
 
 
 def _load() -> ctypes.CDLL:

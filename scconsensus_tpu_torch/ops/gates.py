@@ -12,6 +12,12 @@ sums over cells at each cell's cluster id, O(G·N), the form the reference
 takes on CPU. ``"matmul"``: products against a (N, K) one-hot built on the
 device, O(G·N·K) in full fp32, the form it takes on an accelerator. The
 default picks the matmul form on ``cuda`` and the segment form on the CPU.
+
+Graph passports (``obs.graphs``, ``SCC_GRAPHS``) under the reference's
+names (:199-205): ``gates.compute_aggregates_cid``,
+``gates.pair_gates_fast`` and ``gates.pair_gates_slow``. The reference's
+one-hot-input ``gates.compute_aggregates`` is the matmul form of
+``compute_aggregates_cid`` here, so its passport is that one's.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from scconsensus_tpu_torch.obs.graphs import instrument as _passport
 
 __all__ = ["ClusterAggregates", "compute_aggregates_cid", "pair_gates_fast",
            "pair_gates_slow"]
@@ -160,3 +168,9 @@ def pair_gates_slow(
         me = agg.mean_expm1
         gate = (me[:, pair_i].T > thr) | (me[:, pair_j].T > thr)
     return gate, m1 - m2
+
+
+compute_aggregates_cid = _passport("gates.compute_aggregates_cid",
+                                   compute_aggregates_cid)
+pair_gates_fast = _passport("gates.pair_gates_fast", pair_gates_fast)
+pair_gates_slow = _passport("gates.pair_gates_slow", pair_gates_slow)

@@ -12,6 +12,10 @@ cannot reproduce; ``carry.omega_from_reference`` hands that draw over.
 The port's own draw comes from torch's CPU generator and is then moved
 to the data's device, so a run on the card and a run on the CPU project
 through the same matrix (the card's generator draws other numbers).
+
+Graph passports (``obs.graphs``, ``SCC_GRAPHS``) under the reference's
+names (:122-125): ``embed.pca_scores``, ``embed.pca_scores_audited``,
+``embed.pca_basis``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from scconsensus_tpu_torch.device import resolve_device
+from scconsensus_tpu_torch.obs.graphs import instrument as _passport
 
 __all__ = ["pca_scores", "pca_scores_audited", "pca_basis"]
 
@@ -126,3 +131,8 @@ def _as_rows(x, device) -> torch.Tensor:
     if device is not None:
         return x.to(device=resolve_device(device), dtype=torch.float32)
     return x
+
+
+pca_scores = _passport("embed.pca_scores", pca_scores)
+pca_scores_audited = _passport("embed.pca_scores_audited", pca_scores_audited)
+pca_basis = _passport("embed.pca_basis", pca_basis)

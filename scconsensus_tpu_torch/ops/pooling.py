@@ -22,8 +22,13 @@ reference's order, so argmins agree. On the card ``index_add_`` adds in
 an unspecified order, so centroids may differ from run to run in the last
 bits. The landmark assignment carries the reference's integrity tier
 (the ``landmark_assign`` corruption site, occupancy conservation and a
-sampled ghost replay, ``robust.integrity``); its graph passports are
-left out.
+sampled ghost replay, ``robust.integrity``).
+
+Graph passports (``obs.graphs``, ``SCC_GRAPHS``) under the reference's
+names (:249-253): ``_lloyd`` (the legacy full-data Lloyd) is
+``landmark.lloyd``, ``_lloyd_sketch`` (Lloyd on the landmark sketch)
+``landmark.lloyd_sketch`` and ``_assign_blocks`` (the nearest-landmark
+pass over every cell) ``landmark.assign_blocks``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 
 from scconsensus_tpu_torch.device import as_points
 from scconsensus_tpu_torch.obs import residency
+from scconsensus_tpu_torch.obs.graphs import instrument as _passport
 from scconsensus_tpu_torch.ops.distance import sq_dists
 from scconsensus_tpu_torch.ops.linkage import HClustTree, ward_linkage
 from scconsensus_tpu_torch.robust import faults
@@ -91,6 +97,33 @@ def _assign(points: torch.Tensor, cent: torch.Tensor, argmin) -> torch.Tensor:
                       for s in range(0, points.shape[0], _LLOYD_BLOCK)])
 
 
+def _lloyd(points: torch.Tensor, cent: torch.Tensor, n_iter: int
+           ) -> torch.Tensor:
+    """``n_iter`` full-data Lloyd steps over the unclamped tile."""
+    for _ in range(n_iter):
+        cent = _update(points, cent, _lloyd_argmin)
+    return cent
+
+
+def _lloyd_sketch(sketch: torch.Tensor, cent: torch.Tensor, n_iter: int
+                  ) -> torch.Tensor:
+    """``n_iter`` Lloyd steps over the landmark sketch (clamped tile)."""
+    for _ in range(n_iter):
+        cent = _update(sketch, cent, _nearest)
+    return cent
+
+
+def _assign_blocks(points: torch.Tensor, cent: torch.Tensor
+                   ) -> torch.Tensor:
+    """The nearest landmark of every point, block by block."""
+    return _assign(points, cent, _nearest)
+
+
+_lloyd = _passport("landmark.lloyd", _lloyd)
+_lloyd_sketch = _passport("landmark.lloyd_sketch", _lloyd_sketch)
+_assign_blocks = _passport("landmark.assign_blocks", _assign_blocks)
+
+
 def _host(cent: torch.Tensor, assign: torch.Tensor, boundary: str
           ) -> Tuple[np.ndarray, np.ndarray]:
     """Centroids (float64) and assignment on the host, the declared
@@ -120,9 +153,7 @@ def kmeans_pool(x, n_centroids: int, n_iter: int = 10, seed: int = 0,
     rng = np.random.default_rng(seed)
     init = xd[torch.as_tensor(rng.choice(n, size=m, replace=False),
                               device=xd.device)]
-    cent = init
-    for _ in range(n_iter):
-        cent = _update(xd, cent, _lloyd_argmin)
+    cent = _lloyd(xd, init, n_iter)
     return _used(*_host(cent, _assign(xd, cent, _lloyd_argmin),
                         "tree_pool_fetch"), m)
 
@@ -191,10 +222,9 @@ def landmark_pool(x, n_landmarks: Optional[int] = None,
     init_idx = rng.choice(s, size=k, replace=False)
     sk = xd if sk_idx is None else xd[torch.as_tensor(sk_idx,
                                                       device=xd.device)]
-    cent = sk[torch.as_tensor(init_idx, device=xd.device)]
-    for _ in range(n_iter):
-        cent = _update(sk, cent, _nearest)
-    cent, assign = _host(cent, _assign(xd, cent, _nearest),
+    cent = _lloyd_sketch(sk, sk[torch.as_tensor(init_idx,
+                                                device=xd.device)], n_iter)
+    cent, assign = _host(cent, _assign_blocks(xd, cent),
                          "landmark_assign_fetch")
     # the integrity tier: the injected corruption site, occupancy
     # conservation, and once per run the float64 ghost replay of a seeded

@@ -31,6 +31,11 @@ over the one-hot cluster axis and flat gathers of pair entries, O(W·K)
 (the form it takes on CPU). False: batched matrix products and one-hot
 pair selections (the form it takes on an accelerator). None picks by the
 chunk's device.
+
+Graph passports (``obs.graphs``, ``SCC_GRAPHS``) under the reference's
+names (:472-483): ``ranksum_body`` is ``wilcox.allpairs_ranksum_chunk``,
+``sort_probe`` is ``wilcox.sort_probe``. The reference's third program,
+``wilcox.allpairs_ranksum_runspace_chunk``, has no port.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from scconsensus_tpu_torch.obs.graphs import instrument as _passport
 from scconsensus_tpu_torch.ops.wilcoxon import wilcoxon_from_ranks
 
 __all__ = ["ranksum_body", "sort_probe", "chunk_genes_for_budget",
@@ -219,3 +225,7 @@ def _pairs_finish(u_mat, B, nnz_k, n_of, pair_i, pair_j, n_clusters: int,
     rs1 = u + n1 * (n1 + 1.0) / 2.0
     log_p, u_out = wilcoxon_from_ranks(rs1, tie_sum, n1, n2)
     return log_p, u_out, tie_sum
+
+
+ranksum_body = _passport("wilcox.allpairs_ranksum_chunk", ranksum_body)
+sort_probe = _passport("wilcox.sort_probe", sort_probe)

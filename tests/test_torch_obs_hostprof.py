@@ -177,6 +177,33 @@ class TestHostProfilerLive:
         finally:
             prof.stop()
 
+    def test_a_collection_inside_the_locked_region_finishes(self):
+        """A collection can start in a thread that holds the profiler's
+        lock (an allocation inside ``_tick`` or ``sections``): its
+        callback must not wait on that lock. Run in a daemon thread so
+        that a deadlock fails, not hangs."""
+        import threading
+
+        prof = HostProfiler(period_s=0.01)
+        gc.callbacks.append(prof._on_gc)
+        done = threading.Event()
+
+        def body():
+            with prof._lock:
+                gc.collect()
+            done.set()
+
+        try:
+            threading.Thread(target=body, daemon=True).start()
+            finished = done.wait(timeout=30)
+        finally:
+            gc.callbacks.remove(prof._on_gc)
+        assert finished, "the gc callback deadlocked on the profiler lock"
+        if not prof._lock.acquire(timeout=5):
+            pytest.fail("the profiler lock is still held")
+        prof._lock.release()
+        assert prof.sections()["host_profile"]["gc"]["collections"] >= 1
+
     def test_stop_removes_gc_callback(self):
         prof = HostProfiler(period_s=0.01).start()
         assert prof._on_gc in gc.callbacks

@@ -149,6 +149,35 @@ class TestStallWatchdog:
         assert any(p.suffix == ".json" for p in cap.iterdir())
 
 
+def test_the_stall_precedes_its_capture_with_a_warm_profiler(
+        tmp_path, monkeypatch):
+    """A profiler that starts at once, and a stall event slow to write:
+    the capture thread still writes ``capture`` after the ``stall`` that
+    triggered it."""
+    monkeypatch.setattr(live, "_start_profiler", lambda d: object())
+    monkeypatch.setattr(live, "_stop_profiler", lambda p, d: "none.json")
+    rec = LiveRecorder(str(tmp_path / "run"), heartbeat_s=0.05,
+                       stall_s=0.15, capture_dir=str(tmp_path / "cap"),
+                       capture_s=0.01)
+    emit = rec._emit
+
+    def slow_stall(obj):
+        if obj.get("t") == "stall":
+            time.sleep(0.3)
+        emit(obj)
+
+    monkeypatch.setattr(rec, "_emit", slow_stall)
+    rec.start(install_signals=False)
+    deadline = time.time() + 20
+    while time.time() < deadline and "capture-done" not in [
+            ln["t"] for ln in _stream_lines(rec.hb_path)]:
+        time.sleep(0.05)
+    rec.stop("clean")
+    kinds = [ln["t"] for ln in _stream_lines(rec.hb_path)]
+    assert kinds.index("stall") < kinds.index("capture") \
+        < kinds.index("capture-done"), kinds
+
+
 # a refine() child held inside stage "tree" by a stall fault, under a
 # recorder with a fast heartbeat
 _CHILD = """

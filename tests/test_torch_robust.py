@@ -86,15 +86,17 @@ def test_the_slice_registers_every_flag_it_reads():
              "SCC_OBS_NUMERIC", "SCC_ELASTIC", "SCC_ELASTIC_MIN_DEVICES"}
     # the run record's export and kernel capture, the landmark policy's
     # flags, the store's checksum switch, the observation flags of
-    # refine(), and the reference's flags the port refuses while they are
-    # unported
+    # refine(), the compile log's and the passports' flags, and the
+    # reference's flags the port refuses while they are unported (none)
     want |= {"SCC_TRACE_DIR", "SCC_OBS_KERNELS", "SCC_TREE_EXACT",
              "SCC_TREE_LANDMARK_THRESHOLD", "SCC_TREE_LANDMARK_K",
              "SCC_TREE_LANDMARK_C", "SCC_ROBUST_CHECKSUM",
              "SCC_OBS_TRANSFERS", "SCC_OBS_RESIDENCY", "SCC_OBS_COST",
              "SCC_WILCOX_PROBE", "SCC_OBS_HEARTBEAT", "SCC_OBS_STALL_S",
              "SCC_OBS_STALL_TRACE", "SCC_HOSTPROF", "SCC_HOSTPROF_HZ",
-             "SCC_EVIDENCE_DIR", *port_config.UNPORTED_FLAGS}
+             "SCC_EVIDENCE_DIR", "SCC_COMPILELOG",
+             "SCC_COMPILELOG_MAX_EVENTS", "SCC_GRAPHS",
+             "SCC_GRAPHS_MAX_PROGRAMS", *port_config.UNPORTED_FLAGS}
     assert set(PORT_FLAGS) == want
 
 

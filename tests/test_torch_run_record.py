@@ -112,9 +112,14 @@ def test_stage_records_and_summaries_equal_the_reference():
            "occupancy": {"buckets": list(range(20)), "n": 3}, "x": 1.5}
     assert trace.summarize_record(rec) == ref_trace.summarize_record(rec)
     d = a.as_dict()
-    assert set(d) == {"stages", "total_s", "spans", "schema",
-                      "schema_version"}
-    assert a.compile_stats() is None
+    # the compile stats of the tracer's window (the native builds: none
+    # here), under the reference's keys
+    assert set(d) == set(b.as_dict()) == {"stages", "total_s", "spans",
+                                          "schema", "schema_version",
+                                          "compile"}
+    assert a.compile_stats() == {"events": 0, "total_s": 0.0,
+                                 "by_event": {}}
+    assert set(a.compile_stats()) == set(b.compile_stats())
 
 
 def test_open_stack_live_records_and_ambient_stage():
@@ -187,10 +192,22 @@ def test_port_records_pass_the_reference_validator(runs):
     assert rec["run"]["torch_version"] == torch.__version__
     assert "jax_version" not in rec["run"]
     assert rec["device"]["memory"] is None  # no card in this process
+    # no tracer given: no compile stats, as in the reference
     assert "compile" not in rec["device"]
     for validate in (export.validate_run_record,
                      ref_export.validate_run_record):
         validate(rec)
+    # with a tracer the device section carries its compile stats (the
+    # native builds since it was made: none here), the reference's shape
+    tr = trace.Tracer(sync="off")
+    with_tracer = export.build_run_record("x", 1, tracer=tr)
+    assert with_tracer["device"]["compile"] == {
+        "events": 0, "total_s": 0.0, "by_event": {}}
+    assert set(with_tracer["device"]["compile"]) == set(
+        ref_trace.Tracer(sync="off").compile_stats())
+    for validate in (export.validate_run_record,
+                     ref_export.validate_run_record):
+        validate(with_tracer)
     assert export.check_schema_version(rec) == \
         ref_export.check_schema_version(rec) == "v1"
 
@@ -271,7 +288,8 @@ def test_a_section_the_port_cannot_validate_raises(section):
 def _ported_section(section):
     """A small valid section of each kind the port now validates, built
     by the port's own builders."""
-    from scconsensus_tpu_torch.obs import hostprof, profile
+    from scconsensus_tpu_torch.obs import compilelog, graphs, hostprof, \
+        profile
 
     res = {"mode": "audit", "to_device": {"calls": 1, "bytes": 64},
            "to_host": {"calls": 1, "bytes": 8},
@@ -292,6 +310,18 @@ def _ported_section(section):
              (0.02, None, "blocking_wait", None)]),
         "memory_timeline": hostprof.build_memory_timeline(
             [(0.0, 1 << 20, None, "de"), (0.02, 2 << 20, 4096, None)]),
+        "compile": compilelog.build_compile_section(
+            [("scc/native/cuda_backend_compile", 12.5, None, 0),
+             ("scc/native/ward_backend_compile", 3.25, "tree", 1)],
+            cache_hits=1),
+        # the pure builder, without the fingerprint: the reference's
+        # validator keys the digest on JAX's fields (test_torch_obs_graphs)
+        "graphs": graphs.build_graphs_section([graphs.build_passport(
+            "gates.pair_gates_fast", {"gt": 2, "_local_scalar_dense": 1},
+            callbacks=[{"target": "_local_scalar_dense",
+                        "where": "scconsensus_tpu_torch/ops/gates.py:1"}],
+            memory={"argument_bytes": 64, "output_bytes": 32},
+            stage="gates")]),
     }[section]
 
 
@@ -302,6 +332,8 @@ PORTED_SECTIONS = {
     "residency_burndown": ("total_bytes", -1),
     "host_profile": ("n_samples", 99),
     "memory_timeline": ("rss_peak_bytes", 0),
+    "compile": ("retraces", 5),
+    "graphs": ("version", 2),
 }
 
 
@@ -320,6 +352,35 @@ def test_a_ported_section_validates(section):
                      ref_export.validate_run_record):
         with pytest.raises(ValueError):
             validate(broken)
+
+
+def test_a_captured_graphs_section_with_its_fingerprint_in_both_validators():
+    """A real CPU capture, fingerprint included, in a whole run record:
+    the port's validator passes it, and the reference's refuses it with
+    exactly the digest error (it recomputes the digest over JAX's
+    fields) and passes it once the fingerprint alone is dropped. This is
+    the boundary of what a port record can show the reference."""
+    from scconsensus_tpu_torch.obs import graphs
+    from scconsensus_tpu_torch.ops.pca import pca_scores
+
+    graphs.install_and_mark(force=True)
+    try:
+        pca_scores(torch.randn(40, 6), 3)
+        sec = graphs.snapshot()
+    finally:
+        graphs.reset()
+    assert sec["fingerprint"]["backend"] == "cpu"
+    assert [p["program"] for p in sec["programs"].values()] == [
+        "embed.pca_scores"]
+    rec = export.build_run_record("x", 1, graphs=sec)
+    export.validate_run_record(rec)
+    with pytest.raises(ValueError) as err:
+        ref_export.validate_run_record(rec)
+    assert str(err.value) == ("graphs section: fingerprint.digest does not "
+                              "match its fields")
+    stripped = dict(rec, graphs={k: v for k, v in sec.items()
+                                 if k != "fingerprint"})
+    ref_export.validate_run_record(stripped)
 
 
 def test_chrome_trace_equals_the_reference(runs, tmp_path):

@@ -162,10 +162,12 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
             lambda: port.pooled_multi_cut_silhouette(
                 data.T, [np.arange(240) % 3], n_centroids=8),
     }
+    from scconsensus_tpu_torch.obs.regress import reference_fingerprint
     from scconsensus_tpu_torch.robust.soak import run_integrity_soak
 
     calls["run_integrity_soak"] = lambda: run_integrity_soak(
         "/nonexistent", n_cells=40, n_genes=20)
+    calls["reference_fingerprint"] = reference_fingerprint
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -211,14 +213,13 @@ def test_config_round_trips_from_the_reference_json():
         config_from_reference('{"not_a_field": 1}')
 
 
-UNPORTED_FLAG_VALUES = {"SCC_COMPILELOG": "1", "SCC_GRAPHS": "1"}
-
 # the observation flags of refine() the port handles, each with a value
 # that turns it on and what that value changes on a run
 PORTED_FLAG_VALUES = {
     "SCC_OBS_TRANSFERS": "1", "SCC_OBS_RESIDENCY": "audit",
     "SCC_OBS_COST": "1", "SCC_WILCOX_PROBE": "1", "SCC_OBS_HEARTBEAT": "0.5",
     "SCC_OBS_STALL_S": "30", "SCC_HOSTPROF": "1",
+    "SCC_COMPILELOG": "1", "SCC_GRAPHS": "1",
 }
 
 
@@ -227,6 +228,7 @@ def test_a_ported_flag_runs(flag, monkeypatch):
     """Each observation flag the port handles carries the reference's
     registration, and set it observes the run without changing it."""
     from scconsensus_tpu_torch.config import ENV_FLAGS
+    from scconsensus_tpu_torch.obs import compilelog, graphs
     from scconsensus_tpu_torch.obs.live import LiveRecorder
 
     ours, ref = ENV_FLAGS[flag], ref_config.ENV_FLAGS[flag]
@@ -235,7 +237,17 @@ def test_a_ported_flag_runs(flag, monkeypatch):
     data, labels = _tiny()
     base = port.refine(data, labels, ReclusterConfig(), device="cpu")
     monkeypatch.setenv(flag, PORTED_FLAG_VALUES[flag])
-    res = port.refine(data, labels, ReclusterConfig(), device="cpu")
+    # the compile log and the passport registry are armed by the caller,
+    # under their flag, as the reference's bench worker arms them
+    armed = {"SCC_COMPILELOG": compilelog, "SCC_GRAPHS": graphs}.get(flag)
+    if armed is not None:
+        monkeypatch.setitem(compilelog._STATE, "armed", False)
+        assert armed.install_and_mark() is True
+    try:
+        res = port.refine(data, labels, ReclusterConfig(), device="cpu")
+        sec = armed.snapshot() if armed is not None else None
+    finally:
+        graphs.reset()
     for key in base.dynamic_labels:
         np.testing.assert_array_equal(base.dynamic_labels[key],
                                       res.dynamic_labels[key])
@@ -256,6 +268,16 @@ def test_a_ported_flag_runs(flag, monkeypatch):
     elif flag == "SCC_HOSTPROF":
         assert m["host_profile"]["version"] == 1
         assert m["memory_timeline"]["n_samples"] >= 1
+    elif flag == "SCC_COMPILELOG":
+        # the Ward library was loaded by the first run: nothing compiled
+        compilelog.validate_compile(sec)
+        assert sec["compiles"] == 0 and sec["retraces"] == 0
+    elif flag == "SCC_GRAPHS":
+        graphs.validate_graphs(sec)
+        assert {"gates.compute_aggregates_cid", "gates.pair_gates_fast",
+                "wilcox.allpairs_ranksum_chunk", "embed.pca_scores"} <= {
+            p["program"] for p in sec["programs"].values()}
+        assert "errors" not in sec
     else:
         # the flight recorder's flags: read when a recorder is built
         rec = LiveRecorder("unused")
@@ -268,12 +290,13 @@ def test_a_ported_flag_runs(flag, monkeypatch):
 
 @pytest.mark.parametrize("case", ["method", "sparse_method", "fleet_route",
                                   "fleet_swap", "wire_request",
-                                  *UNPORTED_FLAG_VALUES])
+                                  "unported_flag"])
 def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     import json
 
     import scipy.sparse as sp
 
+    from scconsensus_tpu_torch import config as port_config
     from scconsensus_tpu_torch.robust import faults
 
     data, labels = _tiny()
@@ -294,21 +317,24 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
                 faults.reset()
         return run
 
-    if case in UNPORTED_FLAG_VALUES:
-        # a reference flag of refine() the port does not handle yet is
-        # refused when set, by refine() and by streaming_refine() alike
-        from scconsensus_tpu_torch.config import ENV_FLAGS
+    if case == "unported_flag":
+        # a reference flag of refine() the port does not handle yet (none
+        # since the compile log and the passports were ported; the
+        # mechanism is held here on a stand-in) is refused when set, by
+        # refine() and by streaming_refine() alike
         from scconsensus_tpu_torch.stream.store import ChunkedCSRStore
 
-        assert ENV_FLAGS[case].doc == ref_config.ENV_FLAGS[case].doc
+        assert port_config.UNPORTED_FLAGS == ()
+        flag = "SCC_GRAPHS"
+        monkeypatch.setattr(port_config, "UNPORTED_FLAGS", (flag,))
         # its off value runs
-        monkeypatch.setenv(case, "0")
+        monkeypatch.setenv(flag, "0")
         port.refine(data, labels, ReclusterConfig(), device="cpu")
-        monkeypatch.setenv(case, UNPORTED_FLAG_VALUES[case])
-        with pytest.raises(NotImplementedError, match=case):
+        monkeypatch.setenv(flag, "1")
+        with pytest.raises(NotImplementedError, match=flag):
             port.refine(data, labels, ReclusterConfig(), device="cpu")
         store = ChunkedCSRStore.create(str(tmp_path / "c"), 120, 240, 32)
-        with pytest.raises(NotImplementedError, match=case):
+        with pytest.raises(NotImplementedError, match=flag):
             port.streaming_refine(store, labels, ReclusterConfig(),
                                   device="cpu")
         return
@@ -333,9 +359,9 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
 # the package surface (ROADMAP C14) and the landmark flags (C12)
 # --------------------------------------------------------------------------
 
-# reference names the port does not export yet: the compile and program
-# observatories describe XLA programs (ROADMAP A5b)
-NOT_EXPORTED = {"obs": ("compilelog", "graphs")}
+# reference names the port does not export yet (none: the compile log and
+# the graph passports were the last)
+NOT_EXPORTED = {}
 
 
 @pytest.mark.parametrize("sub", ["", "consensus", "models", "de", "ops",
