@@ -9,9 +9,10 @@ checkout, and exits non-zero on the first phase that fails:
   2. build: the CUDA kernel (nvcc, sm_90a) and the native Ward library,
      both compiles started together;
   3. kernel: ``distance_cluster_sums`` against its plain PyTorch version
-     at five shapes (flagship-like, ragged, skinny, wide, and four nested
-     cuts at the 26k path's geometry), with times, bound, the run sums a
-     row writes against N·C, and a bitwise re-run check;
+     at six shapes (flagship-like, ragged, skinny, wide, and four nested
+     cuts at the 26k path's geometry and at the multi-sample scenario's
+     100,000 cells), with times, bound, the run sums a row writes
+     against N·C, and a bitwise re-run check;
   4. slice, card against CPU: the dense fast-Wilcoxon ``refine()`` at
      2,000 cells × 800 genes × 4 clusters on ``cuda`` and on the CPU;
   5. edgeR, card against CPU: ``recluster_de_consensus(method="edgeR")``
@@ -171,7 +172,7 @@ checkout, and exits non-zero on the first phase that fails:
      the profiler, the sweep's profiler time beside phase 7's CUDA-event
      time, the wall beside phase 7's and the trace's bytes printed;
  30. the integrity-soak worker (``python -m
-     scconsensus_tpu_torch.robust.soak``) in five fresh processes from
+     scconsensus_tpu_torch.robust.soak``) in five fresh processes at once from
      the launcher: the default shape, ``--stream`` at the default host
      budget, ``--stream --stream-window 16``, ``--mesh 8`` and
      ``--device cpu``; each exits 0 with a validated run record, all
@@ -233,7 +234,32 @@ checkout, and exits non-zero on the first phase that fails:
      the drifted fields printed), the card held to the CPU by
      ``check_drift`` (log p quantiles within phase 5's 2e-3, dispersion
      quantiles within 50 %, label ARI 1.0; its own 1e-3 verdict
-     printed).
+     printed);
+ 39. the workload zoo card against CPU at the ``smoke`` shapes: the PCA
+     embed of cite_dual's RNA modality with one projection on both
+     devices (each component whose singular value is 1 % clear of its
+     neighbours' within 1e-4 of the largest |score| up to sign; the
+     others printed), the k-means labelings of both modalities and the
+     topology clusterer on the CPU's embedding, labels identical; then
+     ``run_scenario(name, smoke=True)`` for the four scenarios on the
+     card and on the CPU: final cuts identical, the ``quality.scenario``
+     metrics side by side, every record valid, one kernel launch a card
+     run;
+ 40. the four scenarios at their ``full`` shapes (``multi_sample``
+     100,000 × 3,000, ``cite_dual`` 40,000 × 8,000, ``atlas_transfer``
+     20,000 fitted and 60,000 served, ``topo_inputs`` 50,000 × 3,000) on
+     the card in one fresh child from the launcher: headline, stage
+     walls, peak device memory, one kernel launch each, the kernel at
+     each run's inputs against its plain version, the scenario metrics;
+     every record valid (under ``OUT_DIR/phase40/``) with every deepSplit
+     cut, every query answered, the topology replay identical;
+ 41. the zoo's soak worker (``python -m
+     scconsensus_tpu_torch.workloads.soak``) in six fresh children from
+     the launcher: the reference's workload-kill-resume plan (a clean
+     run, a run SIGKILLed at ``stage:tree``, its resume adopting ``de``
+     and ``embed`` with the clean run's ``labels_sha``), ``--device
+     cpu`` with that sha, and the ``--topo`` audit on the card and on the
+     CPU with one sha.
 
 Phases 19 and 22 also validate the run records of the serve and stream
 soak workers' summaries. The compile log is armed before phase 2, and
@@ -241,8 +267,8 @@ the script's own compile section (on a clean checkout, the nvcc and g++
 builds outside any span) is printed before the kernel record.
 
 Phases run in the order 1–5, 12, 15, 20, 25, 28, 6–8, 13, 19, 16–18,
-21, 26, 27, 29 (with 33), 31, 32, 34, 35–38, 9–11, 14, 22–24, 30, so
-that the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26, 27, 29,
+21, 26, 27, 29 (with 33), 31, 32, 34, 35–38, 9–11, 14, 22–24, 30,
+39–41, so that the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26, 27, 29,
 31–34 and 37 (phase 19 while phase 7's result is alive) and is freed
 before the larger ones; the line before the kernel record gives the
 total time.
@@ -453,19 +479,22 @@ def phase_kernel() -> dict:
             x, ids.to(torch.int32).contiguous(), k, label)
     # the main path's geometry: 26,000 × 15 and four cuts, each refining the
     # one before (10, 40, 150 and 250 clusters: K = 450), about 5 % of the
-    # cells in no cluster in each later cut
-    n, sizes = 26000, (10, 40, 150, 250)
-    x = torch.randn((n, 15), generator=g, device="cuda")
-    fine = torch.randint(0, sizes[-1], (n,), generator=g, device="cuda")
-    cols, k0 = [], 0
-    for c, m in enumerate(sizes):
-        col = fine * m // sizes[-1] + k0
-        if c:
-            col[torch.rand(n, generator=g, device="cuda") < 0.05] = -1
-        cols.append(col)
-        k0 += m
-    ids = torch.stack(cols, dim=1).to(torch.int32).contiguous()
-    out["nested"] = _measure_kernel(x, ids, k0, "nested")
+    # cells in no cluster in each later cut; then the multi-sample
+    # scenario's (phase 40): 100,000 × 15 and four nested cuts of 12, 20,
+    # 30 and 40 clusters (K = 102)
+    for label, n, sizes in (("nested", 26000, (10, 40, 150, 250)),
+                            ("nested-100k", 100_000, (12, 20, 30, 40))):
+        x = torch.randn((n, 15), generator=g, device="cuda")
+        fine = torch.randint(0, sizes[-1], (n,), generator=g, device="cuda")
+        cols, k0 = [], 0
+        for c, m in enumerate(sizes):
+            col = fine * m // sizes[-1] + k0
+            if c:
+                col[torch.rand(n, generator=g, device="cuda") < 0.05] = -1
+            cols.append(col)
+            k0 += m
+        ids = torch.stack(cols, dim=1).to(torch.int32).contiguous()
+        out[label] = _measure_kernel(x, ids, k0, label)
     log(f"[kernel] launches so far (comparison only): "
         f"{distance_cluster_sums.launches}")
     return out
@@ -2786,13 +2815,16 @@ BRAIN10M = dict(n_genes=2000, n_clusters=16, seed=11, density=0.02)
 BRAIN10M_KW = dict(approx_threshold=100_000, landmark_threshold=100_000,
                    silhouette_sample=50_000)
 STREAM_20K_CELLS = 20_000
-# phase 24's cell count: brain10m's 10,000,000 cut to 250,000; nothing
+# phase 24's cell count: brain10m's 10,000,000 cut to 125,000; nothing
 # else is cut. At 1,000,000 the phase took 482.6 s on the card (cold
 # 289.5 s, steady 182.3 s): the Gram embed's 560 chunk loads took
 # 137.9-141.0 s of each run and the cold run's ingest 101.7 s; at 500,000
-# its child took 211 s, the script's largest depth after phases 36-38
-# were added
-STREAM_SCALE_CELLS = 250_000
+# its child took 211 s, at 250,000 132.8 s (phase 24 156.3 s), the
+# script's largest depth after phase 40 once phases 39-41 were added. It
+# stays above brain10m's approx_threshold (100,000; the exact tree runs
+# at N <= threshold): at 100,000 cells the child built the exact Ward
+# tree twice and took 252.5 s
+STREAM_SCALE_CELLS = 125_000
 MB = float(1 << 20)
 # On the card's machine ``import torch`` and CUDA init leave 4.8 GB
 # resident, above the 4,096 MB default host budget before any streaming
@@ -3297,12 +3329,22 @@ def _chunk_charge(n_cells: int, rows: int) -> tuple:
 # peak is its own and not this script's.
 _LAUNCHER = """
 import json, subprocess, sys
+from concurrent.futures import ThreadPoolExecutor
+
+def run(argv, timeout):
+    p = subprocess.run(argv, capture_output=True, text=True,
+                       timeout=timeout)
+    return {"rc": p.returncode, "stdout": p.stdout, "stderr": p.stderr}
+
 for line in sys.stdin:
     cmd = json.loads(line)
-    p = subprocess.run(cmd["argv"], capture_output=True, text=True,
-                       timeout=cmd["timeout"])
-    print(json.dumps({"rc": p.returncode, "stdout": p.stdout,
-                      "stderr": p.stderr}), flush=True)
+    if "argvs" in cmd:  # several commands at once, results in order
+        with ThreadPoolExecutor(len(cmd["argvs"])) as pool:
+            out = list(pool.map(lambda a: run(a, cmd["timeout"]),
+                                cmd["argvs"]))
+    else:
+        out = run(cmd["argv"], cmd["timeout"])
+    print(json.dumps(out), flush=True)
 """
 
 
@@ -3322,13 +3364,22 @@ def _stop_launcher(launcher) -> None:
 
 def _launch(launcher, argv, timeout: float) -> dict:
     """Run ``argv`` through the launcher: its exit code and output."""
-    launcher.stdin.write(json.dumps({"argv": argv, "timeout": timeout})
-                         + "\n")
+    return _launcher_call(launcher, {"argv": argv, "timeout": timeout})
+
+
+def _launch_all(launcher, argvs, timeout: float) -> list:
+    """Run every command of ``argvs`` through the launcher at once: their
+    exit codes and outputs, in order."""
+    return _launcher_call(launcher, {"argvs": argvs, "timeout": timeout})
+
+
+def _launcher_call(launcher, cmd: dict):
+    launcher.stdin.write(json.dumps(cmd) + "\n")
     launcher.stdin.flush()
     line = launcher.stdout.readline()
     if not line:
         raise AssertionError("the launcher died (a command past its time "
-                             f"limit of {timeout} s?)")
+                             f"limit of {cmd['timeout']} s?)")
     return json.loads(line)
 
 
@@ -3701,8 +3752,8 @@ SOAK_FORMS = (("default", ()), ("stream", ("--stream",)),
 
 def phase_soak_workers(launcher) -> dict:
     """Phase 30: ``python -m scconsensus_tpu_torch.robust.soak`` in fresh
-    processes from the launcher (started before torch), five ways; each
-    exits 0, its summary's run record validates, all give one
+    processes from the launcher (started before torch), five ways at
+    once; each exits 0, its summary's run record validates, all give one
     ``labels_sha``. The ``--stream`` runs use the default host budget over
     their own baseline."""
     import shutil
@@ -3713,18 +3764,21 @@ def phase_soak_workers(launcher) -> dict:
     root = tempfile.mkdtemp(prefix="scc-soak-")
     shas, out = {}, {}
     try:
+        argvs = []
         for tag, extra in SOAK_FORMS:
-            workdir = os.path.join(root, tag)
             argv = [sys.executable, "-m", "scconsensus_tpu_torch.robust.soak",
-                    "--dir", workdir, "--fresh", *extra]
+                    "--dir", os.path.join(root, tag), "--fresh", *extra]
             if "--device" not in extra:
                 argv += ["--device", "cuda"]
-            t0 = time.perf_counter()
             # the default host budget whatever this process was given
-            proc = _launch(launcher, ["env", "-u",
-                                      "SCC_STREAM_HOST_BUDGET_MB", *argv],
-                           600)
-            wall = time.perf_counter() - t0
+            argvs.append(["env", "-u", "SCC_STREAM_HOST_BUDGET_MB", *argv])
+        # the five runs at once: each judges its own peak RSS against
+        # its own baseline, so they need not wait for each other
+        t0 = time.perf_counter()
+        procs = _launch_all(launcher, argvs, 600)
+        wall = time.perf_counter() - t0
+        for (tag, _), proc in zip(SOAK_FORMS, procs):
+            workdir = os.path.join(root, tag)
             try:
                 with open(os.path.join(
                         workdir, "INTEGRITY_SOAK_SUMMARY.json")) as f:
@@ -3747,7 +3801,7 @@ def phase_soak_workers(launcher) -> dict:
                         budget.get("budget_mb") != 4096.0:
                     raise AssertionError(f"[soak-{tag}] not within the "
                                          f"default budget: {budget}")
-            log(f"[soak-{tag}] exit 0 in {wall!r} s (refine "
+            log(f"[soak-{tag}] exit 0, the five in {wall!r} s (refine "
                 f"{summary['wall_s']!r} s); labels_sha "
                 f"{summary['labels_sha'][:16]}; record validates"
                 + (f"; budget {json.dumps(budget)}" if budget else ""))
@@ -4611,6 +4665,479 @@ def phase_drift() -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phases 39-41: the workload zoo (workloads/)
+# ---------------------------------------------------------------------------
+
+# the reference bench's order of the four scenarios (bench.py:1065-1068)
+ZOO_ORDER = ("multi_sample", "cite_dual", "atlas_transfer", "topo_inputs")
+# the quality.scenario metrics printed for each scenario
+ZOO_METRICS = {
+    "multi_sample": ("ari_pooled", "per_batch_ari_min",
+                     "batch_mixing_mean_norm_entropy"),
+    "cite_dual": ("adt_ari_vs_coarse", "rna_ari_vs_fine",
+                  "final_ari_vs_fine", "final_ari_vs_coarse"),
+    "atlas_transfer": ("transfer_ari", "query_cells_per_s",
+                       "answered_frac", "serve_p99_ms"),
+    "topo_inputs": ("topo_ari_vs_truth", "final_ari_vs_truth",
+                    "topo_replay_identical"),
+}
+# PCA scores card against CPU, of the largest |score|, after per-column
+# sign alignment (the CPU tests' tolerance for the embed), for every
+# component whose singular value lies at least ZOO_PCA_GAP (relative)
+# from its neighbours': a component nearer a neighbour than that is not
+# determined to better than float32 rounding times σ / gap on either
+# device, and is printed, not held
+ZOO_PCA_RTOL = 1e-4
+ZOO_PCA_GAP = 0.01
+# the kill of the reference's workload-kill-resume plan
+# (tools/chaos_run.py:196-201)
+ZOO_KILL_PLAN = [{"site": "stage:tree", "class": "kill", "after": 0}]
+
+
+@contextlib.contextmanager
+def _capturing_refine(into: list):
+    """Keep every ``refine()`` result made while the block runs (a
+    scenario's outcome carries its record sections, not its labels)."""
+    from scconsensus_tpu_torch.models import pipeline
+
+    real = pipeline.refine
+
+    def refine(*a, **kw):
+        res = real(*a, **kw)
+        into.append(res)
+        return res
+
+    pipeline.refine = refine
+    try:
+        yield into
+    finally:
+        pipeline.refine = real
+
+
+def _zoo_deep_splits(name: str, smoke: bool) -> list:
+    """The deepSplit cuts a scenario's refine makes
+    (``workloads/common.py``, ``workloads/atlas.py``)."""
+    if smoke:
+        return [1, 2]
+    return [1, 2, 3] if name == "atlas_transfer" else [1, 2, 3, 4]
+
+
+def _zoo_record(out, platform: str) -> dict:
+    """A scenario outcome as a run record, validated by the port."""
+    from scconsensus_tpu_torch.obs.export import (
+        build_run_record,
+        validate_run_record,
+    )
+
+    rec = build_run_record(
+        metric=out.metric, value=out.value, unit=out.unit,
+        extra=dict({k: v for k, v in out.extra.items()
+                    if isinstance(v, (int, float, str, bool))},
+                   config=out.name, platform=platform),
+        spans=out.spans, quality=out.quality, serving=out.serving,
+        scenario=out.scenario, robustness=out.robustness,
+        integrity=out.integrity, residency=out.residency,
+    )
+    validate_run_record(rec)
+    return rec
+
+
+def _zoo_checks(tag: str, out, rec: dict, smoke: bool) -> dict:
+    """What every scenario run must show (no score thresholds): a valid
+    record (``_zoo_record``), every deepSplit cut, every query answered
+    (atlas), an identical replay (topology). Returns the printed
+    ``quality.scenario`` metrics."""
+    cuts = [c["cut"] for c in rec["quality"]["cluster_structure"]["cuts"]]
+    want = [f"deepsplit: {d}" for d in _zoo_deep_splits(out.name, smoke)]
+    if cuts != want:
+        raise AssertionError(f"[{tag}] cuts {cuts}, expected {want}")
+    m = rec["quality"]["scenario"]["metrics"]
+    if out.name == "atlas_transfer" and m["answered_frac"] != 1.0:
+        raise AssertionError(f"[{tag}] answered_frac {m['answered_frac']}")
+    if out.name == "topo_inputs" and m["topo_replay_identical"] != 1.0:
+        raise AssertionError(f"[{tag}] the topology replay differs")
+    return {k: m.get(k) for k in ZOO_METRICS[out.name]}
+
+
+def phase_zoo_small() -> int:
+    """Phase 39: the zoo card against CPU at the ``smoke`` shapes. The
+    device pieces on one input (cite_dual's smoke modalities): the PCA
+    embed with one projection on both devices, then the k-means labelings
+    and the topology clusterer on the CPU's embedding, labels identical;
+    then ``run_scenario(name, smoke=True)`` for the four scenarios on the
+    card and on the CPU: final cuts identical (ARI 1), the scenario
+    metrics side by side, every record valid, one kernel launch a card
+    run. Returns the card runs' launches."""
+    import torch
+
+    from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+    from scconsensus_tpu_torch.workloads import SCENARIOS, run_scenario
+    from scconsensus_tpu_torch.workloads.common import (
+        final_labels,
+        kmeans_labeling,
+        pca_embed,
+    )
+    from scconsensus_tpu_torch.workloads.data import cite_seq_dataset
+    from scconsensus_tpu_torch.workloads.topology import topology_cluster
+
+    p = SCENARIOS["cite_dual"].smoke
+    rna, adt, _, _ = cite_seq_dataset(
+        n_cells=p["n_cells"], n_genes=p["n_genes"], n_adt=p["n_adt"],
+        k_coarse=p["k_coarse"], k_fine=p["k_fine"], seed=p["seed"])
+    n_pcs = int(min(20, max(4, p["k_fine"] + 4)))    # citeseq.py's
+    omega = torch.randn((rna.shape[0], n_pcs + 10),
+                        generator=torch.Generator().manual_seed(p["seed"]))
+    emb = {dev: pca_embed(rna, n_pcs, seed=p["seed"], omega=omega,
+                          device=dev) for dev in ("cuda", "cpu")}
+    sign = np.sign(np.sum(emb["cuda"] * emb["cpu"], axis=0))
+    col_err = np.abs(emb["cuda"] * sign - emb["cpu"]).max(axis=0)
+    scale = float(np.abs(emb["cpu"]).max())
+    # the centred data's singular values (float64, on the host), one past
+    # the kept components, and each kept one's gap to its neighbours
+    cells = rna.T.astype(np.float64)
+    sv = np.linalg.svd(cells - cells.mean(axis=0), compute_uv=False)
+    sv = sv[:n_pcs + 1]
+    gap = np.array([min(abs(sv[j] - sv[j + 1]),
+                        abs(sv[j] - sv[j - 1]) if j else np.inf) / sv[j]
+                    for j in range(n_pcs)])
+    held = gap >= ZOO_PCA_GAP
+    log(f"[zoo-small] pca_embed {emb['cpu'].shape}: card against CPU max "
+        f"abs err by component {col_err.tolist()}; singular values "
+        f"{sv.tolist()}; relative gaps {gap.tolist()}; held (gap >= "
+        f"{ZOO_PCA_GAP}) {held.tolist()} at {ZOO_PCA_RTOL} x {scale!r}")
+    if not held[0] or np.any(col_err[held] > ZOO_PCA_RTOL * scale):
+        raise AssertionError("[zoo-small] the PCA scores disagree")
+    x = emb["cpu"]
+    pieces = {
+        "kmeans-rna": lambda dev: kmeans_labeling(
+            x, p["k_fine"], seed=p["seed"] + 2, prefix="rna", device=dev),
+        "kmeans-adt": lambda dev: kmeans_labeling(
+            adt.T, p["k_coarse"], seed=p["seed"] + 1, prefix="adt",
+            device=dev),
+        "topology": lambda dev: topology_cluster(
+            x, n_covers=SCENARIOS["topo_inputs"].smoke["n_covers"],
+            seed=p["seed"], device=dev),
+    }
+    for tag, fn in pieces.items():
+        a, b = fn("cuda"), fn("cpu")
+        flipped = int(np.sum(a != b))
+        log(f"[zoo-small] {tag}: {len(set(a.tolist()))} labels, "
+            f"{flipped} of {a.size} differ card against CPU")
+        if flipped:
+            raise AssertionError(f"[zoo-small] {tag} differs card against "
+                                 "CPU")
+
+    launches = 0
+    for name in ZOO_ORDER:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            captured = []
+            distance_cluster_sums.launches = 0
+            with _capturing_refine(captured):
+                t0 = time.perf_counter()
+                out = run_scenario(name, smoke=True, device=dev)
+                wall = time.perf_counter() - t0
+            n_launch = distance_cluster_sums.launches
+            rec = _zoo_record(out, "gpu" if dev == "cuda" else "cpu")
+            metrics = _zoo_checks(f"zoo-small {name} {dev}", out, rec, True)
+            runs[dev] = dict(final=final_labels(captured[-1]), wall=wall,
+                             launches=n_launch, metrics=metrics,
+                             value=out.value)
+        if runs["cuda"]["launches"] != 1 or runs["cpu"]["launches"] != 0:
+            raise AssertionError(
+                f"[zoo-small] {name}: launches card "
+                f"{runs['cuda']['launches']}, CPU {runs['cpu']['launches']}"
+                " (expected 1 and 0)")
+        launches += runs["cuda"]["launches"]
+        ari = adjusted_rand_index(runs["cuda"]["final"], runs["cpu"]["final"])
+        log(f"[zoo-small] {name}: final cut ARI card against CPU {ari!r}; "
+            "card / CPU: " + json.dumps({
+                k: [runs["cuda"][k], runs["cpu"][k]]
+                for k in ("value", "wall", "metrics")}))
+        if ari != 1.0:
+            raise AssertionError(f"[zoo-small] {name}: the final cuts "
+                                 "differ card against CPU")
+    return launches
+
+
+def _zoo_draw_args(name: str) -> tuple:
+    """(module, function, keywords) of the numpy draw a scenario's runner
+    makes at its ``full`` shape, as the runner calls it
+    (``workloads/multisample.py``, ``citeseq.py``, ``atlas.py``,
+    ``topo_scenario.py``)."""
+    from scconsensus_tpu_torch.workloads import SCENARIOS
+
+    p = SCENARIOS[name].full
+    if name == "multi_sample":
+        return ("scconsensus_tpu_torch.workloads.data",
+                "multi_sample_dataset",
+                {k: p[k] for k in ("n_cells", "n_genes", "n_clusters",
+                                   "n_samples", "seed")})
+    if name == "cite_dual":
+        return ("scconsensus_tpu_torch.workloads.data", "cite_seq_dataset",
+                {k: p[k] for k in ("n_cells", "n_genes", "n_adt",
+                                   "k_coarse", "k_fine", "seed")})
+    if name == "atlas_transfer":
+        return ("scconsensus_tpu_torch.workloads.data",
+                "atlas_query_dataset",
+                {k: p[k] for k in ("n_atlas", "n_query", "n_genes",
+                                   "n_clusters", "seed")})
+    return ("scconsensus_tpu_torch.utils.synthetic", "synthetic_scrna",
+            dict(n_genes=p["n_genes"], n_cells=p["n_cells"],
+                 n_clusters=p["n_clusters"],
+                 n_markers_per_cluster=min(
+                     40, p["n_genes"] // max(p["n_clusters"], 1)),
+                 seed=p["seed"], log_normalize=True))
+
+
+def _zoo_draw(name: str):
+    """A scenario's ``full`` numpy draw, made in a worker process."""
+    import importlib
+
+    mod, fn, kw = _zoo_draw_args(name)
+    return getattr(importlib.import_module(mod), fn)(**kw)
+
+
+@contextlib.contextmanager
+def _zoo_prefetched(draws: dict, used: list):
+    """While the block runs, a call of a scenario's draw function with the
+    keywords ``_zoo_draw_args`` names returns the array drawn beforehand
+    (the generators are pure functions of their arguments, so those are
+    the bytes the call would draw) and notes the scenario in ``used``;
+    any other call draws as usual."""
+    import importlib
+
+    saved = []
+    for name in draws:
+        mod, fn, kw = _zoo_draw_args(name)
+        module = importlib.import_module(mod)
+        real = getattr(module, fn)
+
+        def patched(*a, _real=real, _kw=kw, _name=name, **k):
+            if not a and k == _kw and _name in draws:
+                used.append(_name)
+                return draws.pop(_name)
+            return _real(*a, **k)
+
+        saved.append((module, fn, real))
+        setattr(module, fn, patched)
+    try:
+        yield
+    finally:
+        for module, fn, real in reversed(saved):
+            setattr(module, fn, real)
+
+
+_ZOO_CHILD = """
+import json, multiprocessing, os, resource, sys, time
+from concurrent.futures import ProcessPoolExecutor
+sys.path.insert(0, {repo!r})
+import chip_smoke
+
+if __name__ == "__main__":
+    # the four numpy draws at once, in worker processes, before any run
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            len(chip_smoke.ZOO_ORDER),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        draws = dict(zip(chip_smoke.ZOO_ORDER,
+                         pool.map(chip_smoke._zoo_draw,
+                                  chip_smoke.ZOO_ORDER)))
+    print("ZOO_DRAWS_S " + str(time.perf_counter() - t0), flush=True)
+
+import numpy as np
+import torch
+from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+from scconsensus_tpu_torch.workloads import run_scenario
+
+out_dir = os.path.join(chip_smoke.OUT_DIR, "phase40")
+os.makedirs(out_dir, exist_ok=True)
+for name in chip_smoke.ZOO_ORDER:
+    captured, used = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    distance_cluster_sums.launches = 0
+    with chip_smoke._capturing_refine(captured), \\
+            chip_smoke._zoo_prefetched(draws, used):
+        t0 = time.perf_counter()
+        out = run_scenario(name, workdir=os.path.join({root!r}, name),
+                           device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if used != [name]:
+        raise AssertionError(name + ": its prefetched draw went unused")
+    launches = distance_cluster_sums.launches
+    peak = torch.cuda.max_memory_allocated()
+    rec = chip_smoke._zoo_record(out, "gpu")
+    metrics = chip_smoke._zoo_checks("zoo-full " + name, out, rec, False)
+    with open(os.path.join(out_dir, name + ".json"), "w") as f:
+        json.dump(rec, f)
+    res = captured[-1]
+    kern = chip_smoke._measure_main_path(res, "zoo-" + name)
+    print("ZOO_CHILD " + json.dumps({{
+        "name": name, "value": out.value, "unit": out.unit,
+        "metric": out.metric, "wall_s": wall, "launches": launches,
+        "peak_device_bytes": peak, "n_cells": int(res.embedding.shape[0]),
+        "stage_walls_s": res.metrics["stage_walls_s"],
+        "scenario_metrics": metrics, "extra": out.extra,
+        "silhouettes": [i["silhouette"] for i in res.deep_split_info],
+        "n_clusters": [i["n_clusters"] for i in res.deep_split_info],
+        "kernel": kern}}, default=str), flush=True)
+    del res, captured, out, rec
+    torch.cuda.empty_cache()
+print("ZOO_RSS_MB " + str(
+    resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0))
+"""
+
+
+def phase_zoo_full(launcher) -> dict:
+    """Phase 40: the four scenarios at their ``full`` shapes on the card,
+    in one fresh child process from the launcher, which first draws the
+    four numpy datasets at once in worker processes: each one's headline,
+    stage walls, peak device memory, kernel launches (one each), the
+    kernel's time at its shape against its plain version, and its
+    ``quality.scenario`` metrics; every record valid with every deepSplit
+    cut (records under ``OUT_DIR/phase40/``). Returns the child's numbers
+    by scenario."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="scc-zoo-")
+    try:
+        t0 = time.perf_counter()
+        proc = _launch(launcher, [sys.executable, "-c",
+                                  _ZOO_CHILD.format(repo=REPO, root=root)],
+                       900)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out, rss = {}, None
+    for line in proc["stdout"].splitlines():
+        if line.startswith("[kernel]"):
+            log(line)
+        elif line.startswith("ZOO_CHILD "):
+            rec = json.loads(line[len("ZOO_CHILD "):])
+            out[rec["name"]] = rec
+            brief = {k: rec[k] for k in (
+                "value", "unit", "wall_s", "launches", "peak_device_bytes",
+                "n_cells", "stage_walls_s", "scenario_metrics",
+                "n_clusters", "silhouettes")}
+            brief["kernel_ms"] = rec["kernel"]["ms"]
+            log(f"[zoo-full] {rec['name']}: {json.dumps(brief)}")
+        elif line.startswith("ZOO_RSS_MB "):
+            rss = float(line.split()[1])
+        elif line.startswith("ZOO_DRAWS_S "):
+            log(f"[zoo-full] the four numpy draws at once in "
+                f"{float(line.split()[1])!r} s")
+    if proc["rc"] != 0 or list(out) != list(ZOO_ORDER):
+        raise AssertionError(f"[zoo-full] the child failed (exit "
+                             f"{proc['rc']}): {proc['stderr'][-3000:]}")
+    for name, rec in out.items():
+        if rec["launches"] != 1:
+            raise AssertionError(f"[zoo-full] {name}: {rec['launches']} "
+                                 "kernel launches, expected 1")
+    log(f"[zoo-full] the child in {wall!r} s, peak RSS {rss!r} MB")
+    return out
+
+
+def _zoo_soak_argv(workdir: str, *extra, plan=None) -> list:
+    """``python -m scconsensus_tpu_torch.workloads.soak`` on ``workdir``,
+    under the fault plan file ``plan`` when given."""
+    argv = [sys.executable, "-m", "scconsensus_tpu_torch.workloads.soak",
+            "--dir", workdir, *extra]
+    if plan is not None:
+        argv = ["env", f"SCC_FAULT_PLAN={plan}", *argv]
+    return argv
+
+
+def _zoo_soak_result(tag: str, proc: dict, workdir: str, wall: float):
+    """(exit code, summary or None, wall) of one soak child, logged."""
+    try:
+        with open(os.path.join(workdir, "WORKLOAD_SOAK_SUMMARY.json")) as f:
+            summary = json.load(f)
+    except OSError:
+        summary = None
+    brief = None if summary is None else {
+        k: summary.get(k) for k in ("ok", "wall_s", "labels_sha",
+                                    "resumed_stages", "n_topo_clusters")}
+    log(f"[zoo-soak] {tag}: exit {proc['rc']} (its round {wall!r} s); "
+        f"{json.dumps(brief)}")
+    if summary is None and proc["rc"] != -9:
+        log(f"[zoo-soak] {tag} stderr {proc['stderr'][-2000:]}")
+    return proc["rc"], summary, wall
+
+
+def phase_zoo_soak(launcher) -> dict:
+    """Phase 41: the zoo's soak worker in fresh children from the
+    launcher. The reference's workload-kill-resume plan: a clean
+    ``--fresh`` run, a run killed by SIGKILL at ``stage:tree``, and its
+    resume, which adopts ``de`` and ``embed`` and gives the clean run's
+    ``labels_sha``; the same sha with ``--device cpu``; the ``--topo``
+    audit on the card and on the CPU, one sha. Every record valid. The
+    five runs that need no other start together; the resume follows."""
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch.obs.export import validate_run_record
+
+    root = tempfile.mkdtemp(prefix="scc-zoo-soak-")
+    out = {}
+    try:
+        plan = _write_plan(root, ZOO_KILL_PLAN)
+        # the five independent runs at once, then the resume of the
+        # killed one
+        first = {
+            "clean": ("clean", ("--fresh", "--device", "cuda"), None),
+            "killed": ("kill", ("--fresh", "--device", "cuda"), plan),
+            "cpu": ("cpu", ("--fresh", "--device", "cpu"), None),
+            "topo-cuda": ("topo-cuda", ("--topo", "--device", "cuda"),
+                          None),
+            "topo-cpu": ("topo-cpu", ("--topo", "--device", "cpu"), None),
+        }
+        t0 = time.perf_counter()
+        procs = _launch_all(launcher, [
+            _zoo_soak_argv(os.path.join(root, d), *extra, plan=pl)
+            for d, extra, pl in first.values()], 600)
+        wall = time.perf_counter() - t0
+        runs = {tag: _zoo_soak_result(tag, proc, os.path.join(root, d),
+                                      wall)
+                for (tag, (d, _, _)), proc in zip(first.items(), procs)}
+        t0 = time.perf_counter()
+        proc = _launch(launcher, _zoo_soak_argv(
+            os.path.join(root, "kill"), "--device", "cuda"), 600)
+        runs["resumed"] = _zoo_soak_result(
+            "resumed", proc, os.path.join(root, "kill"),
+            time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rc, summary, _ = runs["killed"]
+    if rc != -9 or summary is not None:
+        raise AssertionError(f"[zoo-soak] the planned kill did not happen "
+                             f"(exit {rc})")
+    for tag in ("clean", "resumed", "cpu", "topo-cuda", "topo-cpu"):
+        rc, summary, wall = runs[tag]
+        if rc != 0 or summary is None or not summary["ok"]:
+            raise AssertionError(f"[zoo-soak] {tag}: exit {rc}")
+        if "record" in summary:
+            validate_run_record(summary["record"])
+        out[tag] = {"process_s": wall, "wall_s": summary["wall_s"],
+                    "labels_sha": summary["labels_sha"]}
+    if runs["clean"][1]["resumed_stages"]:
+        raise AssertionError("[zoo-soak] the clean run adopted stages")
+    adopted = runs["resumed"][1]["resumed_stages"]
+    if not {"de", "embed"} <= set(adopted):
+        raise AssertionError(f"[zoo-soak] the resume adopted {adopted}")
+    shas = {t: out[t]["labels_sha"] for t in ("clean", "resumed", "cpu")}
+    topo = {t: out[t]["labels_sha"] for t in ("topo-cuda", "topo-cpu")}
+    log(f"[zoo-soak] resume adopted {adopted}; labels_sha {shas}; "
+        f"topo {topo}")
+    if len(set(shas.values())) != 1 or len(set(topo.values())) != 1:
+        raise AssertionError("[zoo-soak] the shas differ")
+    return out
+
+
 def _time_phases() -> dict:
     """Wrap every ``phase_*`` function of this module (none calls another)
     so that its wall, summed over its calls, lands in the returned dict,
@@ -4727,6 +5254,9 @@ def _main(launcher) -> int:
     stream_20k_launches = phase_stream_20k()
     stream_1m_launches = phase_stream_scale(launcher)
     phase_soak_workers(launcher)
+    zoo_small_launches = phase_zoo_small()
+    zoo_full = phase_zoo_full(launcher)
+    phase_zoo_soak(launcher)
     by_path = {"wilcox_26k": rec["launches"],
                "edger_26k": erec["launches"],
                "wilcox_26k_csr": csr_launches,
@@ -4760,7 +5290,10 @@ def _main(launcher) -> int:
                "wilcox_26k_live": live_launches,
                "wilcox_26k_passports": passport_launches,
                "wilcox_26k_passport_audit": gate_launches,
-               "drift_reference_card": drift_launches}
+               "drift_reference_card": drift_launches,
+               "zoo_smoke_card": zoo_small_launches,
+               **{f"zoo_{name}": rec["launches"]
+                  for name, rec in zoo_full.items()}}
     comp = compilelog.snapshot()
     log("[compile] this process's compile log: " + json.dumps(comp))
     if comp["cache_hits"] < 2 or comp["compiles"] > 2:

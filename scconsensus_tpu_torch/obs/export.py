@@ -34,9 +34,9 @@ sections both have. Top-level keys:
                            ``memory_timeline`` and ``graphs`` must be
                            omitted when absent, never null
 
-A record carrying a section the port cannot validate yet (``scenario``,
-``loadgen``) raises ``NotImplementedError`` naming it: it never passes
-unchecked.
+A record carrying a section the port cannot validate yet (``loadgen``)
+raises ``NotImplementedError`` naming it: it never passes unchecked. The
+``scenario`` section is checked by ``workloads.validate_scenario``.
 
 :func:`chrome_trace` converts span records to ``traceEvents`` complete
 ("X") events; open the file in Perfetto or chrome://tracing.
@@ -79,7 +79,7 @@ TERMINATION_CAUSES = ("clean", "signal", "stall", "crash")
 
 # sections of the reference's schema whose producers and validators the
 # port does not have yet, in the reference's keyword order
-UNPORTED_SECTIONS = ("scenario", "loadgen")
+UNPORTED_SECTIONS = ("loadgen",)
 
 
 def _device_section(tracer=None,
@@ -239,12 +239,15 @@ def _section_validators() -> Dict[str, Any]:
     from scconsensus_tpu_torch.serve.metrics import validate_serving
     from scconsensus_tpu_torch.serve.slo import validate_slo
     from scconsensus_tpu_torch.stream.record import validate_streaming
+    # torch-free at module level, as the reference's workloads package is
+    from scconsensus_tpu_torch.workloads import validate_scenario
 
     return {"quality": validate_quality, "residency": validate_residency,
             "kernels": validate_kernels,
             "robustness": validate_robustness, "serving": validate_serving,
             "slo": validate_slo, "streaming": validate_streaming,
-            "integrity": validate_integrity, "profile": validate_profile,
+            "integrity": validate_integrity, "scenario": validate_scenario,
+            "profile": validate_profile,
             "residency_burndown": validate_residency_burndown,
             "tunnel": _validate_tunnel,
             "host_profile": validate_host_profile,

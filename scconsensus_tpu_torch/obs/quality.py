@@ -22,10 +22,11 @@ The port's copy of ``scconsensus_tpu/obs/quality.py``:
     stage into ``result.metrics["quality"]`` and checked by
     :func:`validate_quality`.
 
-The workload zoo's scenario scores (``per_batch_ari``,
-``batch_mixing_entropy``) and their validation wait for ``workloads/``,
-as does ``ari_final_vs`` (the final cut against a bench run's raw input
-labelings).
+  * **Scenario scores** for the workload zoo (``workloads/``): the
+    per-batch ARI and batch-mixing entropy of a multi-sample run, the
+    final cut against named reference labelings (``ari_final_vs``), and
+    :func:`validate_scenario_scores`, which :func:`validate_quality`
+    applies to a ``quality.scenario`` block.
 
 The cluster structure turns each labeling into integer codes once (one
 bincount for integer labels, ``refine()`` passes the DE's codes of the
@@ -63,9 +64,13 @@ __all__ = [
     "de_funnel",
     "wilcox_ladder",
     "occupancy_from_stage_records",
+    "ari_final_vs",
     "cluster_structure",
+    "per_batch_ari",
+    "batch_mixing_entropy",
     "build_quality_section",
     "validate_quality",
+    "validate_scenario_scores",
     "live_summary",
     "consumed_cpu_s",
     "reset_cpu",
@@ -425,9 +430,29 @@ def _table(ac: np.ndarray, ka: int, bc: np.ndarray, kb: int) -> np.ndarray:
     return np.bincount(joint, minlength=ka * kb).reshape(ka, kb)
 
 
+def ari_final_vs(dynamic_labels: Dict[str, np.ndarray],
+                 ref_labelings: Dict[str, Any]) -> Dict[str, float]:
+    """ARI of the FINAL cut against named reference labelings (e.g. a
+    bench run's two raw input labelings). The one implementation behind
+    both :func:`cluster_structure` and a bench's post-hoc stamp — size-
+    mismatched references are skipped, not crashed on."""
+    from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
+
+    if not dynamic_labels or not ref_labelings:
+        return {}
+    final = np.asarray(dynamic_labels[list(dynamic_labels)[-1]])
+    out: Dict[str, float] = {}
+    for rname, rl in ref_labelings.items():
+        rl = np.asarray(rl)
+        if rl.size == final.size:
+            out[str(rname)] = round(adjusted_rand_index(final, rl), 6)
+    return out
+
+
 def cluster_structure(dynamic_labels: Dict[str, np.ndarray],
                       deep_split_info: Optional[List[Dict]] = None,
                       input_labels=None,
+                      ref_labelings: Optional[Dict[str, Any]] = None,
                       landmark: Optional[Dict[str, Any]] = None,
                       ) -> Dict[str, Any]:
     """Cluster-structure section: per-cut size histograms + silhouette,
@@ -435,7 +460,8 @@ def cluster_structure(dynamic_labels: Dict[str, np.ndarray],
     when the cut merely renames the input clusters) and ARI vs the input
     labeling, and label churn (ARI between consecutive deepSplit cuts).
     ``input_labels`` may be the labels or any integer coding of them.
-    ``landmark`` is the tree stage's landmark-approximation telemetry
+    ``ref_labelings`` adds named extra references scored against the
+    FINAL cut (``ari_final_vs``). ``landmark`` is the tree stage's landmark-approximation telemetry
     (k, sketch, per-cut landmark occupancy, ARI-vs-exact when a verify
     run computed it) — stamped verbatim so a landmark run record names
     its approximation."""
@@ -498,7 +524,82 @@ def cluster_structure(dynamic_labels: Dict[str, np.ndarray],
         if inp is not None:
             out["input_entropy"] = round(_entropy(inp_counts), 6)
             out["n_input_clusters"] = int(inp[1])
+        if ref_labelings and names:
+            refs = ari_final_vs(dynamic_labels, ref_labelings)
+            if refs:
+                out["ari_final_vs"] = refs
         return out
+
+
+# --------------------------------------------------------------------------
+# scenario scoring (workload zoo)
+# --------------------------------------------------------------------------
+
+def per_batch_ari(final_labels, truth_labels, batches) -> Dict[str, float]:
+    """ARI of the final cut against truth WITHIN each batch/sample.
+
+    The multi-sample scenario's per-batch quality block: an integration
+    that nails three samples and shreds the fourth must not hide behind
+    a healthy pooled ARI. Keys are ``str(batch)``; a batch with fewer
+    than 2 cells is skipped (ARI of a singleton is undefined, not 1)."""
+    from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
+
+    with _timed():
+        final = np.asarray(final_labels)
+        truth = np.asarray(truth_labels)
+        batches = np.asarray(batches)
+        if not (final.size == truth.size == batches.size):
+            raise ValueError(
+                f"per_batch_ari: size mismatch (final={final.size}, "
+                f"truth={truth.size}, batches={batches.size})"
+            )
+        out: Dict[str, float] = {}
+        for b in np.unique(batches):
+            sel = batches == b
+            if int(sel.sum()) < 2:
+                continue
+            out[str(b)] = round(
+                adjusted_rand_index(final[sel], truth[sel]), 6
+            )
+        return out
+
+
+def batch_mixing_entropy(labels, batches) -> Dict[str, Any]:
+    """Batch-composition entropy of every output cluster.
+
+    For each cluster, the Shannon entropy (nats) of its cells' batch
+    distribution; ``mean_norm_entropy`` is the cluster-size-weighted
+    mean normalized by ``ln(n_batches)`` — 1.0 means every cluster is
+    perfectly batch-mixed, 0.0 means every cluster is single-batch (the
+    batch effect became the clustering). One contingency table of
+    (cluster, batch) codes gives every cluster's counts."""
+    with _timed():
+        labels = np.asarray(labels)
+        batches = np.asarray(batches)
+        if labels.size != batches.size:
+            raise ValueError(
+                f"batch_mixing_entropy: size mismatch "
+                f"(labels={labels.size}, batches={batches.size})"
+            )
+        ub, bi = np.unique(batches, return_inverse=True)
+        n_batches = int(ub.size)
+        uc, ci = np.unique(labels, return_inverse=True)
+        table = _table(ci.ravel(), int(uc.size), bi.ravel(), n_batches)
+        per_cluster: Dict[str, Dict[str, Any]] = {}
+        wsum, n_tot = 0.0, 0
+        for c, counts in zip(uc, table):
+            ent = _entropy(counts)
+            n = int(counts.sum())
+            per_cluster[str(c)] = {"entropy": round(ent, 6), "n": n}
+            wsum += ent * n
+            n_tot += n
+        denom = float(np.log(n_batches)) if n_batches > 1 else 1.0
+        mean_norm = (wsum / n_tot / denom) if n_tot else 0.0
+        return {
+            "n_batches": n_batches,
+            "per_cluster": per_cluster,
+            "mean_norm_entropy": round(float(mean_norm), 6),
+        }
 
 
 # --------------------------------------------------------------------------
@@ -507,7 +608,8 @@ def cluster_structure(dynamic_labels: Dict[str, np.ndarray],
 
 def build_quality_section(de_result=None, config=None,
                           dynamic_labels=None, deep_split_info=None,
-                          input_labels=None, occupancy=None, landmark=None,
+                          input_labels=None, ref_labelings=None,
+                          occupancy=None, landmark=None,
                           tracer=None) -> Dict[str, Any]:
     """One ``quality`` section from whatever the run computed — every
     sub-section optional, numeric health always present."""
@@ -522,7 +624,7 @@ def build_quality_section(de_result=None, config=None,
             q["wilcox_ladder"] = lad
     if dynamic_labels:
         q["cluster_structure"] = cluster_structure(
-            dynamic_labels, deep_split_info, input_labels,
+            dynamic_labels, deep_split_info, input_labels, ref_labelings,
             landmark=landmark,
         )
     q["numeric_health"] = numeric_health(tracer)
@@ -532,6 +634,62 @@ def build_quality_section(de_result=None, config=None,
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"quality section: {msg}")
+
+
+def validate_scenario_scores(s: Dict[str, Any]) -> None:
+    """Structural validation of a ``quality.scenario`` scoring block
+    (the workload zoo's per-scenario quality evidence). Raises
+    ValueError on the first violation; :func:`validate_quality` calls
+    this, so a scenario record is held to the same standard as every
+    other quality field."""
+    _require(isinstance(s, dict), "scenario must be an object")
+    name = s.get("name")
+    _require(isinstance(name, str) and bool(name),
+             "scenario.name must be a non-empty string")
+    metrics = s.get("metrics")
+    _require(isinstance(metrics, dict) and bool(metrics),
+             "scenario.metrics must be a non-empty object")
+    for k, v in metrics.items():
+        _require(isinstance(v, (int, float)) and not isinstance(v, bool)
+                 and np.isfinite(v),
+                 f"scenario.metrics[{k!r}] must be a finite number")
+    pba = s.get("per_batch_ari")
+    if pba is not None:
+        _require(isinstance(pba, dict) and bool(pba),
+                 "scenario.per_batch_ari must be a non-empty object")
+        for k, v in pba.items():
+            _require(isinstance(v, (int, float))
+                     and -1.0 - 1e-9 <= v <= 1.0 + 1e-9,
+                     f"scenario.per_batch_ari[{k!r}] must be an ARI "
+                     "in [-1, 1]")
+    bm = s.get("batch_mixing")
+    if bm is not None:
+        _require(isinstance(bm, dict), "scenario.batch_mixing must be "
+                 "an object")
+        nb = bm.get("n_batches")
+        _require(isinstance(nb, int) and nb >= 2,
+                 "scenario.batch_mixing.n_batches must be an int >= 2")
+        mne = bm.get("mean_norm_entropy")
+        _require(isinstance(mne, (int, float))
+                 and -1e-9 <= mne <= 1.0 + 1e-9,
+                 "scenario.batch_mixing.mean_norm_entropy must be in "
+                 "[0, 1]")
+        pc = bm.get("per_cluster")
+        _require(isinstance(pc, dict) and bool(pc),
+                 "scenario.batch_mixing.per_cluster must be a non-empty "
+                 "object")
+        for k, v in pc.items():
+            _require(isinstance(v, dict)
+                     and isinstance(v.get("entropy"), (int, float))
+                     and v["entropy"] >= -1e-9
+                     and isinstance(v.get("n"), int) and v["n"] > 0,
+                     f"scenario.batch_mixing.per_cluster[{k!r}] needs "
+                     "entropy >= 0 and n > 0")
+    # a multi-sample block must carry BOTH halves: a per-batch ARI with
+    # no mixing evidence (or vice versa) is half an integration claim
+    _require((pba is None) == (bm is None),
+             "scenario blocks with batch evidence must carry both "
+             "per_batch_ari and batch_mixing")
 
 
 def validate_quality(q: Dict[str, Any]) -> None:
@@ -600,13 +758,14 @@ def validate_quality(q: Dict[str, Any]) -> None:
                      f"cuts[{i}].sizes must list one size per cluster")
             _require(all(isinstance(s, int) and s >= 0 for s in sizes),
                      f"cuts[{i}].sizes must be counts >= 0")
-        d = cs.get("ari_vs_input")
-        if d is not None:
-            _require(isinstance(d, dict), "ari_vs_input must be an object")
-            for k, v in d.items():
-                _require(isinstance(v, (int, float))
-                         and -1.0 - 1e-9 <= v <= 1.0 + 1e-9,
-                         f"ari_vs_input[{k!r}] must be an ARI in [-1, 1]")
+        for key in ("ari_vs_input", "ari_final_vs"):
+            d = cs.get(key)
+            if d is not None:
+                _require(isinstance(d, dict), f"{key} must be an object")
+                for k, v in d.items():
+                    _require(isinstance(v, (int, float))
+                             and -1.0 - 1e-9 <= v <= 1.0 + 1e-9,
+                             f"{key}[{k!r}] must be an ARI in [-1, 1]")
         lm = cs.get("landmark")
         if lm is not None:
             _require(isinstance(lm, dict), "landmark must be an object")
@@ -659,6 +818,9 @@ def validate_quality(q: Dict[str, Any]) -> None:
             for k in ("nan", "inf"):
                 _require(isinstance(t.get(k, 0), int) and t.get(k, 0) >= 0,
                          f"trips[{i}].{k} must be an int >= 0")
+    sc = q.get("scenario")
+    if sc is not None:
+        validate_scenario_scores(sc)
     lad = q.get("wilcox_ladder")
     if lad is not None:
         _require(isinstance(lad, dict), "wilcox_ladder must be an object")

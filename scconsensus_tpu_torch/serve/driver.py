@@ -265,6 +265,7 @@ class ConsensusServer:
     def __init__(self, model: Union[ConsensusModel, str],
                  config: Optional[ServeConfig] = None,
                  readonly: bool = False,
+                 register_live: bool = True,
                  device=None):
         dev = resolve_device(device)
         if isinstance(model, str):
@@ -304,6 +305,7 @@ class ConsensusServer:
             # flag alone is the signal
             qp = os.path.join(self.model_dir, QUARANTINE_LEDGER_NAME)
         self.quarantine_path = qp
+        self._register_live = bool(register_live)
         self._q_cells_saved = 0
         self._q_seq = 0
         self._queue: List[RequestHandle] = []
@@ -323,8 +325,11 @@ class ConsensusServer:
             return self
         self._closed = False
         self._draining = False
-        # the process's active stats, which metrics.live_summary reads
-        serve_metrics.set_active(self.stats)
+        if self._register_live:
+            # the process's active stats, which metrics.live_summary
+            # reads; a server that is one of several (the atlas
+            # scenario's batch workload) passes register_live=False
+            serve_metrics.set_active(self.stats)
         self._thread = threading.Thread(
             target=self._worker, name="scc-serve", daemon=True
         )

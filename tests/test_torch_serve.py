@@ -770,6 +770,35 @@ def test_live_summary_feeds_and_stop_detaches(demo):
     assert metrics.live_summary() is None
 
 
+@pytest.mark.parametrize("register_live", [True, False],
+                         ids=["registered", "unregistered"])
+@pytest.mark.parametrize("pkg", [REF, PORT], ids=["ref", "port"])
+def test_register_live_decides_the_active_stats(pkg, register_live, demo):
+    """``register_live=False`` (a server that is one of several, as the
+    atlas scenario runs it) leaves the process's active stats as they
+    were through ``start()`` and ``stop()``; the default sets them and
+    clears them again. Both packages alike."""
+    m = demo[pkg.name][1]
+    other = pkg.metrics.ServingStats()
+    pkg.metrics.set_active(other)
+    try:
+        srv = pkg.server(m, _fast_cfg(pkg), register_live=register_live,
+                         **pkg.kw)
+        srv.start()
+        try:
+            srv.classify(pkg.soak.make_requests(1, 8, 7)[0], timeout=30.0)
+            during = pkg.metrics.active_stats()
+        finally:
+            srv.stop()
+        after = pkg.metrics.active_stats()
+    finally:
+        pkg.metrics.set_active(None)
+    if register_live:
+        assert during is srv.stats and after is None
+    else:
+        assert during is other and after is other
+
+
 def test_serve_requests_ride_the_ambient_tracer(demo):
     from scconsensus_tpu_torch.obs import trace
 
