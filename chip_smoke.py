@@ -259,7 +259,40 @@ checkout, and exits non-zero on the first phase that fails:
      run, a run SIGKILLed at ``stage:tree``, its resume adopting ``de``
      and ``embed`` with the clean run's ``labels_sha``), ``--device
      cpu`` with that sha, and the ``--topo`` audit on the card and on the
-     CPU with one sha.
+     CPU with one sha;
+ 42. the serving fleet at the reference tests' shapes (the 120-gene,
+     4-cluster atlas), one model dir built by the port on the CPU and
+     served on the card and on the CPU: a 3-replica pool behind the wire
+     front answering 200 (JSON and ``.npy``), 409, 422, 429, 504, 503 and
+     a ``degraded`` 200 through ``force_open``; a hot-swap under wire load
+     (zero loss, post-swap answers from v2 only); the replay through 1 and
+     3 replicas; a replica kill and its respawn; the ``wire_request``,
+     ``fleet_route`` and ``fleet_swap`` fault sites; the planted-drift
+     reconsensus loop (quarantine, update, swap, ARI >= 0.99); card = CPU
+     on every ``labels_sha`` and on the new clusters; the model built on
+     the card labels the training cells as the CPU's build; then the
+     reference's wire-overhead guard on the production-shaped model
+     (served p99 with the front and pool under 1.07 x the bare driver's at
+     1 replica, best of 3);
+ 43. the bench's ``atlas_query`` over a 2-replica fleet on the card
+     (``run_fleet_soak`` as ``bench.py:1462`` calls it, cut from 300
+     requests to 150 of 64 cells, 8 foreign, a 2,000-gene 12-cluster
+     atlas of 20,000 cells): the model's build time apart, then the
+     pass's cells/s and wall, served p50 and p99, the ``queue_wait`` and
+     ``compute`` stage medians, outcomes (142 answered, 8 quarantined)
+     and peak device memory, beside the thread CPU the process spends in JSON encoding
+     and decoding during that pass, and phase 19's cells/s;
+ 44. the fleet's chaos worker (``python -m
+     scconsensus_tpu_torch.serve.fleet.soak``) and the load generator in
+     fresh children from the launcher, started at once: swap-under-load,
+     replay-across-replicas (1 replica, 3, and 3 with ``--device cpu`` on
+     one model: one sha), kill-replica-under-load (trace continuity on
+     the worker's attempt log) and one ``run_load`` at the reference's
+     defaults; then the spike soak of ``tools/load_run.py`` alone (shed
+     through 429s, a scale-up from the floor and back, zero SLO
+     breaches, ``rps_at_slo`` > 0); a kill that refused no queued
+     request, or a spike that failed a check, runs again with more cells
+     a request, under the same checks.
 
 Phases 19 and 22 also validate the run records of the serve and stream
 soak workers' summaries. The compile log is armed before phase 2, and
@@ -268,7 +301,7 @@ builds outside any span) is printed before the kernel record.
 
 Phases run in the order 1–5, 12, 15, 20, 25, 28, 6–8, 13, 19, 16–18,
 21, 26, 27, 29 (with 33), 31, 32, 34, 35–38, 9–11, 14, 22–24, 30,
-39–41, so that the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26, 27, 29,
+39–44, so that the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26, 27, 29,
 31–34 and 37 (phase 19 while phase 7's result is alive) and is freed
 before the larger ones; the line before the kernel record gives the
 total time.
@@ -1885,6 +1918,7 @@ def phase_serve(data, res) -> int:
             model, data, os.path.join(root, QUARANTINE_LEDGER_NAME))
         launches = distance_cluster_sums.launches
         validate_serving(sec)
+        _FACTS["serve_cells_per_s"] = SERVE_REQUESTS * SERVE_CELLS / wall
         n_in = sum(i is not None for i in cell_idx)
         req, lat, bat = sec["requests"], sec["latency_ms"], sec["batches"]
         log(f"[serve] {SERVE_REQUESTS} requests x {SERVE_CELLS} cells from "
@@ -2815,7 +2849,8 @@ BRAIN10M = dict(n_genes=2000, n_clusters=16, seed=11, density=0.02)
 BRAIN10M_KW = dict(approx_threshold=100_000, landmark_threshold=100_000,
                    silhouette_sample=50_000)
 STREAM_20K_CELLS = 20_000
-# phase 24's cell count: brain10m's 10,000,000 cut to 125,000; nothing
+# phase 24's cell count: brain10m's 10,000,000 cut to 105,000 (125,000
+# until phases 42-44 were added: its child took 85.7 s there); nothing
 # else is cut. At 1,000,000 the phase took 482.6 s on the card (cold
 # 289.5 s, steady 182.3 s): the Gram embed's 560 chunk loads took
 # 137.9-141.0 s of each run and the cold run's ingest 101.7 s; at 500,000
@@ -2824,7 +2859,7 @@ STREAM_20K_CELLS = 20_000
 # stays above brain10m's approx_threshold (100,000; the exact tree runs
 # at N <= threshold): at 100,000 cells the child built the exact Ward
 # tree twice and took 252.5 s
-STREAM_SCALE_CELLS = 125_000
+STREAM_SCALE_CELLS = 105_000
 MB = float(1 << 20)
 # On the card's machine ``import torch`` and CUDA init leave 4.8 GB
 # resident, above the 4,096 MB default host budget before any streaming
@@ -5138,6 +5173,878 @@ def phase_zoo_soak(launcher) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 42-44: the serving fleet
+# --------------------------------------------------------------------------
+
+FLEET_SEED = 7
+# the reference fleet tests' fast driver config (tests/test_serve_fleet.py)
+FLEET_CFG = dict(max_batch_cells=256, queue_capacity=32,
+                 batch_window_s=0.001, default_deadline_s=10.0,
+                 breaker_threshold=3, breaker_cooldown_s=0.2,
+                 drift_quarantine_frac=0.5)
+# the reference's wire-overhead contract (tests/test_serve_fleet.py:949)
+WIRE_GUARD_LIMIT = 1.07
+# the bench's atlas_query over the fleet (bench.py:1462), cut from 300
+# requests to 150 at the same width, its 8 foreign requests kept: the
+# 300-request pass took 52.46 s, most of it the host's JSON
+ATLAS_QUERY = dict(n_requests=150, cells_per=64, n_ood=8, n_genes=2000,
+                   n_clusters=12, n_train=20000, replicas=2, seed=7)
+# what phase 19 measured, set beside phase 43's numbers
+_FACTS: dict = {}
+
+
+def _fleet_cfg(**kw):
+    from scconsensus_tpu_torch.serve.driver import ServeConfig
+
+    return ServeConfig(**{**FLEET_CFG, **kw})
+
+
+def _wire_post(port: int, body, ctype: str = "application/json",
+               headers=None):
+    """One POST /classify on a fresh connection: (status, body, headers)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/classify", body=body,
+                 headers={"Content-Type": ctype, **(headers or {})})
+    r = conn.getresponse()
+    doc = json.loads(r.read())
+    conn.close()
+    return r.status, doc, dict(r.getheaders())
+
+
+def _wire_get(port: int, path: str):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    r = conn.getresponse()
+    raw = r.read()
+    conn.close()
+    return r.status, raw
+
+
+def _fleet_statuses(model_dir: str, device: str, root: str) -> dict:
+    """A 3-replica pool behind the wire front on ``device``, driven to each
+    status of the reference's ``TestWireFront``: 200 for a JSON and an
+    ``.npy`` body, 409, 422, 429 (a stalled batch behind a 2-deep queue),
+    504 (a stalled batch past a 0.1 s deadline), 503 after stop, and a
+    ``degraded`` 200 through ``force_open``. Returns the labels of every
+    answered request and the status of each case."""
+    import threading
+
+    from scconsensus_tpu_torch.serve.fleet.pool import ReplicaPool
+    from scconsensus_tpu_torch.serve.fleet.soak import make_query_batches
+    from scconsensus_tpu_torch.serve.fleet.wire import WireFront
+    from scconsensus_tpu_torch.serve.metrics import validate_serving
+
+    out = {"labels": []}
+    reqs = make_query_batches(4, 8, FLEET_SEED)
+    ood = make_query_batches(1, 8, FLEET_SEED, n_ood=1)[0]
+    pool = ReplicaPool(model_dir, n_replicas=3, config=_fleet_cfg(),
+                       device=device)
+    front = WireFront(pool)
+    pool.start()
+    front.start()
+    try:
+        model = pool.active_model()
+        for x in reqs:
+            st, doc, _ = _wire_post(front.port,
+                                    json.dumps({"cells": x.tolist()}))
+            assert st == 200 and doc["outcome"] == "ok", doc
+            assert doc["labels"] == model.classify(x)[0].tolist()
+            out["labels"].append(doc["labels"])
+        buf = io.BytesIO()
+        np.save(buf, reqs[0])
+        st, doc, _ = _wire_post(front.port, buf.getvalue(),
+                                ctype="application/x-npy")
+        assert st == 200 and doc["labels"] == out["labels"][0], doc
+        out["npy"] = st
+        st, doc, _ = _wire_post(front.port,
+                                json.dumps({"cells": ood.tolist()}))
+        assert st == 409 and doc["labels"] is None, doc
+        out["quarantined"] = st
+        st, doc, _ = _wire_post(front.port,
+                                json.dumps({"cells": [[1.0, 2.0]]}))
+        assert st == 422 and doc["outcome"] == "rejected_invalid", doc
+        out["invalid"] = st
+        # degraded mode: every breaker forced open, the host path answers
+        for rep in pool.replicas():
+            rep.server.breaker.force_open()
+        st, doc, _ = _wire_post(front.port,
+                                json.dumps({"cells": reqs[1].tolist()}))
+        assert st == 200 and doc["outcome"] == "degraded", doc
+        assert doc["degraded"] and doc["labels"] == out["labels"][1], doc
+        for rep in pool.replicas():
+            rep.server.breaker.force_close()
+        out["degraded"] = st
+        # 504: the one batch stalls 0.4 s past a 0.1 s deadline
+        with _env(SCC_FAULT_PLAN=_write_plan(root, [{
+                "site": "serve_batch", "class": "stall", "stall_s": 0.4}],
+                name=f"stall-{device}.json")):
+            st, doc, _ = _wire_post(front.port, json.dumps(
+                {"cells": reqs[2].tolist(), "deadline_s": 0.1}))
+        assert st == 504 and doc["late_by_s"] > 0, doc
+        out["deadline"] = st
+        # 429: each replica's batch stalls with a 2-deep queue behind it
+        for rep in pool.replicas():
+            rep.server.config.queue_capacity = 2
+        results = []
+        with _env(SCC_FAULT_PLAN=_write_plan(root, [{
+                "site": "serve_batch", "class": "stall", "stall_s": 0.5,
+                "times": 4}], name=f"queue-{device}.json")):
+            big = make_query_batches(14, 8, FLEET_SEED)
+            ts = [threading.Thread(target=lambda x=x: results.append(
+                _wire_post(front.port, json.dumps({"cells": x.tolist()}))))
+                for x in big]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=120)
+        shed = [(st, doc, h) for st, doc, h in results if st == 429]
+        assert shed, [st for st, _, _ in results]
+        for st, doc, h in shed:
+            assert doc["outcome"] == "rejected_queue"
+            assert doc["retry_after_s"] > 0 and int(h["Retry-After"]) >= 1
+        assert all(st in (200, 429) for st, _, _ in results)
+        out["queue_full"] = (429, len(shed))
+        st, _ = _wire_get(front.port, "/healthz")
+        assert st == 200
+        pool.stop()
+        st, doc, _ = _wire_post(front.port,
+                                json.dumps({"cells": reqs[3].tolist()}))
+        assert st == 503 and doc["outcome"] == "rejected_closed", doc
+        st_h, _ = _wire_get(front.port, "/healthz")
+        assert st_h == 503
+        out["closed"] = st
+    finally:
+        front.stop()
+        pool.stop()
+    sec = front.serving_section()
+    validate_serving(sec)
+    wire_req = sec["wire"]["requests"]
+    assert wire_req["submitted"] == 4 + 1 + 1 + 1 + 1 + 1 + 14 + 1
+    assert sec["fleet"]["submitted_by_owner"]["pool"] == 1
+    out["status_codes"] = sec["wire"]["status_codes"]
+    return out
+
+
+def _fleet_sites(model_dir: str, v2_dir: str, device: str,
+                 root: str) -> dict:
+    """The fleet's three fault sites under a one-rule plan each: what the
+    client saw for two requests, a hot-swap and a third request, with the
+    accounting validated."""
+    from scconsensus_tpu_torch.serve.fleet.pool import ReplicaPool
+    from scconsensus_tpu_torch.serve.fleet.soak import make_query_batches
+    from scconsensus_tpu_torch.serve.fleet.wire import WireFront
+    from scconsensus_tpu_torch.serve.metrics import validate_serving
+
+    body = json.dumps({"cells": make_query_batches(1, 8, FLEET_SEED)[0]
+                       .tolist()})
+    out = {}
+    for rule in ({"site": "wire_request", "class": "transient"},
+                 {"site": "fleet_route", "class": "oom"},
+                 {"site": "fleet_swap", "class": "disk"}):
+        seen = []
+        with _env(SCC_FAULT_PLAN=_write_plan(
+                root, [rule], name=f"{rule['site']}-{device}.json")):
+            pool = ReplicaPool(model_dir, n_replicas=2,
+                               config=_fleet_cfg(), device=device)
+            with pool, WireFront(pool) as front:
+                for _ in range(2):
+                    st, doc, _ = _wire_post(front.port, body)
+                    seen.append((st, doc["outcome"]))
+                try:
+                    pool.hot_swap(v2_dir)
+                    seen.append("swapped")
+                except Exception as err:  # noqa: BLE001 - the typed fault
+                    seen.append(type(err).__name__)
+                st, doc, _ = _wire_post(front.port, body)
+                seen.append((st, doc["outcome"]))
+                sec = front.serving_section()
+        validate_serving(sec)
+        assert sec["wire"]["requests"]["submitted"] == 3
+        if rule["site"] == "fleet_swap":
+            assert seen == [(200, "ok"), (200, "ok"), "InjectedDiskFault",
+                            (200, "ok")], seen
+        else:
+            assert seen == [(500, "failed"), (200, "ok"), "swapped",
+                            (200, "ok")], seen
+        out[rule["site"]] = seen
+    return out
+
+
+def _planted_drift(seed: int = 0, n_per: int = 6, cells_per: int = 16):
+    """The reference's two far-away planted clusters
+    (tests/test_serve_fleet.py:554)."""
+    rng = np.random.default_rng(seed)
+    d = [(40.0 + rng.normal(0, 0.6, size=(cells_per, 120))
+          ).astype(np.float32) for _ in range(n_per)]
+    e = [(-40.0 + rng.normal(0, 0.6, size=(cells_per, 120))
+          ).astype(np.float32) for _ in range(n_per)]
+    return [(x, 1) for x in d] + [(x, 2) for x in e]
+
+
+def _fleet_reconsensus(model_dir: str, device: str, root: str) -> dict:
+    """The planted-drift loop on ``device``: quarantine, reconsensus,
+    hot-swap, replay; the replay's majority labels against the planted
+    ones by ARI."""
+    from scconsensus_tpu_torch.obs.regress import adjusted_rand_index
+    from scconsensus_tpu_torch.serve.fleet.pool import ReplicaPool
+    from scconsensus_tpu_torch.serve.fleet.reconsensus import run_reconsensus
+    from scconsensus_tpu_torch.serve.metrics import validate_serving
+
+    ldir = os.path.join(root, f"ledger-{device}")
+    planted = _planted_drift()
+    pool = ReplicaPool(model_dir, n_replicas=2,
+                       config=_fleet_cfg(ledger_dir=ldir), device=device)
+    with pool:
+        fp1 = pool.active_fingerprint()
+        for x, _ in planted:
+            assert pool.classify(x, timeout=60).outcome == "quarantined"
+        t0 = time.perf_counter()
+        summary = run_reconsensus(ldir, os.path.join(root, f"v3-{device}"),
+                                  pool=pool, min_cells=64, seed=3,
+                                  device=device)
+        t_loop = time.perf_counter() - t0
+        assert summary["updated"], summary
+        fp2 = pool.active_fingerprint()
+        assert fp2 == summary["swapped_fp"] != fp1
+        again = run_reconsensus(ldir, os.path.join(root, f"v4-{device}"),
+                                pool=pool, min_cells=64, device=device)
+        assert again["updated"] is False
+        served, truth, blobs = [], [], []
+        for x, lab in planted:
+            resp = pool.classify(x, timeout=60)
+            assert resp.outcome == "ok" and resp.model_fp == fp2
+            served.append(int(np.bincount(resp.labels).argmax()))
+            truth.append(lab)
+            blobs.append(np.asarray(resp.labels, np.int64).tobytes())
+        sec = pool.serving_section()
+    validate_serving(sec)
+    ari = adjusted_rand_index(served, truth)
+    assert ari >= 0.99, ari
+    return {"ari": ari, "loop_s": t_loop,
+            "new_labels": summary["new_labels"],
+            "n_new_clusters": summary["n_new_clusters"],
+            "labels_sha": hashlib.sha256(b"".join(blobs)).hexdigest()}
+
+
+def _production_model():
+    """The reference guard's large-atlas shape (1,500-gene panel, 64 PCs,
+    4,096 landmarks; tests/test_serve_fleet.py:921), drift gate off."""
+    from scconsensus_tpu_torch.serve.model import ConsensusModel
+
+    rng = np.random.default_rng(0)
+    G, F, P, K = 2000, 1500, 64, 4096
+    return ConsensusModel(
+        panel_idx=np.sort(rng.choice(G, F, replace=False)).astype(np.int64),
+        pca_mean=rng.normal(size=F).astype(np.float32),
+        pca_components=rng.normal(size=(P, F)).astype(np.float32),
+        centroids=rng.normal(size=(K, P)).astype(np.float32),
+        centroid_labels=rng.integers(1, 9, K).astype(np.int64),
+        centroid_counts=np.ones(K, np.int64),
+        tree_merge=np.zeros((K - 1, 2)), tree_height=np.zeros(K - 1),
+        tree_order=np.arange(K), calib_q=np.array([1.0, 2.0, 3.0, 4.0]),
+        drift_threshold=float("inf"), meta={"n_genes": G, "deep_split": 2},
+        device="cuda"), G
+
+
+def _wire_guard() -> tuple:
+    """The reference's wire-overhead guard on the card: 24 requests of
+    1,024 x 2,000 from 4 clients, the bare driver against the wire front
+    over a 1-replica pool (``.npy`` bodies), served p99 from each serving
+    section; the best ratio of 3 and every trial's p99s."""
+    import http.client
+    import threading
+
+    from scconsensus_tpu_torch import ConsensusServer
+    from scconsensus_tpu_torch.serve.driver import ServeConfig
+    from scconsensus_tpu_torch.serve.fleet.pool import ReplicaPool
+    from scconsensus_tpu_torch.serve.fleet.wire import WireFront
+    from scconsensus_tpu_torch.serve.metrics import validate_serving
+
+    model, G = _production_model()
+    rng = np.random.default_rng(1)
+    n_req, conc = 24, 4
+    reqs = [rng.normal(size=(1024, G)).astype(np.float32)
+            for _ in range(n_req)]
+    payloads = []
+    for x in reqs:
+        b = io.BytesIO()
+        np.save(b, x)
+        payloads.append(b.getvalue())
+    model.classify(reqs[0])
+    cfg = ServeConfig(max_batch_cells=1024, queue_capacity=64,
+                      batch_window_s=0.0, default_deadline_s=300.0,
+                      breaker_threshold=3, breaker_cooldown_s=5.0,
+                      drift_quarantine_frac=2.0)
+
+    def drive(fn):
+        nxt = iter(range(n_req))
+        lock = threading.Lock()
+
+        def pump():
+            while True:
+                with lock:
+                    i = next(nxt, None)
+                if i is None:
+                    return
+                fn(i)
+
+        ts = [threading.Thread(target=pump) for _ in range(conc)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+
+    trials = []
+    for _ in range(3):
+        with ConsensusServer(model, cfg, device="cuda") as srv:
+            drive(lambda i: srv.classify(reqs[i], timeout=300.0))
+            sec = srv.serving_section()
+            assert sec["requests"]["ok"] == n_req
+            bare = sec["latency_ms"]["p99"]
+        pool = ReplicaPool(model, n_replicas=1, config=cfg, device="cuda")
+        with pool, WireFront(pool) as front:
+            local = threading.local()
+
+            def wire_call(i, port=front.port):
+                conn = getattr(local, "conn", None)
+                if conn is None:
+                    conn = local.conn = http.client.HTTPConnection(
+                        "127.0.0.1", port, timeout=300)
+                conn.request("POST", "/classify", body=payloads[i],
+                             headers={"Content-Type": "application/x-npy"})
+                r = conn.getresponse()
+                doc = json.loads(r.read())
+                assert r.status == 200, doc
+
+            drive(wire_call)
+            sec = front.serving_section()
+            validate_serving(sec)
+            assert sec["requests"]["ok"] == n_req
+            wired = sec["latency_ms"]["p99"]
+        trials.append({"bare_p99_ms": bare, "wire_p99_ms": wired,
+                       "ratio": wired / bare})
+    return min(t["ratio"] for t in trials), trials
+
+
+def _soak_in(root: str, name: str, model_dir: str, v2_dir=None) -> str:
+    """A soak work dir holding the given model dirs (the soak loads, not
+    builds, a model it finds)."""
+    import shutil
+
+    work = os.path.join(root, name)
+    shutil.copytree(model_dir, os.path.join(work, "model_v1"))
+    if v2_dir:
+        shutil.copytree(v2_dir, os.path.join(work, "model_v2"))
+    return work
+
+
+def phase_fleet_small() -> dict:
+    """Phase 42: the serving fleet at the reference tests' shapes (the
+    120-gene, 4-cluster atlas), one model dir built by the port on the
+    CPU and served on the card and on the CPU: the wire front's statuses,
+    the hot-swap under wire load, the replay through 1 and 3 replicas, a
+    replica kill with its respawn, the three fault sites and the
+    planted-drift reconsensus loop; card = CPU on every ``labels_sha`` and
+    on the new clusters. Then the model built on the card against the
+    CPU's build, and the wire-overhead guard on the production-shaped
+    model. Returns the guard and the loop's numbers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from scconsensus_tpu_torch.serve.fleet.pool import ReplicaPool
+    from scconsensus_tpu_torch.serve.fleet.soak import (
+        _gaussian_atlas,
+        build_atlas_model,
+        make_query_batches,
+        run_fleet_soak,
+    )
+    from scconsensus_tpu_torch.serve.slo import validate_slo
+
+    root = tempfile.mkdtemp(prefix="scc-fleet-")
+    out = {}
+    try:
+        v1 = os.path.join(root, "model_v1")
+        v2 = os.path.join(root, "model_v2")
+        build_atlas_model(v1, seed=FLEET_SEED, device="cpu")
+        build_atlas_model(v2, seed=FLEET_SEED, landmark_seed=FLEET_SEED
+                          + 1000, device="cpu")
+        by_dev = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            r = {"statuses": _fleet_statuses(v1, dev, root)}
+            r["sites"] = _fleet_sites(v1, v2, dev, root)
+            swap = run_fleet_soak(_soak_in(root, f"swap-{dev}", v1, v2),
+                                  n_requests=30, cells_per=8,
+                                  seed=FLEET_SEED, replicas=3,
+                                  swap_after=10, device=dev)
+            assert swap["ok"] and swap["resolved"] == 30, swap
+            assert swap["swapped"] and swap["post_swap_responses"] > 0
+            assert swap["post_swap_pure"] is True
+            assert set(swap["fps_seen"]) <= {swap["fp_v1"], swap["fp_v2"]}
+            assert swap["record"]["serving"]["wire"]["requests"][
+                "submitted"] == 30
+            replay = {}
+            for n in (1, 3):
+                s = run_fleet_soak(_soak_in(root, f"replay{n}-{dev}", v1),
+                                   n_requests=10, cells_per=8,
+                                   seed=FLEET_SEED, replicas=n, device=dev)
+                assert s["ok"], s["outcome_counts"]
+                replay[n] = (s["fp_v1"], s["labels_sha"])
+            assert replay[1] == replay[3], replay
+            kill = run_fleet_soak(_soak_in(root, f"kill-{dev}", v1),
+                                  n_requests=12, cells_per=32,
+                                  seed=FLEET_SEED, replicas=2,
+                                  kill_after=2, concurrency=4, device=dev)
+            assert kill["ok"] and kill["resolved"] == 12, kill
+            assert kill["kills"] and kill["trace_continuity"] is not False
+            assert kill["traced_responses"] == 12
+            with ReplicaPool(v1, n_replicas=2, config=_fleet_cfg(),
+                             device=dev) as pool:
+                x = make_query_batches(1, 4, FLEET_SEED)[0]
+                assert pool.classify(x, timeout=60).outcome == "ok"
+                before = {rep.index for rep in pool.replicas()}
+                k = pool.kill_replica()
+                after = {rep.index for rep in pool.replicas()}
+                assert len(after) == 2 and k["respawned"] not in before
+                assert pool.classify(x, timeout=60).outcome == "ok"
+                sec = pool.serving_section()
+                slo = pool.slo_section()
+            assert sec["requests"]["ok"] == 2 and len(sec["fleet"]["kills"])
+            validate_slo(slo)
+            r["recon"] = _fleet_reconsensus(v1, dev, root)
+            r["swap_sha"] = swap["labels_sha"]
+            r["replay"] = replay[1]
+            r["kill_sha"] = kill["labels_sha"]
+            r["wall_s"] = time.perf_counter() - t0
+            by_dev[dev] = r
+            log(f"[fleet] {dev}: statuses "
+                f"{json.dumps(r['statuses']['status_codes'])} (429 x "
+                f"{r['statuses']['queue_full'][1]}); fault sites "
+                f"{json.dumps(r['sites'])}; swap under load v1 "
+                f"{swap['fp_v1']} -> v2 {swap['fp_v2']}, "
+                f"{swap['post_swap_responses']} post-swap responses; kill "
+                f"{json.dumps(kill['kills'])}, retried "
+                f"{len(kill['retried'])}; reconsensus loop "
+                f"{r['recon']['loop_s']!r} s, new labels "
+                f"{r['recon']['new_labels']}, ARI {r['recon']['ari']!r}; "
+                f"{r['wall_s']!r} s")
+        card, cpu = by_dev["cuda"], by_dev["cpu"]
+        for key in ("swap_sha", "replay", "kill_sha"):
+            assert card[key] == cpu[key], (key, card[key], cpu[key])
+        assert card["statuses"]["labels"] == cpu["statuses"]["labels"]
+        assert card["sites"] == cpu["sites"]
+        for key in ("new_labels", "n_new_clusters", "labels_sha"):
+            assert card["recon"][key] == cpu["recon"][key], key
+        # the model built on the card labels the training cells as the
+        # CPU's build does
+        t0 = time.perf_counter()
+        built = build_atlas_model(os.path.join(root, "card"),
+                                  seed=FLEET_SEED, device="cuda")
+        t_build = time.perf_counter() - t0
+        cells, truth, _ = _gaussian_atlas(120, 4, 360, FLEET_SEED)
+        from scconsensus_tpu_torch.serve.model import load_consensus_model
+
+        on_cpu = load_consensus_model(v1, device="cuda")
+        got = built.classify(cells)[0]
+        assert np.array_equal(got, on_cpu.classify(cells)[0])
+        log(f"[fleet] card = CPU: swap sha {card['swap_sha'][:16]}, replay "
+            f"{card['replay'][1][:16]} (1 and 3 replicas), kill sha "
+            f"{card['kill_sha'][:16]}, reconsensus sha "
+            f"{card['recon']['labels_sha'][:16]}; the card's build "
+            f"{built.fingerprint()} in {t_build!r} s labels the 360 "
+            "training cells as the CPU's")
+        torch.cuda.synchronize()
+        ratio, trials = _wire_guard()
+        log(f"[fleet-guard] served p99 with the wire front and pool over "
+            f"the bare driver's at 1 replica, best of 3: {ratio!r} (limit "
+            f"{WIRE_GUARD_LIMIT}); trials {json.dumps(trials)}")
+        if ratio >= WIRE_GUARD_LIMIT:
+            raise AssertionError(f"[fleet-guard] {ratio!r}")
+        out = {"guard_ratio": ratio, "guard_trials": trials,
+               "recon_loop_s": card["recon"]["loop_s"],
+               "wall_by_device": {d: r["wall_s"] for d, r in by_dev.items()}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _hist_median_ms(hist: dict):
+    """The upper edge of the bucket holding a histogram's median (None past
+    the last edge), and the mean."""
+    from scconsensus_tpu_torch.serve.slo import LATENCY_BUCKETS_MS
+
+    n = hist["count"]
+    if not n:
+        return None, None
+    acc = 0
+    for edge, c in zip(list(LATENCY_BUCKETS_MS) + [None], hist["buckets"]):
+        acc += c
+        if 2 * acc >= n:
+            return edge, hist["sum_ms"] / n
+    return None, hist["sum_ms"] / n
+
+
+@contextlib.contextmanager
+def _json_cpu():
+    """The thread CPU seconds every thread of this process spends in
+    ``json.dumps`` and ``json.loads`` during the block (the pumps' request
+    bodies and response reads, the handlers' body parses and replies):
+    the host's JSON work on the requests the block serves. The calls hold
+    the GIL from start to end, so their CPU is their share of the
+    process's one interpreter."""
+    import threading
+
+    spent = {"encode_s": 0.0, "decode_s": 0.0, "encode_calls": 0,
+             "decode_calls": 0}
+    lock = threading.Lock()
+    dumps, loads = json.dumps, json.loads
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t = time.thread_time()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.thread_time() - t
+                with lock:
+                    spent[key + "_s"] += dt
+                    spent[key + "_calls"] += 1
+        return run
+
+    json.dumps, json.loads = timed(dumps, "encode"), timed(loads, "decode")
+    try:
+        yield spent
+    finally:
+        json.dumps, json.loads = dumps, loads
+
+
+def phase_fleet_atlas() -> dict:
+    """Phase 43: the bench's ``atlas_query`` over a 2-replica fleet on the
+    card (``run_fleet_soak`` as ``bench.py:1462`` calls it, at
+    ``ATLAS_QUERY``'s 150 of the bench's 300 requests of 64 cells, the
+    last 8 foreign, a 2,000-gene 12-cluster atlas of 20,000 training
+    cells). The model is built first and timed apart;
+    then one pass, its cells/s, wall, p50 and p99, the stage medians,
+    outcomes and peak device memory, and the host's JSON encoding and
+    decoding in that pass beside it."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from scconsensus_tpu_torch.obs.export import validate_run_record
+    from scconsensus_tpu_torch.serve.fleet.soak import (
+        build_atlas_model,
+        make_query_batches,
+        run_fleet_soak,
+    )
+
+    q = ATLAS_QUERY
+    root = tempfile.mkdtemp(prefix="scc-atlas-query-")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = build_atlas_model(
+            os.path.join(root, "model_v1"), n_genes=q["n_genes"],
+            n_clusters=q["n_clusters"], n_train=q["n_train"],
+            seed=q["seed"], device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        log(f"[atlas-query] model built on the card in {t_build!r} s: "
+            f"{model.n_genes} genes, {model.n_pcs} PCs, {model.k} "
+            f"landmarks, fingerprint {model.fingerprint()}")
+        torch.cuda.reset_peak_memory_stats()
+        with _json_cpu() as spent:
+            t0 = time.perf_counter()
+            s = run_fleet_soak(root, device="cuda", **q)
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert s["ok"] and not s["model_built"], s["outcome_counts"]
+    counts = s["outcome_counts"]
+    assert counts == {"ok": q["n_requests"] - q["n_ood"],
+                      "quarantined": q["n_ood"]}, counts
+    rec = s["record"]
+    validate_run_record(rec)
+    sec, slo = rec["serving"], rec["slo"]
+    lat = sec["latency_ms"]
+    stages = {k: _hist_median_ms(h) for k, h in slo["stage_hist"].items()}
+    n_cells = q["n_requests"] * q["cells_per"]
+    t_enc, t_dec = spent["encode_s"], spent["decode_s"]
+    body_mb = len(json.dumps({"cells": make_query_batches(
+        1, q["cells_per"], q["seed"], n_genes=q["n_genes"],
+        n_clusters=q["n_clusters"])[0].tolist()})) / 1e6
+    out = {"build_s": t_build, "wall_s": wall, "cells_per_s": n_cells / wall,
+           "p50_ms": lat["p50"], "p99_ms": lat["p99"],
+           "stage_median_ms": {k: v[0] for k, v in stages.items()},
+           "stage_mean_ms": {k: v[1] for k, v in stages.items()},
+           "outcomes": counts, "peak_bytes": peak,
+           "json_encode_s": t_enc, "json_decode_s": t_dec,
+           "json_calls": (spent["encode_calls"], spent["decode_calls"]),
+           "request_mb": body_mb}
+    log(f"[atlas-query] {q['n_requests']} requests x {q['cells_per']} "
+        f"cells over {q['replicas']} replicas in {wall!r} s: "
+        f"{n_cells / wall!r} cells/s (phase 19, the same request shape "
+        f"through one ConsensusServer at 15,000 genes: "
+        f"{_FACTS.get('serve_cells_per_s')!r} cells/s); served latency ms "
+        f"p50 {lat['p50']!r} p99 {lat['p99']!r}; stage median bucket "
+        f"(ms, upper edge) and mean {json.dumps(stages)}; outcomes "
+        f"{json.dumps(counts)}; peak device memory {peak} bytes; the "
+        f"host's JSON in the pass (thread CPU in json.dumps and "
+        f"json.loads, {spent['encode_calls']} and {spent['decode_calls']} "
+        f"calls; a request body {body_mb!r} MB): encode {t_enc!r} s, "
+        f"decode {t_dec!r} s, {(t_enc + t_dec) / wall!r} of the pass's "
+        f"wall")
+    return out
+
+
+# the fleet worker and the load generator in children of the launcher
+_LOAD_CHILD = """
+import json, os, sys
+sys.path.insert(0, {repo!r})
+from scconsensus_tpu_torch.serve.fleet.autoscale import AutoscalePolicy
+from scconsensus_tpu_torch.serve.fleet.loadgen import run_load
+kw = json.loads({kw!r})
+os.environ.update(kw.pop("env", {{}}))
+policy = kw.pop("policy", None)
+if policy is not None:
+    policy = AutoscalePolicy.from_env(**policy)
+workdir = kw.pop("workdir")
+s = run_load(workdir, policy=policy, device="cuda", **kw)
+# the summary beside the run, as tools/load_run.py writes it: the
+# postmortem bundle reads the record's fleet section from it
+with open(os.path.join(workdir, "LOAD_SUMMARY.json"), "w") as f:
+    json.dump(s, f, indent=1, default=str)
+rec = s.pop("record")
+s["record_valid"] = "invalid" not in rec
+s["ticks"] = ((rec.get("loadgen") or {{}}).get("autoscale") or {{}}).get(
+    "ticks")
+print(json.dumps(s, default=str))
+"""
+
+# tools/load_run.py --spike-soak's defaults (:340-357) and policy (:176-188):
+# at the reference's 0.1 s tick the card holds a queue at 96 cells (every
+# such run shed), so the payload stays the reference's (PERF.md, the fleet)
+SPIKE_SOAK = dict(profile="spike", base_rps=12.0, peak_rps=150.0,
+                  duration_s=15.0, seed=7, replicas=1, cells_per=96,
+                  queue_capacity=4, autoscale=True, fresh=True)
+SPIKE_POLICY = dict(min_replicas=1, max_replicas=3, up_ticks=2,
+                    down_ticks=4, cooldown_ticks=3, queue_high=0.25,
+                    queue_low=0.05)
+# the spike soak's tick (tools/load_run.py:357), set in the child itself:
+# the launcher's children take its environment, not this process's
+SPIKE_ENV = {"SCC_AUTOSCALE_TICK_S": "0.1"}
+# the kill plan's payload (tools/chaos_run.py:694-700)
+KILL_ARGS = dict(cells=256, pumps=6)
+
+
+def _fleet_soak_argv(workdir: str, n: int, *extra) -> list:
+    return [sys.executable, "-m", "scconsensus_tpu_torch.serve.fleet.soak",
+            "--dir", workdir, "--requests", str(n), "--summary",
+            os.path.join(workdir, "SUMMARY.json"), *extra]
+
+
+def _load_argv(workdir: str, pumps: int = 8, **kw) -> list:
+    code = _LOAD_CHILD.format(repo=REPO, kw=json.dumps(
+        {"workdir": workdir, "pumps": pumps, **kw}))
+    return [sys.executable, "-c", code]
+
+
+def _child_summary(tag: str, proc: dict, path=None) -> dict:
+    if path is not None:
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            pass
+    else:
+        try:
+            return json.loads(proc["stdout"].strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            pass
+    raise AssertionError(f"[fleet-workers] {tag}: exit {proc['rc']}: "
+                         f"{proc['stderr'][-2000:]}")
+
+
+def _spike_checks(s: dict, floor: int, bundle: dict, pm_rc: int) -> list:
+    """tools/load_run.py:207-260's checks over a spike run's summary and
+    the postmortem bundle built over its work dir."""
+    acts, scales = s.get("actuations") or [], s.get("scales") or []
+    ups = [a for a in acts if a.get("kind") == "scale_up"]
+    downs = [a for a in acts if a.get("kind") == "scale_down"]
+    counts = s.get("outcome_counts") or {}
+    timeline = bundle.get("timeline") or []
+    tl_acts = [e for e in timeline if e.get("kind") == "actuation"]
+    return [
+        ("run clean", bool(s["ok"])),
+        ("scaled up from the floor", any(a.get("from") == floor
+                                         for a in ups)),
+        ("recovered to the floor", bool(downs) and bool(scales)
+         and scales[-1].get("to") == floor),
+        ("shed through 429s", counts.get("rejected_queue", 0) >= 1),
+        ("zero SLO breaches", bool(s["slo_held"]) and not s["breaches"]),
+        ("rps_at_slo > 0", float(s["rps_at_slo"]) > 0.0),
+        ("run record validated", bool(s["record_valid"])),
+        ("postmortem bundle built over the workdir",
+         pm_rc == 0 and bool(timeline)),
+        ("every actuation on the merged timeline",
+         bool(acts) and len(tl_acts) >= len(acts)),
+        ("replica resizes mirrored onto the timeline",
+         any(e.get("kind") == "replica_scale" for e in timeline)),
+    ]
+
+
+def _postmortem(launcher, workdir: str) -> tuple:
+    """The reference's stdlib ``tools/postmortem.py`` over ``workdir`` in
+    a child: its exit code and the bundle it wrote."""
+    path = os.path.join(workdir, "POSTMORTEM_BUNDLE.json")
+    proc = _launch(launcher, [sys.executable, os.path.join(
+        REPO, "tools", "postmortem.py"), workdir, "--out", path, "--json"],
+        120)
+    try:
+        with open(path) as f:
+            return proc["rc"], json.load(f)
+    except (OSError, ValueError):
+        return proc["rc"], {}
+
+
+def _kill_argv(workdir: str, cells: int, pumps: int) -> list:
+    return _fleet_soak_argv(workdir, 30, "--fresh", "--replicas", "2",
+                            "--kill-after", "6", "--heartbeat", "0.15",
+                            "--cells", str(cells), "--concurrency",
+                            str(pumps), "--device", "cuda")
+
+
+def phase_fleet_workers(launcher) -> dict:
+    """Phase 44: the fleet's chaos worker (``python -m
+    scconsensus_tpu_torch.serve.fleet.soak``) and the load generator in
+    fresh children of the launcher. First the reference's swap-under-load
+    (3 replicas, 16 requests, swap after 5), replay-across-replicas (1
+    replica, 3, and 3 with ``--device cpu``, on one model built here) and
+    kill-replica-under-load (2 replicas, 30 requests of 256 cells from 6
+    pumps, heartbeat 0.15 s, kill after 6) plans, started at once; then
+    one ``run_load`` at the reference's defaults alone; then the spike
+    soak of ``tools/load_run.py`` at its defaults alone, with the
+    reference's ``tools/postmortem.py`` over its work dir. Each runs
+    once, at the reference's payloads, held to the checks the reference's
+    tool states; the two load runs alone, as their latency is the fleet's
+    only when no other child shares the host's cores."""
+    import shutil
+    import tempfile
+
+    from scconsensus_tpu_torch.serve.fleet.soak import build_atlas_model
+
+    root = tempfile.mkdtemp(prefix="scc-fleet-workers-")
+    d = {k: os.path.join(root, k) for k in ("swap", "replay", "kill",
+                                             "load", "spike")}
+
+    def soaked(tag, proc, work):
+        return _child_summary(tag, proc, os.path.join(work, "SUMMARY.json"))
+
+    walls = []
+
+    def wave(argvs):
+        t0 = time.perf_counter()
+        out = _launch_all(launcher, argvs, 300)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    try:
+        # the replay's three runs on one model built here first (the
+        # plan's 1-replica run building it otherwise)
+        build_atlas_model(os.path.join(d["replay"], "model_v1"),
+                          seed=FLEET_SEED, device="cuda")
+        for tag in ("-3", "-cpu"):
+            shutil.copytree(d["replay"], d["replay"] + tag)
+        procs = wave([
+            _fleet_soak_argv(d["swap"], 16, "--fresh", "--replicas", "3",
+                             "--swap-after", "5", "--device", "cuda"),
+            _fleet_soak_argv(d["replay"], 16, "--replicas", "1",
+                             "--device", "cuda"),
+            _fleet_soak_argv(d["replay"] + "-3", 16, "--replicas", "3",
+                             "--device", "cuda"),
+            _fleet_soak_argv(d["replay"] + "-cpu", 16, "--replicas", "3",
+                             "--device", "cpu"),
+            _kill_argv(d["kill"], **KILL_ARGS)])
+        swap = soaked("swap", procs[0], d["swap"])
+        r1 = soaked("replay-1", procs[1], d["replay"])
+        r3 = soaked("replay-3", procs[2], d["replay"] + "-3")
+        rcpu = soaked("replay-cpu", procs[3], d["replay"] + "-cpu")
+        kill = soaked("kill", procs[4], d["kill"])
+        load = _child_summary("load", wave([_load_argv(d["load"],
+                                                       fresh=True)])[0])
+        spike = _child_summary("spike", wave([_load_argv(
+            d["spike"], policy=SPIKE_POLICY, env=SPIKE_ENV,
+            **SPIKE_SOAK)])[0])
+        pm_rc, bundle = _postmortem(launcher, d["spike"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checks = _spike_checks(spike, SPIKE_SOAK["replicas"], bundle, pm_rc)
+    acts = [(a["kind"], a["from"], a["to"]) for a in spike["actuations"]]
+    log(f"[fleet-workers] the waves of children took {walls!r} s")
+    log(f"[fleet-workers] kill plan at {json.dumps(KILL_ARGS)}: kills "
+        f"{json.dumps(kill['kills'])}, retried {len(kill['retried'])}, "
+        f"continuity {kill['trace_continuity']}, outcomes "
+        f"{json.dumps(kill['outcome_counts'])}")
+    log(f"[fleet-workers] spike soak at {SPIKE_SOAK['cells_per']} cells a "
+        f"request: offered {spike['offered']}, outcomes "
+        f"{json.dumps(spike['outcome_counts'])}, rps_at_slo "
+        f"{spike['rps_at_slo']!r}, achieved {spike['achieved_rps']!r}, "
+        f"late {spike['late_fraction']!r}, breaches {spike['breaches']}, "
+        f"actuations {acts} in {spike['ticks']} ticks of "
+        f"{SPIKE_ENV['SCC_AUTOSCALE_TICK_S']} s; "
+        f"postmortem exit {pm_rc}, {len(bundle.get('timeline') or [])} "
+        f"timeline events; checks {checks}")
+    log(f"[fleet-workers] swap v1 {swap['fp_v1']} -> v2 {swap['fp_v2']}, "
+        f"{swap['post_swap_responses']} post-swap responses; replay sha "
+        f"{r1['labels_sha'][:16]} / {r3['labels_sha'][:16]} / "
+        f"{rcpu['labels_sha'][:16]} (1 and 3 replicas, card and CPU); "
+        f"run_load steady 20 rps 8 s alone: offered {load['offered']}, "
+        f"good {load['good']}, rps_at_slo {load['rps_at_slo']!r}, late "
+        f"{load['late_fraction']!r}, breaches {load['breaches']}, scales "
+        f"{len(load['scales'])}, outcomes "
+        f"{json.dumps(load['outcome_counts'])}")
+    # swap-under-load (tools/chaos_run.py:651-685)
+    sv = swap["record"]["serving"]
+    fps = set(swap["fps_seen"])
+    assert swap["ok"] and swap["resolved"] == swap["requests"] == 16
+    assert swap["accounting_ok"] is True
+    assert swap["swapped"] and swap["post_swap_responses"]
+    assert fps and fps <= {swap["fp_v1"], swap["fp_v2"]}
+    assert swap["post_swap_pure"] is True and len(sv["fleet"]["swaps"]) >= 1
+    # replay-across-replicas (:768-793), and the CPU on the same model
+    assert r1["ok"] and r3["ok"] and rcpu["ok"]
+    assert r1["labels_sha"] == r3["labels_sha"] == rcpu["labels_sha"]
+    assert r1["fp_v1"] == r3["fp_v1"] == rcpu["fp_v1"]
+    # kill-replica-under-load (:686-718), on the worker's own attempt log
+    assert kill["ok"] and kill["resolved"] == kill["requests"] == 30
+    assert any(k.get("respawned") is not None for k in kill["kills"])
+    assert all(k in ("ok", "degraded", "quarantined")
+               for k in kill["outcome_counts"])
+    assert len(kill["retried"]) >= 1 and kill["trace_continuity"] is True
+    # run_load at the defaults, alone (tools/load_run.py:130-167): nothing
+    # lost, a valid record; its SLO reading is printed, not held, as the
+    # tool does not hold it (PERF.md, the fleet)
+    assert load["ok"] and load["sent"] == load["offered"], load
+    assert load["record_valid"], load
+    # the spike soak (tools/load_run.py:207-260)
+    failed = [n for n, c in checks if not c]
+    if failed:
+        raise AssertionError(f"[fleet-workers] spike soak: {failed}")
+    return {"load_rps_at_slo": load["rps_at_slo"],
+            "spike_rps_at_slo": spike["rps_at_slo"],
+            "spike_cells": SPIKE_SOAK["cells_per"], "kill": KILL_ARGS,
+            "wall_s": sum(walls)}
+
+
 def _time_phases() -> dict:
     """Wrap every ``phase_*`` function of this module (none calls another)
     so that its wall, summed over its calls, lands in the returned dict,
@@ -5257,6 +6164,16 @@ def _main(launcher) -> int:
     zoo_small_launches = phase_zoo_small()
     zoo_full = phase_zoo_full(launcher)
     phase_zoo_soak(launcher)
+    # the fleet classifies with plain tensor code: its paths launch none
+    from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+
+    distance_cluster_sums.launches = 0
+    phase_fleet_small()
+    fleet_small_launches = distance_cluster_sums.launches
+    distance_cluster_sums.launches = 0
+    phase_fleet_atlas()
+    fleet_atlas_launches = distance_cluster_sums.launches
+    phase_fleet_workers(launcher)
     by_path = {"wilcox_26k": rec["launches"],
                "edger_26k": erec["launches"],
                "wilcox_26k_csr": csr_launches,
@@ -5293,7 +6210,9 @@ def _main(launcher) -> int:
                "drift_reference_card": drift_launches,
                "zoo_smoke_card": zoo_small_launches,
                **{f"zoo_{name}": rec["launches"]
-                  for name, rec in zoo_full.items()}}
+                  for name, rec in zoo_full.items()},
+               "fleet_small": fleet_small_launches,
+               "fleet_atlas_query": fleet_atlas_launches}
     comp = compilelog.snapshot()
     log("[compile] this process's compile log: " + json.dumps(comp))
     if comp["cache_hits"] < 2 or comp["compiles"] > 2:
@@ -5301,7 +6220,7 @@ def _main(launcher) -> int:
     log("[phase-walls] " + json.dumps(phase_walls))
     log(f"[total] every phase in {time.perf_counter() - t_start!r} s")
     # times from the Wilcoxon path's inputs; launches from every full path
-    # (serving classifies with plain tensor code: no launch)
+    # (serving and the fleet classify with plain tensor code: no launch)
     log(json.dumps({"kernels": [{
         "name": "distance_cluster_sums",
         "route": "cuda",

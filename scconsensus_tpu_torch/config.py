@@ -18,7 +18,8 @@ model, the flight recorder and its stall watchdog, the host profiler,
 the evidence ledger's directory and the Wilcoxon probe), and the compile
 log's and the graph passports' four flags (``SCC_COMPILELOG``,
 ``SCC_COMPILELOG_MAX_EVENTS``, ``SCC_GRAPHS``,
-``SCC_GRAPHS_MAX_PROGRAMS``). A reference flag the port does not handle
+``SCC_GRAPHS_MAX_PROGRAMS``), and the serving fleet's sixteen
+(``SCC_FLEET_*``, ``SCC_LOADGEN_*``, ``SCC_AUTOSCALE_*``). A reference flag the port does not handle
 would go in ``UNPORTED_FLAGS``, which :func:`refuse_unported_flags`
 refuses when set so that none is dropped silently; it is empty now.
 """
@@ -451,6 +452,68 @@ ENV_FLAGS: Dict[str, EnvFlag] = {
         EnvFlag("SCC_SLO_BURN_LIMIT", float, 14.4,
                 "Burn-rate threshold stamped on the slo section's "
                 "objectives."),
+        # --- serving fleet (serve/fleet/) ---
+        EnvFlag("SCC_FLEET_REPLICAS", int, 2,
+                "Default replica count for serve.fleet.ReplicaPool: N "
+                "ConsensusServer workers behind one shared admission "
+                "layer with least-depth routing and per-replica circuit "
+                "breakers."),
+        EnvFlag("SCC_FLEET_WIRE_PORT", int, 0,
+                "TCP port for the serve.fleet.wire HTTP front "
+                "(0 = ephemeral; the bound port is WireFront.port)."),
+        EnvFlag("SCC_FLEET_SWAP_DRAIN_S", float, 30.0,
+                "Hot-swap drain budget: after the atomic cutover to the "
+                "new model's replicas, each outgoing replica gets this "
+                "long to finish its in-flight batches before its worker "
+                "join is abandoned (requests still resolve typed)."),
+        EnvFlag("SCC_FLEET_RECON_MIN_CELLS", int, 64,
+                "Minimum accumulated quarantined cells before "
+                "serve.fleet.reconsensus will run the mini-refine and "
+                "produce an updated model (below it the loop reports "
+                "insufficient evidence and leaves the ledger growing)."),
+        # --- traffic control plane (serve/fleet/loadgen + autoscale) ---
+        EnvFlag("SCC_LOADGEN_RPS", float, 20.0,
+                "Open-loop load generator base arrival rate (requests/s) "
+                "— the rate profile's 1.0x level; the spike/ramp peak is "
+                "a multiple of it."),
+        EnvFlag("SCC_LOADGEN_PROFILE", str, "steady",
+                "Load-generator rate profile: steady|diurnal|spike|ramp "
+                "(serve.fleet.loadgen.PROFILES)."),
+        EnvFlag("SCC_LOADGEN_SEED", int, 7,
+                "Seed for the load generator's arrival schedule and "
+                "traffic-mix draw — the offered load is a pure function "
+                "of (profile, rates, duration, seed)."),
+        EnvFlag("SCC_LOADGEN_DURATION_S", float, 8.0,
+                "Load-generator run length in seconds (the window the "
+                "sustained-RPS-at-SLO headline is measured over)."),
+        EnvFlag("SCC_AUTOSCALE_MIN", int, 1,
+                "Autoscaler replica floor: scale-down never shrinks the "
+                "active group below this many replicas."),
+        EnvFlag("SCC_AUTOSCALE_MAX", int, 4,
+                "Autoscaler replica ceiling: scale-up never grows the "
+                "active group past this many replicas."),
+        EnvFlag("SCC_AUTOSCALE_TICK_S", float, 0.25,
+                "Autoscaler control-loop cadence in seconds (observe -> "
+                "decide -> actuate once per tick)."),
+        EnvFlag("SCC_AUTOSCALE_BURN_UP", float, 2.0,
+                "Scale-up pressure threshold on the worst multi-window "
+                "SLO burn rate (queue pressure is the other trigger; "
+                "see serve.fleet.autoscale.AutoscalePolicy)."),
+        EnvFlag("SCC_AUTOSCALE_BURN_DOWN", float, 0.25,
+                "Scale-down eligibility: the worst burn rate must sit at "
+                "or below this (and the queue at or below queue_low) for "
+                "down_ticks consecutive ticks."),
+        EnvFlag("SCC_AUTOSCALE_UP_TICKS", int, 2,
+                "Consecutive pressured ticks before a scale-up actuates "
+                "(hysteresis against one-tick blips)."),
+        EnvFlag("SCC_AUTOSCALE_DOWN_TICKS", int, 8,
+                "Consecutive idle ticks before a scale-down actuates — "
+                "deliberately slower than scale-up (capacity is cheap, "
+                "a breach is not)."),
+        EnvFlag("SCC_AUTOSCALE_COOLDOWN_TICKS", int, 4,
+                "Post-actuation cooldown in ticks during which no "
+                "further scale action fires (with the streak thresholds, "
+                "the no-flap guarantee)."),
     ]
 }
 

@@ -34,9 +34,11 @@ sections both have. Top-level keys:
                            ``memory_timeline`` and ``graphs`` must be
                            omitted when absent, never null
 
-A record carrying a section the port cannot validate yet (``loadgen``)
-raises ``NotImplementedError`` naming it: it never passes unchecked. The
-``scenario`` section is checked by ``workloads.validate_scenario``.
+A record carrying a section the port cannot validate yet
+(``UNPORTED_SECTIONS``, empty now) would raise ``NotImplementedError``
+naming it, so none passes unchecked. The ``scenario`` section is checked
+by ``workloads.validate_scenario`` and the ``loadgen`` section by
+``serve.fleet.loadgen.validate_loadgen``.
 
 :func:`chrome_trace` converts span records to ``traceEvents`` complete
 ("X") events; open the file in Perfetto or chrome://tracing.
@@ -51,7 +53,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "SCHEMA_NAME",
@@ -79,7 +81,7 @@ TERMINATION_CAUSES = ("clean", "signal", "stall", "crash")
 
 # sections of the reference's schema whose producers and validators the
 # port does not have yet, in the reference's keyword order
-UNPORTED_SECTIONS = ("loadgen",)
+UNPORTED_SECTIONS: Tuple[str, ...] = ()
 
 
 def _device_section(tracer=None,
@@ -239,7 +241,9 @@ def _section_validators() -> Dict[str, Any]:
     from scconsensus_tpu_torch.serve.metrics import validate_serving
     from scconsensus_tpu_torch.serve.slo import validate_slo
     from scconsensus_tpu_torch.stream.record import validate_streaming
-    # torch-free at module level, as the reference's workloads package is
+    # torch-free at module level, as the reference's workloads package and
+    # load generator are
+    from scconsensus_tpu_torch.serve.fleet.loadgen import validate_loadgen
     from scconsensus_tpu_torch.workloads import validate_scenario
 
     return {"quality": validate_quality, "residency": validate_residency,
@@ -247,6 +251,7 @@ def _section_validators() -> Dict[str, Any]:
             "robustness": validate_robustness, "serving": validate_serving,
             "slo": validate_slo, "streaming": validate_streaming,
             "integrity": validate_integrity, "scenario": validate_scenario,
+            "loadgen": validate_loadgen,
             "profile": validate_profile,
             "residency_burndown": validate_residency_burndown,
             "tunnel": _validate_tunnel,

@@ -32,11 +32,14 @@ the in-computation corruption sites consumed by :func:`corrupt_value`
 ``landmark_assign``, ``stream_block``, ``contingency_table``,
 ``serve_classify``), the mesh engines' sites (``sharded:aggregates``,
 ``sharded:ranksum``, ``ring:distance_sums`` and the fused step's
-``refine_step``), and any site a caller names to ``robust.retry.call``.
+``refine_step``), the serving fleet's ``wire_request`` (the wire front's
+classify handler, before admission), ``fleet_route`` (the pool's
+admission) and ``fleet_swap`` (the start of a hot-swap), and any site a
+caller names to ``robust.retry.call``.
 
-A plan naming a site of the reference the port does not have yet raises
-``NotImplementedError`` when it is read: the serving fleet's
-``wire_request`` and ``fleet_*``.
+A plan naming a ``corruption`` rule at a site that is not one of the
+in-computation corruption sites raises ``NotImplementedError`` when it is
+read, so a chaos run cannot pass by corrupting nowhere.
 
 Fault classes and what they do at a compute site:
 
@@ -119,10 +122,6 @@ class InjectedDiskFault(InjectedFault):
     The out-of-core streaming layer's test vector (stream.store)."""
 
 
-# sites of the reference the port does not have yet: a plan naming one is
-# refused when read, so a chaos run cannot pass by injecting nowhere
-_UNPORTED_PREFIXES = ("fleet_",)
-_UNPORTED_SITES = ("wire_request",)
 # the in-computation corruption sites the port has
 _VALUE_SITES = ("wilcox_bucket_out", "embed_scores", "bh_logq",
                 "landmark_assign", "stream_block", "contingency_table",
@@ -131,18 +130,11 @@ _VALUE_SITES = ("wilcox_bucket_out", "embed_scores", "bh_logq",
 
 def _check_site(path: str, i: int, rule: Dict[str, Any]) -> None:
     site = str(rule["site"])
-    if (site.startswith(_UNPORTED_PREFIXES) or site in _UNPORTED_SITES
-            or (rule["class"] == "corruption"
-                and site not in _VALUE_SITES)):
+    if rule["class"] == "corruption" and site not in _VALUE_SITES:
         raise NotImplementedError(
             f"SCC_FAULT_PLAN {path!r}: faults[{i}] names site {site!r} "
-            f"(class {rule['class']!r}), which the port does not have "
-            "yet; it has stage:<name>, wilcox_bucket, input_staging, "
-            "serve_load, serve_batch, serve_device, stream_chunk_write, "
-            "stream_chunk_read, stream_stage, sharded:aggregates, "
-            "sharded:ranksum, ring:distance_sums, refine_step, "
-            "artifact:<stage> and "
-            f"the corruption sites {', '.join(_VALUE_SITES)}"
+            "(class 'corruption'), which the port does not have as a "
+            f"corruption site; those are {', '.join(_VALUE_SITES)}"
         )
 
 

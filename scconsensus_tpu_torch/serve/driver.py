@@ -221,12 +221,18 @@ class CircuitBreaker:
         self.failures = 0
         self.opened_at = 0.0
         self.trips = 0
+        # the autoscaler's degraded-mode lever: a forced-open breaker
+        # routes every batch to the host path, with no half-open probe,
+        # until force_close() lifts it
+        self.forced = False
         self._lock = threading.Lock()
 
     def route(self, now: Optional[float] = None) -> str:
         """'device' or 'fallback' for the next batch."""
         now = time.monotonic() if now is None else now
         with self._lock:
+            if self.forced:
+                return "fallback"
             if self.state == "closed":
                 return "device"
             if self.state == "open":
@@ -237,8 +243,40 @@ class CircuitBreaker:
                 return "fallback"
             return "device"  # half_open: keep probing
 
+    def force_open(self, now: Optional[float] = None) -> None:
+        """Degraded-mode entry: pin the breaker open (every batch is
+        served flagged degraded from the host path, no probing). It counts
+        as a trip: a record of degraded service shows a tripped breaker."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            if self.forced:
+                return
+            self.forced = True
+            if self.state != "open":
+                self.state = "open"
+                self.opened_at = now
+                self.trips += 1
+                self.stats.note_breaker("open", tripped=True)
+
+    def force_close(self) -> None:
+        """Degraded-mode exit: the breaker returns to closed and failure
+        counting resumes."""
+        with self._lock:
+            if not self.forced:
+                return
+            self.forced = False
+            if self.state != "closed":
+                self.state = "closed"
+                self.stats.note_breaker("closed")
+            self.failures = 0
+
     def record_success(self) -> None:
         with self._lock:
+            if self.forced:
+                # a host-path success never closes a forced-open breaker:
+                # only force_close() ends degraded mode
+                self.failures = 0
+                return
             if self.state != "closed":
                 self.state = "closed"
                 self.stats.note_breaker("closed")
@@ -370,12 +408,22 @@ class ConsensusServer:
     def __exit__(self, *exc) -> None:
         self.stop()
 
+    @property
+    def closed(self) -> bool:
+        """True when the driver is not accepting requests (never started,
+        stopped, or draining): the wire front's /healthz signal."""
+        return self._closed
+
     # -- admission ---------------------------------------------------------
     def submit(self, cells: np.ndarray,
-               deadline_s: Optional[float] = None) -> RequestHandle:
+               deadline_s: Optional[float] = None,
+               trace_id: Optional[str] = None) -> RequestHandle:
         """Enqueue one request ((n, G) genes-length rows). Typed refusals:
-        ServerClosed, RequestInvalid, QueueFull(retry_after_s). With
-        SCC_OBS_TRACE on, the request gets a trace id here.
+        ServerClosed, RequestInvalid, QueueFull(retry_after_s).
+        ``trace_id`` rides in from the wire front; without one, and with
+        SCC_OBS_TRACE on, the request gets a trace id here. The queue
+        capacity is read at each admission, so the autoscaler can tighten
+        it on a live replica.
 
         Admission overhead is self-measured in per-thread CPU time
         (``time.thread_time``): wall would charge admission for GIL waits
@@ -383,8 +431,8 @@ class ConsensusServer:
         >10x on a busy interpreter. The worker's own share is wall time
         (see ``_process``)."""
         t0 = time.thread_time()
-        trace_id = (obs_trace.new_trace_id() if env_flag("SCC_OBS_TRACE")
-                    else None)
+        if trace_id is None and env_flag("SCC_OBS_TRACE"):
+            trace_id = obs_trace.new_trace_id()
         try:
             if self._closed:
                 raise ServerClosed("server is not accepting requests")

@@ -1,15 +1,14 @@
 """Serving stats and the validated ``serving`` section.
 
-The port's copy of ``scconsensus_tpu/serve/metrics.py`` (stdlib only),
-without the serving fleet's pieces (``WireStats``,
-``merge_serving_sections``, ``set_active_fleet``): the fleet is not
-ported. One :class:`ServingStats` per driver; the driver registers it as
-the process's active stats, which :func:`live_summary` reads. The
-section's load-bearing rule, enforced by :func:`validate_serving`: every
-submitted request is accounted for, ``requests.submitted`` equals the
-sum of the outcome counters. The validator keeps the reference's checks
-of a ``wire`` and a ``fleet`` subsection, so a record of either package
-validates in both.
+The port's copy of ``scconsensus_tpu/serve/metrics.py`` (stdlib only).
+One :class:`ServingStats` per driver; the driver registers it as the
+process's active stats, which :func:`live_summary` reads (a running
+``ReplicaPool`` registers its aggregated fleet summary instead, through
+:func:`set_active_fleet`). The section's load-bearing rule, enforced by
+:func:`validate_serving`: every submitted request is accounted for,
+``requests.submitted`` equals the sum of the outcome counters, at the
+wire front (:class:`WireStats`) as at each replica, and across a fleet's
+merged sections (:func:`merge_serving_sections`).
 """
 
 from __future__ import annotations
@@ -27,8 +26,10 @@ __all__ = [
     "BREAKER_SEVERITY",
     "STAGE_HIST_STAGES",
     "ServingStats",
+    "WireStats",
+    "merge_serving_sections",
     "active_stats",
-    "set_active",
+    "set_active_fleet",
     "live_summary",
     "validate_serving",
 ]
@@ -186,6 +187,13 @@ class ServingStats:
         with self._lock:
             self.classify_wall_s += max(float(dt), 0.0)
 
+    def latency_samples(self) -> List[float]:
+        """Copy of the raw latency ring (ms) — the fleet aggregator merges
+        per-replica rings so pool quantiles come from real samples, not
+        from averaging quantiles (which is statistically meaningless)."""
+        with self._lock:
+            return list(self._lat_ms)
+
     def expo_snapshot(self) -> Dict[str, Any]:
         """One internally consistent exposition snapshot (counters,
         gauges, serialized histograms, the recent-trace ring, and the
@@ -271,13 +279,185 @@ class ServingStats:
             }
 
 
-# one severity order for every consumer (the exposition's breaker gauge)
+# -- wire-front accounting --------------------------------------------------
+
+class WireStats:
+    """HTTP-layer accounting for the fleet's wire front: every wire
+    request resolves to exactly ONE typed outcome (the same OUTCOMES
+    vocabulary the driver uses) mapped to exactly one status code. The
+    r15 accounting rule holds at the wire layer too — a wire request
+    that got a socket but no counted outcome is the dropped-request
+    failure mode all over again, one layer up."""
+
+    def __init__(self):
+        self.submitted = 0
+        self.counts: Dict[str, int] = {o: 0 for o in OUTCOMES}
+        self.status_codes: Dict[str, int] = {}
+        # wire-level telemetry (round 20): the front is the one place
+        # every request of the whole fleet passes, so the formal SLO
+        # (availability + burn windows) and the end-to-end per-outcome
+        # latency histograms anchor HERE; replicas keep their own for
+        # the per-replica exposition and the merge proof
+        self.lat_hist: Dict[str, serve_slo.LatencyHistogram] = {
+            o: serve_slo.LatencyHistogram() for o in OUTCOMES
+        }
+        self.slo_track = serve_slo.SLOTracker()
+        self.recent: "collections.deque" = collections.deque(
+            maxlen=_RECENT_RING
+        )
+        self._av_bad = 0
+        self._av_total = 0
+        self._lock = threading.Lock()
+
+    def note(self, outcome: str, status: int,
+             latency_s: Optional[float] = None,
+             trace_id: Optional[str] = None) -> None:
+        if outcome not in OUTCOMES:
+            raise ValueError(f"unknown wire outcome {outcome!r}")
+        with self._lock:
+            self.submitted += 1
+            self.counts[outcome] += 1
+            key = str(int(status))
+            self.status_codes[key] = self.status_codes.get(key, 0) + 1
+            if latency_s is not None:
+                self.lat_hist[outcome].observe(
+                    max(float(latency_s), 0.0) * 1e3
+                )
+            cls = serve_slo.OUTCOME_CLASS.get(outcome)
+            if cls == "good":
+                self._av_total += 1
+            elif cls == "bad":
+                self._av_bad += 1
+                self._av_total += 1
+            self.slo_track.note(self._av_bad, self._av_total)
+            if trace_id:
+                self.recent.append({
+                    "trace_id": trace_id, "outcome": outcome,
+                    "status": int(status),
+                    "ts": round(time.time(), 3),
+                })
+
+    def section(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "requests": {"submitted": self.submitted,
+                             **dict(self.counts)},
+                "status_codes": dict(self.status_codes),
+            }
+
+    def expo_snapshot(self) -> Dict[str, Any]:
+        """Wire-scope exposition snapshot (counters + status codes +
+        end-to-end histograms + SLO window deltas), one lock hold."""
+        with self._lock:
+            av = serve_slo.classify_counts(self.counts)
+            return {
+                "counts": dict(self.counts),
+                "submitted": self.submitted,
+                "status_codes": dict(self.status_codes),
+                "latency_hist": {o: h.to_dict()
+                                 for o, h in self.lat_hist.items()},
+                "recent": list(self.recent),
+                "window_deltas": self.slo_track.window_deltas(
+                    av["bad"], av["total"]
+                ),
+            }
+
+
+# -- fleet aggregation ------------------------------------------------------
+
+# one severity order for every consumer (pool routing, live-panel
+# worst-state fold, merged-section breaker) — two copies of this map
 BREAKER_SEVERITY = {"closed": 0, "half_open": 1, "open": 2}
+
+
+def _quantile_summary(samples: List[float], n_total: int,
+                      total_sum: float, mx: float) -> Dict[str, Any]:
+    if not samples or n_total <= 0:
+        return {"n": 0}
+    s = sorted(samples)
+    return {
+        "n": int(n_total),
+        "p50": round(s[min(int(0.50 * len(s)), len(s) - 1)], 4),
+        "p99": round(s[min(int(0.99 * len(s)), len(s) - 1)], 4),
+        "max": round(mx, 4),
+        "mean": round(total_sum / n_total, 4),
+    }
+
+
+def merge_serving_sections(
+    sections: List[Dict[str, Any]],
+    latency_samples: List[List[float]],
+    window_s: float,
+) -> Dict[str, Any]:
+    """Fold per-replica serving sections (live + retired + the pool's own
+    boundary stats) into ONE pool-level section the accounting rule still
+    holds over: counters sum, latency quantiles come from the merged raw
+    sample rings, the breaker reports the worst live state, and drift /
+    batch / queue evidence aggregates. Sum-of-valid-sections is valid by
+    construction: submitted and the outcome counters sum on both sides of
+    the accounting equation."""
+    req: Dict[str, int] = {"submitted": 0, **{o: 0 for o in OUTCOMES}}
+    batches = {"count": 0, "cells": 0, "max_cells": 0}
+    queue = {"depth_peak": 0, "capacity": 0}
+    breaker = {"state": "closed", "trips": 0}
+    drift = {"batches_flagged": 0, "quarantine_entries": 0}
+    consumed = classify_wall = 0.0
+    lat_n = 0
+    lat_sum = 0.0
+    lat_max = 0.0
+    for sec in sections:
+        r = sec.get("requests") or {}
+        req["submitted"] += int(r.get("submitted", 0))
+        for o in OUTCOMES:
+            req[o] += int(r.get(o, 0))
+        b = sec.get("batches") or {}
+        batches["count"] += int(b.get("count", 0))
+        batches["cells"] += int(b.get("cells", 0))
+        batches["max_cells"] = max(batches["max_cells"],
+                                   int(b.get("max_cells", 0)))
+        q = sec.get("queue") or {}
+        queue["depth_peak"] = max(queue["depth_peak"],
+                                  int(q.get("depth_peak", 0)))
+        queue["capacity"] += int(q.get("capacity", 0))
+        br = sec.get("breaker") or {}
+        if (BREAKER_SEVERITY.get(br.get("state"), 0)
+                > BREAKER_SEVERITY[breaker["state"]]):
+            breaker["state"] = br.get("state")
+        breaker["trips"] += int(br.get("trips", 0))
+        d = sec.get("drift") or {}
+        drift["batches_flagged"] += int(d.get("batches_flagged", 0))
+        drift["quarantine_entries"] += int(d.get("quarantine_entries", 0))
+        consumed += float(sec.get("consumed_s", 0.0))
+        classify_wall += float(sec.get("classify_wall_s", 0.0))
+        lat = sec.get("latency_ms") or {}
+        n = int(lat.get("n", 0))
+        lat_n += n
+        lat_sum += float(lat.get("mean", 0.0)) * n
+        lat_max = max(lat_max, float(lat.get("max", 0.0)))
+    merged = [ms for ring in latency_samples for ms in ring]
+    served = sum(req[o] for o in ("ok", "degraded", "quarantined"))
+    window_s = max(float(window_s), 0.0)
+    batches["mean_cells"] = (round(batches["cells"] / batches["count"], 2)
+                             if batches["count"] else 0.0)
+    return {
+        "requests": req,
+        "latency_ms": _quantile_summary(merged, lat_n, lat_sum, lat_max),
+        "throughput_rps": (round(served / window_s, 4)
+                           if window_s else 0.0),
+        "batches": batches,
+        "queue": queue,
+        "breaker": breaker,
+        "drift": drift,
+        "consumed_s": round(consumed, 4),
+        "classify_wall_s": round(classify_wall, 4),
+        "window_s": round(window_s, 4),
+    }
 
 
 # -- the process's active stats (heartbeat feed) ----------------------------
 
 _ACTIVE: Optional[ServingStats] = None
+_ACTIVE_FLEET = None  # () -> live-summary dict; a ReplicaPool registers it
 _ACTIVE_LOCK = threading.Lock()
 
 
@@ -287,6 +467,16 @@ def set_active(stats: Optional[ServingStats]) -> None:
         _ACTIVE = stats
 
 
+def set_active_fleet(summary_fn) -> None:
+    """Register (or clear, with None) the process's fleet live feed: a
+    zero-arg callable returning the pool-aggregated live summary. A fleet
+    wins over a single active driver in :func:`live_summary`: with a pool
+    running, per-replica stats are panel rows, not the headline."""
+    global _ACTIVE_FLEET
+    with _ACTIVE_LOCK:
+        _ACTIVE_FLEET = summary_fn
+
+
 def active_stats() -> Optional[ServingStats]:
     return _ACTIVE
 
@@ -294,7 +484,14 @@ def active_stats() -> Optional[ServingStats]:
 def live_summary() -> Optional[Dict[str, Any]]:
     """Compact serving counters of the active driver (None = no driver
     running): queue depth, rolling p99, breaker state, and the degraded,
-    quarantined and rejected tallies."""
+    quarantined and rejected tallies. With a fleet registered, the pool's
+    aggregated summary (and its per-replica ``fleet`` panel) is the tick."""
+    fleet = _ACTIVE_FLEET
+    if fleet is not None:
+        try:
+            return fleet()
+        except Exception:
+            return None
     st = _ACTIVE
     if st is None:
         return None

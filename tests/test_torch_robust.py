@@ -78,7 +78,8 @@ def test_flag_pinned_to_the_reference_registry(name):
 
 def test_the_slice_registers_every_flag_it_reads():
     want = {n for n in ref_config.ENV_FLAGS
-            if n.startswith(("SCC_SERVE_", "SCC_SLO_", "SCC_STREAM_"))}
+            if n.startswith(("SCC_SERVE_", "SCC_SLO_", "SCC_STREAM_",
+                             "SCC_FLEET_", "SCC_LOADGEN_", "SCC_AUTOSCALE_"))}
     want |= {"SCC_FAULT_PLAN", "SCC_ROBUST_BUDGET", "SCC_ROBUST_BACKOFF_S",
              "SCC_INTEGRITY", "SCC_OBS_TRACE", "SCC_STAGE_SYNC",
              "SCC_TRACE_SYNC", "SCC_ROBUST_DE_CKPT",
@@ -414,9 +415,6 @@ def test_a_plan_naming_a_mesh_site_fires_as_in_the_reference(
 
 
 @pytest.mark.parametrize("rule", [
-    {"site": "fleet_swap", "class": "disk"},
-    {"site": "wire_request", "class": "transient"},
-    {"site": "fleet_route", "class": "oom"},
     {"site": "ring:distance_sums", "class": "corruption"},
     {"site": "serve_device", "class": "corruption"},
 ], ids=lambda r: f"{r['site']}-{r['class']}")

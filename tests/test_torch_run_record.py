@@ -277,8 +277,12 @@ def test_check_schema_version_verdicts_equal_the_reference():
         ref_export.TERMINATION_CAUSES)
 
 
-@pytest.mark.parametrize("section", export.UNPORTED_SECTIONS)
-def test_a_section_the_port_cannot_validate_raises(section):
+@pytest.mark.parametrize("section", ["loadgen"])
+def test_a_section_the_port_cannot_validate_raises(section, monkeypatch):
+    # every section is validated now (the load generator's was the last);
+    # the refusal is held here on a stand-in, as for UNPORTED_FLAGS
+    assert export.UNPORTED_SECTIONS == ()
+    monkeypatch.setattr(export, "UNPORTED_SECTIONS", (section,))
     rec = export.build_run_record("x", 1, **{section: {"anything": 1}})
     assert rec[section] == {"anything": 1}
     with pytest.raises(NotImplementedError, match=section):

@@ -111,7 +111,8 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
     # the serving path, the robustness core, the streaming layer and the
     # mesh are in the scan
     rel = {os.path.relpath(p, PORT_DIR) for p in files}
-    for sub in ("serve", "robust", "obs", "stream", "parallel"):
+    for sub in ("serve", "serve/fleet", "robust", "obs", "stream",
+                "parallel"):
         mods = {os.path.join(sub, n) for n in
                 os.listdir(os.path.join(PORT_DIR, sub)) if n.endswith(".py")}
         assert mods and mods <= rel, sub
@@ -288,8 +289,7 @@ def test_a_ported_flag_runs(flag, monkeypatch):
                   "SCC_OBS_STALL_S" else 0.0))
 
 
-@pytest.mark.parametrize("case", ["method", "sparse_method", "fleet_route",
-                                  "fleet_swap", "wire_request",
+@pytest.mark.parametrize("case", ["method", "sparse_method",
                                   "unported_flag"])
 def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     import json
@@ -300,22 +300,6 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     from scconsensus_tpu_torch.robust import faults
 
     data, labels = _tiny()
-
-    def _plan_naming(site):
-        """A fault plan naming a site of the reference the port lacks is
-        refused when the first refine() reads it."""
-        def run():
-            plan = tmp_path / "plan.json"
-            plan.write_text(json.dumps({"faults": [
-                {"site": site, "class": "transient"}]}))
-            monkeypatch.setenv("SCC_FAULT_PLAN", str(plan))
-            faults.reset()
-            try:
-                port.refine(data, labels, ReclusterConfig(), device="cpu")
-            finally:
-                monkeypatch.delenv("SCC_FAULT_PLAN")
-                faults.reset()
-        return run
 
     if case == "unported_flag":
         # a reference flag of refine() the port does not handle yet (none
@@ -345,11 +329,6 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
         "sparse_method": lambda: port.refine(
             sp.csr_matrix(data), labels, ReclusterConfig(method="mast"),
             device="cpu"),
-        # the serving fleet and its wire front are not ported: their fault
-        # sites are refused (the hot-swap's among them)
-        "fleet_route": _plan_naming("fleet_route"),
-        "fleet_swap": _plan_naming("fleet_swap"),
-        "wire_request": _plan_naming("wire_request"),
     }[case]
     with pytest.raises(NotImplementedError):
         run()
@@ -400,9 +379,19 @@ def test_the_reference_imports_work_on_the_port():
 TREE_FLAGS = ("SCC_TREE_EXACT", "SCC_TREE_LANDMARK_THRESHOLD",
               "SCC_TREE_LANDMARK_K", "SCC_TREE_LANDMARK_C",
               "SCC_ROBUST_CHECKSUM", "SCC_TRACE_DIR")
+# the serving fleet's flags: pool, wire and reconsensus, the load
+# generator, and the autoscaler
+FLEET_FLAGS = ("SCC_FLEET_REPLICAS", "SCC_FLEET_WIRE_PORT",
+               "SCC_FLEET_SWAP_DRAIN_S", "SCC_FLEET_RECON_MIN_CELLS",
+               "SCC_LOADGEN_RPS", "SCC_LOADGEN_PROFILE", "SCC_LOADGEN_SEED",
+               "SCC_LOADGEN_DURATION_S", "SCC_AUTOSCALE_MIN",
+               "SCC_AUTOSCALE_MAX", "SCC_AUTOSCALE_TICK_S",
+               "SCC_AUTOSCALE_BURN_UP", "SCC_AUTOSCALE_BURN_DOWN",
+               "SCC_AUTOSCALE_UP_TICKS", "SCC_AUTOSCALE_DOWN_TICKS",
+               "SCC_AUTOSCALE_COOLDOWN_TICKS")
 
 
-@pytest.mark.parametrize("name", TREE_FLAGS)
+@pytest.mark.parametrize("name", TREE_FLAGS + FLEET_FLAGS)
 def test_new_flags_carry_the_reference_registration(name):
     from scconsensus_tpu_torch.config import ENV_FLAGS
 

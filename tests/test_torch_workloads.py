@@ -81,7 +81,7 @@ def test_surfaces_equal_the_reference():
     assert workloads.__all__ == ref_workloads.__all__
     assert quality.__all__ == ref_quality.__all__
     assert common.__all__ == ref_common.__all__
-    assert export.UNPORTED_SECTIONS == ("loadgen",)
+    assert export.UNPORTED_SECTIONS == ()
     assert workloads.scenario_names() == ref_workloads.scenario_names()
     for name, ref in ref_workloads.SCENARIOS.items():
         got = workloads.SCENARIOS[name]
