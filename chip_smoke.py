@@ -108,7 +108,8 @@ checkout, and exits non-zero on the first phase that fails:
      ``stage:embed`` OOM and a ``stage:tree`` transient fault, both
      recovered; (c) ``enforce`` with a ``wilcox_bucket_out`` and a
      ``bh_logq`` corruption, both detected and recomputed; (d) a child
-     process killed at ``wilcox_bucket`` after half the ladder's buckets,
+     process (started with the phase, beside (a)–(c)) killed at
+     ``wilcox_bucket`` after half the ladder's buckets,
      resumed here from the finished ones (the fault point's hits count
      the rest), its blocks gone once ``de`` saves and
      ``robust_state.json`` at 0; (e) the robustness layer under 2 % of
@@ -151,8 +152,9 @@ checkout, and exits non-zero on the first phase that fails:
      ``sharded:ranksum`` and one in ``ring:distance_sums`` (4 → 2), a
      double loss (4 → 2 → 1), a store written on 4 shards and resumed
      serially (one ``cause: "resume"`` transition a stage), and a child
-     (from the launcher) killed at ``wilcox_bucket`` halfway through the
-     4-shard ladder, resumed on 2 shards; every run held to phase 26's
+     (from the launcher, started with the phase) killed at
+     ``wilcox_bucket`` halfway through the 4-shard ladder, resumed on 2
+     shards; every run held to phase 26's
      labels, union and DE mask, its transitions validated; the
      robustness layer under 2 % of the healthy mesh runs' wall, best
      of 2;
@@ -182,7 +184,10 @@ checkout, and exits non-zero on the first phase that fails:
      ``OUT_DIR/phase31/``), twice: phase 7's bits, the declared
      crossings ``input_staging``, ``funnel_counts``,
      ``embed_scores_fetch``, ``silhouette_slab_fetch`` and
-     ``label_fetch`` made, d2h and h2d bytes by stage and boundary, the
+     ``label_fetch`` made, the upload cache's hits and misses over the
+     two runs (none: the matrix is a card tensor), then a host copy of
+     the matrix through the cache (one miss and two hits, each timed),
+     d2h and h2d bytes by stage and boundary, the
      implicit syncs by stage and line, the exported record carrying
      ``residency``, ``profile``, ``residency_burndown``,
      ``host_profile`` and ``memory_timeline`` and validated, the
@@ -202,14 +207,15 @@ checkout, and exits non-zero on the first phase that fails:
  34. phase 7's run under ``SCC_WILCOX_PROBE=1``: phase 7's bits, every
      bucket's synced wall and sort-only time, the bucket walls within
      ``wilcox_test``'s wall, the sort and contraction split;
- 35. three child processes run phase 7's refine under a
-     ``LiveRecorder`` with a 1 s heartbeat: a clean one, one with
+ 35. three child processes, started at once, run phase 7's refine
+     under a ``LiveRecorder`` with a 1 s heartbeat: a clean one, one with
      ``SCC_OBS_STALL_S=3`` and a 6 s stall in stage ``tree`` (a
      ``stall`` event with the stacks), one held in ``tree`` by the same
      stall and sent SIGTERM there (a valid partial record stamped
      ``signal`` with the open stage, ingested by the evidence ledger as
      partial);
- 36. phase 7's run in a fresh child process (from the launcher) with
+ 36. phase 7's run in a fresh child process (from the launcher, started
+     beside phase 35's children) with
      ``SCC_COMPILELOG=1`` and ``SCC_GRAPHS=1`` armed as the reference's
      bench worker arms them: phase 7's labels, DE mask and union with one
      kernel launch; its run record's ``compile`` section (no compile, one
@@ -246,8 +252,10 @@ checkout, and exits non-zero on the first phase that fails:
      metrics side by side, every record valid, one kernel launch a card
      run;
  40. the four scenarios at their ``full`` shapes (``multi_sample``
-     100,000 × 3,000, ``cite_dual`` 40,000 × 8,000, ``atlas_transfer``
-     20,000 fitted and 60,000 served, ``topo_inputs`` 50,000 × 3,000) on
+     cut from 100,000 to 40,000 cells × 3,000 genes, ``cite_dual``
+     40,000 × 8,000, ``atlas_transfer`` 20,000 fitted and 60,000 served,
+     ``topo_inputs`` 50,000 × 3,000; their draws start at once, and each
+     runs, in the reference's order, as soon as its draw is in) on
      the card in one fresh child from the launcher: headline, stage
      walls, peak device memory, one kernel launch each, the kernel at
      each run's inputs against its plain version, the scenario metrics;
@@ -264,12 +272,12 @@ checkout, and exits non-zero on the first phase that fails:
      4-cluster atlas), one model dir built by the port on the CPU and
      served on the card and on the CPU: a 3-replica pool behind the wire
      front answering 200 (JSON and ``.npy``), 409, 422, 429, 504, 503 and
-     a ``degraded`` 200 through ``force_open``; a hot-swap under wire load
-     (zero loss, post-swap answers from v2 only); the replay through 1 and
-     3 replicas; a replica kill and its respawn; the ``wire_request``,
-     ``fleet_route`` and ``fleet_swap`` fault sites; the planted-drift
-     reconsensus loop (quarantine, update, swap, ARI >= 0.99); card = CPU
-     on every ``labels_sha`` and on the new clusters; the model built on
+     a ``degraded`` 200 through ``force_open``; a replica kill through the
+     pool and its respawn; the ``wire_request``, ``fleet_route`` and
+     ``fleet_swap`` fault sites; the planted-drift reconsensus loop
+     (quarantine, update, swap, ARI >= 0.99); card = CPU on the labels,
+     the sites, the loop's ``labels_sha`` and the new clusters (the chaos
+     plans run once, in phase 44's workers); the model built on
      the card labels the training cells as the CPU's build; then the
      reference's wire-overhead guard on the production-shaped model
      (served p99 with the front and pool under 1.07 x the bare driver's at
@@ -284,15 +292,26 @@ checkout, and exits non-zero on the first phase that fails:
      and decoding during that pass, and phase 19's cells/s;
  44. the fleet's chaos worker (``python -m
      scconsensus_tpu_torch.serve.fleet.soak``) and the load generator in
-     fresh children from the launcher, started at once: swap-under-load,
-     replay-across-replicas (1 replica, 3, and 3 with ``--device cpu`` on
-     one model: one sha), kill-replica-under-load (trace continuity on
-     the worker's attempt log) and one ``run_load`` at the reference's
-     defaults; then the spike soak of ``tools/load_run.py`` alone (shed
+     fresh children from the launcher: swap-under-load, replay-across-
+     replicas (1 replica, 3, and 3 with ``--device cpu`` on one model:
+     one sha) and kill-replica-under-load (trace continuity on the
+     worker's attempt log), the swap and the kill also with ``--device
+     cpu`` (card = CPU on each plan's sha), started at once; then one
+     ``run_load`` at the reference's defaults alone; then the spike soak
+     of ``tools/load_run.py`` alone at its payload and 0.1 s tick (shed
      through 429s, a scale-up from the floor and back, zero SLO
-     breaches, ``rps_at_slo`` > 0); a kill that refused no queued
-     request, or a spike that failed a check, runs again with more cells
-     a request, under the same checks.
+     breaches, ``rps_at_slo`` > 0, a valid record, the postmortem
+     bundle with every actuation and resize), once, no retry;
+ 45. the 26k flagship fast Wilcoxon on phase 26's 4-shard mesh split
+     across two processes: two children, started beside phase 41's and
+     collected before phase 42, each on ``cuda`` with 2 shards of the
+     card, joined by a gloo group, each
+     drawing phase 6's data itself (the sha held to phase 6's); each
+     rank's result held to phase 7's serial run by
+     ``assert_mesh_equals_serial`` and to phase 26's labels, the ranks
+     the same bits; each rank's wall, the bytes each collective sent
+     across the group and the kernel's launches (one a rank: every rank
+     computes the silhouette).
 
 Phases 19 and 22 also validate the run records of the serve and stream
 soak workers' summaries. The compile log is armed before phase 2, and
@@ -301,10 +320,11 @@ builds outside any span) is printed before the kernel record.
 
 Phases run in the order 1–5, 12, 15, 20, 25, 28, 6–8, 13, 19, 16–18,
 21, 26, 27, 29 (with 33), 31, 32, 34, 35–38, 9–11, 14, 22–24, 30,
-39–44, so that the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26, 27, 29,
-31–34 and 37 (phase 19 while phase 7's result is alive) and is freed
-before the larger ones; the line before the kernel record gives the
-total time.
+39–41, 45, 42–44 (phase 36's child runs beside phase 35's, phase 45's
+two beside phase 41's), so that the 26k data serves phases 7–8, 13, 19, 16–18, 21, 26,
+27, 29, 31–34 and 37 (phase 19 while phase 7's result is alive) and is
+freed before the larger ones (phase 45's children draw it again); the
+line before the kernel record gives the total time.
 
 The line before the last is a JSON object describing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``. Every phase runs
@@ -2258,9 +2278,9 @@ def phase_guarded(data, truth, cons, wilcox_ref, n_buckets: int) -> dict:
     stage:tree transient fault, both recovered; (c) enforce with a
     wilcox_bucket_out and a bh_logq corruption, both detected and
     recomputed; (d) a child process killed at wilcox_bucket after half
-    the ladder, resumed here from its finished buckets; (e) the
-    robustness layer's share of that stored run. Returns the kernel's
-    launches per run."""
+    the ladder (started with the phase, so it runs beside (a)-(c)),
+    resumed here from its finished buckets; (e) the robustness layer's
+    share of that stored run. Returns the kernel's launches per run."""
     import shutil
     import tempfile
 
@@ -2284,6 +2304,18 @@ def phase_guarded(data, truth, cons, wilcox_ref, n_buckets: int) -> dict:
         _same_bits(tag, res, wilcox_ref)
         return res
 
+    # (d)'s child, killed at wilcox_bucket after half the ladder: started
+    # now, collected at (d)
+    store = os.path.join(root, "store")
+    killed_at = n_buckets // 2
+    plan = _write_plan(root, [{"site": "wilcox_bucket",
+                               "class": "kill", "after": killed_at}],
+                       name="kill.json")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", _KILL_CHILD.format(repo=REPO, store=store)],
+        env=dict(os.environ, SCC_FAULT_PLAN=plan), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
     try:
         # (a) audit + numeric sentinels, best of 2
         shares = []
@@ -2354,30 +2386,21 @@ def phase_guarded(data, truth, cons, wilcox_ref, n_buckets: int) -> dict:
             raise AssertionError("[guarded-enforce] a corruption was not "
                                  "detected and recomputed")
 
-        # (d) kill a child at wilcox_bucket after half the ladder, then
+        # (d) the child killed at wilcox_bucket after half the ladder;
         # resume here from the finished buckets
-        store = os.path.join(root, "store")
-        killed_at = n_buckets // 2
-        plan = _write_plan(root, [{"site": "wilcox_bucket",
-                                   "class": "kill", "after": killed_at}],
-                           name="kill.json")
-        env = dict(os.environ, SCC_FAULT_PLAN=plan)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c",
-             _KILL_CHILD.format(repo=REPO, store=store)],
-            env=env, capture_output=True, text=True, timeout=600)
+        _, err = child.communicate(timeout=600)
         t_child = time.perf_counter() - t0
         blocks = sorted(n for n in os.listdir(store)
                         if n.startswith("de_wilcox_") and n.endswith(".npz"))
-        log(f"[guarded-kill] child exit {proc.returncode} after "
-            f"{t_child!r} s; {len(blocks)} of {n_buckets} buckets stored "
+        log(f"[guarded-kill] child exit {child.returncode} after "
+            f"{t_child!r} s from the phase's start; {len(blocks)} of "
+            f"{n_buckets} buckets stored "
             f"({sum(os.path.getsize(os.path.join(store, b)) for b in blocks)}"
             " bytes)")
-        if proc.returncode != -9 or len(blocks) != killed_at:
+        if child.returncode != -9 or len(blocks) != killed_at:
             raise AssertionError(
-                f"[guarded-kill] rc {proc.returncode}, {len(blocks)} blocks;"
-                f" stderr {proc.stderr[-800:]}")
+                f"[guarded-kill] rc {child.returncode}, {len(blocks)} "
+                f"blocks; stderr {err[-800:]}")
         count = _write_plan(root, [{"site": "wilcox_bucket",
                                     "class": "stall", "after": 10 ** 9}],
                             name="count.json")
@@ -2409,6 +2432,9 @@ def phase_guarded(data, truth, cons, wilcox_ref, n_buckets: int) -> dict:
                                  "costs 2 % or more of the wall")
         torch.cuda.empty_cache()
     finally:
+        if child.poll() is None:  # a failure before (d) collected it
+            child.kill()
+            child.communicate()
         shutil.rmtree(root, ignore_errors=True)
     return launches
 
@@ -2705,9 +2731,10 @@ def phase_elastic(data, truth, cons, mesh_ref: dict, launcher) -> dict:
     loss in the sharded rank sum (4 → 2), one in the ring (4 → 2), a
     double loss (4 → 2 → 1), a store written on 4 shards and resumed
     serially, and a bucket checkpoint written on 4 shards by a child
-    killed at wilcox_bucket halfway, resumed on 2. Every run keeps phase
-    26's labels, DE mask and union; its transitions validate. Then the
-    robustness layer's share of the healthy supervised runs' walls."""
+    killed at wilcox_bucket halfway (started with the phase, beside the
+    in-process runs), resumed on 2. Every run keeps phase 26's labels,
+    DE mask and union; its transitions validate. Then the robustness
+    layer's share of the healthy supervised runs' walls."""
     import shutil
     import tempfile
 
@@ -2740,7 +2767,17 @@ def phase_elastic(data, truth, cons, mesh_ref: dict, launcher) -> dict:
         return [(len(t["from_devices"]), len(t["to_devices"]), t["cause"])
                 for t in (rb or {}).get("mesh_transitions", [])]
 
+    # the child killed at wilcox_bucket halfway through the 4-shard
+    # ladder: started now, collected before its resume below
+    n_buckets = mesh_ref["n_buckets"]
+    killed_at = n_buckets // 2
+    kill_store = os.path.join(root, "kill-store")
+    plan = _write_plan(root, [{"site": "wilcox_bucket", "class": "kill",
+                               "after": killed_at}], name="kill.json")
     t_phase = time.perf_counter()
+    _launch_start(launcher, [sys.executable, "-c", _MESH_KILL_CHILD.format(
+        plan=plan, repo=REPO, store=kill_store, shards=MESH_SHARDS)], 600)
+    collected = False
     try:
         for tag, rules, want in (
                 ("elastic-ranksum",
@@ -2779,23 +2816,15 @@ def phase_elastic(data, truth, cons, mesh_ref: dict, launcher) -> dict:
         log(f"[elastic-resume-1] one cause 'resume' transition 4 -> 1 at "
             f"each of {stages}")
 
-        # a child killed at wilcox_bucket halfway through the 4-shard
-        # ladder, resumed here on 2 shards from its finished buckets
-        n_buckets = mesh_ref["n_buckets"]
-        killed_at = n_buckets // 2
-        store = os.path.join(root, "kill-store")
-        plan = _write_plan(root, [{"site": "wilcox_bucket", "class": "kill",
-                                   "after": killed_at}], name="kill.json")
-        t0 = time.perf_counter()
-        out = _launch(launcher, [sys.executable, "-c",
-                                 _MESH_KILL_CHILD.format(
-                                     plan=plan, repo=REPO, store=store,
-                                     shards=MESH_SHARDS)], timeout=600)
-        blocks = sorted(n for n in os.listdir(store)
+        # the child killed halfway through the 4-shard ladder, resumed
+        # here on 2 shards from its finished buckets
+        out = _launch_finish(launcher)
+        collected = True
+        blocks = sorted(n for n in os.listdir(kill_store)
                         if n.startswith("de_wilcox_") and n.endswith(".npz"))
         log(f"[elastic-kill] child exit {out['rc']} after "
-            f"{time.perf_counter() - t0!r} s; {len(blocks)} of {n_buckets} "
-            "buckets stored on 4 shards")
+            f"{time.perf_counter() - t_phase!r} s from the phase's start; "
+            f"{len(blocks)} of {n_buckets} buckets stored on 4 shards")
         if out["rc"] != -9 or len(blocks) != killed_at:
             raise AssertionError(f"[elastic-kill] rc {out['rc']}, "
                                  f"{len(blocks)} blocks; stderr "
@@ -2804,7 +2833,8 @@ def phase_elastic(data, truth, cons, mesh_ref: dict, launcher) -> dict:
                                     "class": "stall", "after": 10 ** 9}],
                             name="count.json")
         with _env(SCC_FAULT_PLAN=count):
-            _, rb = run("elastic-resume-2", shards=2, artifact_dir=store)
+            _, rb = run("elastic-resume-2", shards=2,
+                        artifact_dir=kill_store)
             hits = faults._HITS.get(0, 0)
         log(f"[elastic-resume-2] {hits} buckets computed of {n_buckets}; "
             f"resume points {json.dumps(rb['resume_points'])}")
@@ -2814,6 +2844,8 @@ def phase_elastic(data, truth, cons, mesh_ref: dict, launcher) -> dict:
             raise AssertionError("[elastic-resume-2] the 2-shard run did "
                                  "not resume the 4-shard buckets")
     finally:
+        if not collected:  # keep the launcher's answers in step
+            _launch_finish(launcher)
         shutil.rmtree(root, ignore_errors=True)
     share = min(shares)
     log(f"[elastic] robustness consumed / wall of the healthy supervised "
@@ -3408,14 +3440,30 @@ def _launch_all(launcher, argvs, timeout: float) -> list:
     return _launcher_call(launcher, {"argvs": argvs, "timeout": timeout})
 
 
-def _launcher_call(launcher, cmd: dict):
-    launcher.stdin.write(json.dumps(cmd) + "\n")
-    launcher.stdin.flush()
+def _launch_start(launcher, argv, timeout: float) -> None:
+    """Hand ``argv`` to the launcher and return at once; the launcher
+    takes no other command until ``_launch_finish`` has read its
+    answer."""
+    _launcher_send(launcher, {"argv": argv, "timeout": timeout})
+
+
+def _launch_finish(launcher):
+    """The launcher's answer to the command it was last handed."""
     line = launcher.stdout.readline()
     if not line:
         raise AssertionError("the launcher died (a command past its time "
-                             f"limit of {cmd['timeout']} s?)")
+                             "limit?)")
     return json.loads(line)
+
+
+def _launcher_send(launcher, cmd: dict) -> None:
+    launcher.stdin.write(json.dumps(cmd) + "\n")
+    launcher.stdin.flush()
+
+
+def _launcher_call(launcher, cmd: dict):
+    _launcher_send(launcher, cmd)
+    return _launch_finish(launcher)
 
 
 def phase_stream_scale(launcher) -> int:
@@ -3426,7 +3474,15 @@ def phase_stream_scale(launcher) -> int:
     import shutil
     import tempfile
 
+    from scconsensus_tpu_torch.config import env_flag
+
+    rows = int(env_flag("SCC_STREAM_WINDOW"))
     root = tempfile.mkdtemp(prefix="scc-stream-scale-")
+    # the 10M finding, reckoned from the generator's draws on one core
+    # while the child runs
+    reckon = ThreadPoolExecutor(1)
+    charges = {n: reckon.submit(_chunk_charge, n, rows)
+               for n in (STREAM_SCALE_CELLS, 10_000_000)}
     try:
         t0 = time.perf_counter()
         proc = _launch(launcher, [sys.executable, "-c",
@@ -3470,18 +3526,19 @@ def phase_stream_scale(launcher) -> int:
             launches += r["launches"]
         # the 10M finding, reckoned: brain10m's first chunk at its full
         # cell count against the default stage budget
-        from scconsensus_tpu_torch.config import env_flag
-
-        rows = int(env_flag("SCC_STREAM_WINDOW"))
         stage = int(env_flag("SCC_STREAM_STAGE_BUDGET_MB")) << 20
-        for n in (rec["n_cells"], 10_000_000):
-            nnz, charge = _chunk_charge(n, rows)
+        if rec["n_cells"] != STREAM_SCALE_CELLS:
+            raise AssertionError(f"[stream-scale] the child ran "
+                                 f"{rec['n_cells']} cells")
+        for n, charge_of in charges.items():
+            nnz, charge = charge_of.result()
             log(f"[stream-scale] brain10m at {n} cells: the first chunk "
                 f"holds {nnz} stored entries, charged {charge} bytes "
                 f"against the {stage}-byte stage budget "
                 f"({'fits' if charge <= stage else 'breaks it'})")
         return launches
     finally:
+        reckon.shutdown()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -3945,6 +4002,39 @@ def _crossing_hook_costs(data, cons, truth, wilcox_ref) -> dict:
     return out, launches
 
 
+def _devcache_on_card(data) -> dict:
+    """The upload cache (``utils.devcache``) at the 26k matrix's size: a
+    host copy of phase 6's matrix uploaded (a miss), then the same array
+    twice more (hits, each paying the content check's float64 full-sum
+    pass on the host), each timed to the card's synchronize; the cached
+    buffer the same bits as the card's matrix."""
+    import torch
+
+    from scconsensus_tpu_torch.utils import devcache
+
+    host = data.cpu().numpy()
+    devcache.reset_stats()
+    times, bufs = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bufs.append(devcache.device_put_cached(host, "cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    stats = dict(devcache.STATS)
+    same = bool(torch.equal(bufs[0], data))
+    devcache.clear_cache()
+    out = {"miss_s": times[0], "hit_s": times[1:], "stats": stats,
+           "bytes": int(host.nbytes)}
+    log(f"[devcache-26k] a host copy of phase 6's matrix ({host.nbytes} "
+        f"bytes): upload (miss) {times[0]!r} s, then hits {times[1:]!r} s "
+        f"(the content check's full sum on the host); {json.dumps(stats)}")
+    if stats != {"hits": 2, "misses": 1} or bufs[1] is not bufs[0] or \
+            not same:
+        raise AssertionError(f"[devcache-26k] {stats}, same bits {same}")
+    return out
+
+
 def phase_audit_full(data, truth, cons, wilcox_ref) -> tuple:
     """Phase 31: phase 7's run under ``SCC_OBS_RESIDENCY=audit``,
     ``SCC_OBS_TRANSFERS`` and ``SCC_HOSTPROF`` (and ``SCC_TRACE_DIR``
@@ -3960,9 +4050,12 @@ def phase_audit_full(data, truth, cons, wilcox_ref) -> tuple:
     from scconsensus_tpu_torch.obs import residency
     from scconsensus_tpu_torch.obs.export import validate_run_record
 
+    from scconsensus_tpu_torch.utils import devcache
+
     root = os.path.join(OUT_DIR, "phase31")
     shutil.rmtree(root, ignore_errors=True)
     runs, launches = [], 0
+    devcache.reset_stats()
     for i in range(2):
         tag = f"audit-26k-{i}"
         trace_dir = os.path.join(root, f"run{i}")
@@ -4027,6 +4120,14 @@ def phase_audit_full(data, truth, cons, wilcox_ref) -> tuple:
             f"{run['rss_peak_bytes']} bytes, hbm peak "
             f"{run['hbm_peak_bytes']} bytes; burn-down "
             + json.dumps(run["burndown"]))
+    # phase 6's matrix is a card tensor: as_device_matrix takes it as it
+    # is, so the upload cache sees neither run
+    cache = dict(devcache.STATS)
+    log(f"[audit-26k] upload cache over the two audited runs: "
+        f"{json.dumps(cache)} (the matrix is drawn on the card)")
+    if cache != {"hits": 0, "misses": 0}:
+        raise AssertionError(f"[audit-26k] the cache saw a card tensor: "
+                             f"{cache}")
     best = min(r["share"] for r in runs)
     log(f"[audit-26k] the auditor's best share {best!r} (limit "
         f"{LAYER_SHARE_LIMIT})")
@@ -4035,7 +4136,8 @@ def phase_audit_full(data, truth, cons, wilcox_ref) -> tuple:
                              "the wall")
     hooks, n = _crossing_hook_costs(data, cons, truth, wilcox_ref)
     launches += n
-    out = {"runs": runs, "best_share": best, "hooks": hooks}
+    out = {"runs": runs, "best_share": best, "hooks": hooks,
+           "devcache": _devcache_on_card(data)}
     log("[audit-26k] " + json.dumps(out, default=str))
     out["record"] = records[0]
     return launches, out
@@ -4171,19 +4273,26 @@ def _hb_lines(path: str) -> list:
         return []
 
 
-def _live_child(tag: str, root: str, env: dict, stop_at=None) -> dict:
-    """One phase-35 child: phase 7's refine under a ``LiveRecorder`` with a
-    1 s heartbeat. With ``stop_at``, SIGTERM it once a heartbeat shows
-    that stage span open. Returns its exit code, stream, partial record
-    and launches."""
-    import signal
-
+def _live_start(tag: str, root: str, env: dict) -> dict:
+    """Start one phase-35 child: phase 7's refine under a
+    ``LiveRecorder`` with a 1 s heartbeat."""
     base = os.path.join(root, tag)
     proc = subprocess.Popen(
         [sys.executable, "-c", _LIVE_CHILD.format(repo=REPO, base=base)],
         env=dict(os.environ, **env), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
-    t0 = time.perf_counter()
+    return {"tag": tag, "base": base, "proc": proc,
+            "t0": time.perf_counter()}
+
+
+def _live_finish(child: dict, stop_at=None) -> dict:
+    """Collect a phase-35 child started by ``_live_start``. With
+    ``stop_at``, SIGTERM it once a heartbeat shows that stage span open.
+    Returns its exit code, stream, partial record and launches; its wall
+    runs from its start to its collection."""
+    import signal
+
+    tag, base, proc, t0 = (child[k] for k in ("tag", "base", "proc", "t0"))
     try:
         if stop_at is not None:
             hb = base + "_heartbeat.jsonl"
@@ -4220,10 +4329,10 @@ LIVE_STAGE = "tree"  # the stage phase 35 stalls in and signals during
 
 
 def phase_live() -> tuple:
-    """Phase 35: three children run phase 7's refine under a
-    ``LiveRecorder`` (1 s heartbeat): a clean one (the heartbeat carries
-    the open spans, RSS, the card's memory and progress; the final
-    partial is stamped ``clean``); one with ``SCC_OBS_STALL_S=3`` and a
+    """Phase 35: three children, started at once, run phase 7's refine
+    under a ``LiveRecorder`` (1 s heartbeat): a clean one (the heartbeat
+    carries the open spans, RSS, the card's memory and progress; the
+    final partial is stamped ``clean``); one with ``SCC_OBS_STALL_S=3`` and a
     6 s stall fault inside stage ``tree`` (its stream has a ``stall``
     event with the stacks and the open stage); one held in stage ``tree``
     by the same fault and sent SIGTERM there (a partial record stamped
@@ -4240,8 +4349,23 @@ def phase_live() -> tuple:
     )
 
     root = tempfile.mkdtemp(prefix="scc-live-")
+    plan = os.path.join(root, "stall.json")
+    with open(plan, "w") as f:
+        json.dump({"faults": [{"site": f"stage:{LIVE_STAGE}",
+                               "class": "stall", "stall_s": 6.0}]}, f)
+    t0 = time.perf_counter()
+    children = {
+        "clean": _live_start("clean", root, {}),
+        "stall": _live_start("stall", root, {"SCC_OBS_STALL_S": "3",
+                                             "SCC_FAULT_PLAN": plan}),
+        # held in the stage by the same stall, so the signal lands there
+        "sigterm": _live_start("sigterm", root, {"SCC_FAULT_PLAN": plan})}
     try:
-        clean = _live_child("clean", root, {})
+        term = _live_finish(children.pop("sigterm"), stop_at=LIVE_STAGE)
+        clean = _live_finish(children.pop("clean"))
+        stall = _live_finish(children.pop("stall"))
+        log(f"[live] the three children, at once, in "
+            f"{time.perf_counter() - t0!r} s")
         hbs = [ln for ln in clean["lines"] if ln.get("t") == "hb"]
         if clean["rc"] != 0 or not hbs or \
                 (clean["partial"] or {}).get("termination", {}).get(
@@ -4254,12 +4378,6 @@ def phase_live() -> tuple:
             raise AssertionError(f"[live-clean] no heartbeat with {need}")
         validate_run_record(clean["partial"])
 
-        plan = os.path.join(root, "stall.json")
-        with open(plan, "w") as f:
-            json.dump({"faults": [{"site": f"stage:{LIVE_STAGE}",
-                                   "class": "stall", "stall_s": 6.0}]}, f)
-        stall = _live_child("stall", root, {"SCC_OBS_STALL_S": "3",
-                                            "SCC_FAULT_PLAN": plan})
         events = [ln for ln in stall["lines"] if ln.get("t") == "stall"]
         if stall["rc"] != 0 or not events or not events[0].get("stack") \
                 or not any(s["name"] == LIVE_STAGE
@@ -4271,9 +4389,6 @@ def phase_live() -> tuple:
             f"in {[s['name'] for s in events[0]['open_spans']]}; stack dump "
             f"{len(events[0]['stack'])} characters")
 
-        # held in the stage by the same stall, so the signal lands there
-        term = _live_child("sigterm", root, {"SCC_FAULT_PLAN": plan},
-                           stop_at=LIVE_STAGE)
         part = term["partial"]
         t = (part or {}).get("termination") or {}
         if term["rc"] != -15 or t.get("cause") != "signal" or \
@@ -4298,6 +4413,9 @@ def phase_live() -> tuple:
         log("[live] " + json.dumps(out))
         return clean["launches"] + stall["launches"], out
     finally:
+        for child in children.values():  # a failed collection's siblings
+            child["proc"].kill()
+            child["proc"].communicate()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -4379,8 +4497,20 @@ def _sync_sites(sec: dict) -> dict:
     return out
 
 
-def phase_passports(launcher, wilcox_ref, audit_out) -> tuple:
-    """Phase 36: phase 7's run in a fresh child (from the launcher) with
+def _passports_start(launcher) -> dict:
+    """Start phase 36's child from the launcher (it runs while phase 35's
+    children do); ``phase_passports`` collects it."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="scc-passports-")
+    _launch_start(launcher, [sys.executable, "-c", _PASSPORT_CHILD.format(
+        repo=REPO, root=root)], 600)
+    return {"root": root, "t0": time.perf_counter()}
+
+
+def phase_passports(launcher, started, wilcox_ref, audit_out) -> tuple:
+    """Phase 36: phase 7's run in a fresh child (from the launcher,
+    started by ``_passports_start`` beside phase 35) with
     ``SCC_COMPILELOG=1 SCC_GRAPHS=1``: phase 7's labels, DE mask and union
     and one kernel launch; its record's ``compile`` section (no compile,
     one cache hit per native library, printed with the stage that loaded
@@ -4389,17 +4519,13 @@ def phase_passports(launcher, wilcox_ref, audit_out) -> tuple:
     by stage and line beside phase 31's implicit syncs. Returns
     (launches, the record, the printed numbers)."""
     import shutil
-    import tempfile
 
     from scconsensus_tpu_torch.obs.export import validate_run_record
 
-    root = tempfile.mkdtemp(prefix="scc-passports-")
+    root = started["root"]
     try:
-        t0 = time.perf_counter()
-        proc = _launch(launcher, [sys.executable, "-c",
-                                  _PASSPORT_CHILD.format(repo=REPO,
-                                                         root=root)], 600)
-        wall = time.perf_counter() - t0
+        proc = _launch_finish(launcher)
+        wall = time.perf_counter() - started["t0"]
         lines = [ln for ln in proc["stdout"].splitlines()
                  if ln.startswith("PASSPORT_CHILD ")]
         if proc["rc"] != 0 or not lines:
@@ -4706,6 +4832,12 @@ def phase_drift() -> tuple:
 
 # the reference bench's order of the four scenarios (bench.py:1065-1068)
 ZOO_ORDER = ("multi_sample", "cite_dual", "atlas_transfer", "topo_inputs")
+# phase 40's one cut of a `full` shape: multi_sample at 40,000 of its
+# 100,000 cells (genes, clusters and samples kept). At 100,000 its run
+# took 105.93 s, 96.18 of them host Ward, whose exact tree grows with N²,
+# and the child waited on its draw (PERF.md §4); phase 3 keeps the
+# kernel's 100,000-cell row.
+ZOO_FULL_CUTS = {"multi_sample": {"n_cells": 40_000}}
 # the quality.scenario metrics printed for each scenario
 ZOO_METRICS = {
     "multi_sample": ("ari_pooled", "per_batch_ari_min",
@@ -4904,7 +5036,7 @@ def _zoo_draw_args(name: str) -> tuple:
     ``topo_scenario.py``)."""
     from scconsensus_tpu_torch.workloads import SCENARIOS
 
-    p = SCENARIOS[name].full
+    p = {**SCENARIOS[name].full, **ZOO_FULL_CUTS.get(name, {})}
     if name == "multi_sample":
         return ("scconsensus_tpu_torch.workloads.data",
                 "multi_sample_dataset",
@@ -4928,11 +5060,14 @@ def _zoo_draw_args(name: str) -> tuple:
 
 
 def _zoo_draw(name: str):
-    """A scenario's ``full`` numpy draw, made in a worker process."""
+    """A scenario's ``full`` numpy draw, made in a worker process, and
+    the seconds it took there."""
     import importlib
 
     mod, fn, kw = _zoo_draw_args(name)
-    return getattr(importlib.import_module(mod), fn)(**kw)
+    t0 = time.perf_counter()
+    out = getattr(importlib.import_module(mod), fn)(**kw)
+    return out, time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -4972,15 +5107,16 @@ sys.path.insert(0, {repo!r})
 import chip_smoke
 
 if __name__ == "__main__":
-    # the four numpy draws at once, in worker processes, before any run
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(
-            len(chip_smoke.ZOO_ORDER),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        draws = dict(zip(chip_smoke.ZOO_ORDER,
-                         pool.map(chip_smoke._zoo_draw,
-                                  chip_smoke.ZOO_ORDER)))
-    print("ZOO_DRAWS_S " + str(time.perf_counter() - t0), flush=True)
+    # the four numpy draws at once, in worker processes; each scenario
+    # runs, in the reference's order, as soon as its own draw is in,
+    # while the later draws go on (they end during the first run, so no
+    # kernel timing shares the host with a draw)
+    pool = ProcessPoolExecutor(
+        len(chip_smoke.ZOO_ORDER),
+        mp_context=multiprocessing.get_context("spawn"))
+    futures = {{name: pool.submit(chip_smoke._zoo_draw, name)
+               for name in chip_smoke.ZOO_ORDER}}
+    draws = {{}}
 
 import numpy as np
 import torch
@@ -4989,7 +5125,11 @@ from scconsensus_tpu_torch.workloads import run_scenario
 
 out_dir = os.path.join(chip_smoke.OUT_DIR, "phase40")
 os.makedirs(out_dir, exist_ok=True)
+waits, t_wait = {{}}, time.perf_counter()
 for name in chip_smoke.ZOO_ORDER:
+    # this scenario's draw, in before its run's clock starts
+    draws[name], drawn = futures[name].result()
+    waits[name] = [drawn, time.perf_counter() - t_wait]
     captured, used = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4997,7 +5137,8 @@ for name in chip_smoke.ZOO_ORDER:
     with chip_smoke._capturing_refine(captured), \\
             chip_smoke._zoo_prefetched(draws, used):
         t0 = time.perf_counter()
-        out = run_scenario(name, workdir=os.path.join({root!r}, name),
+        out = run_scenario(name, chip_smoke.ZOO_FULL_CUTS.get(name),
+                           workdir=os.path.join({root!r}, name),
                            device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5022,6 +5163,9 @@ for name in chip_smoke.ZOO_ORDER:
         "kernel": kern}}, default=str), flush=True)
     del res, captured, out, rec
     torch.cuda.empty_cache()
+    t_wait = time.perf_counter()
+pool.shutdown()
+print("ZOO_DRAWS_S " + json.dumps(waits), flush=True)
 print("ZOO_RSS_MB " + str(
     resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0))
 """
@@ -5064,8 +5208,9 @@ def phase_zoo_full(launcher) -> dict:
         elif line.startswith("ZOO_RSS_MB "):
             rss = float(line.split()[1])
         elif line.startswith("ZOO_DRAWS_S "):
-            log(f"[zoo-full] the four numpy draws at once in "
-                f"{float(line.split()[1])!r} s")
+            log(f"[zoo-full] the four numpy draws, started at once: each "
+                f"one's seconds in its worker and the child's wait for it "
+                f"before its run: {line[len('ZOO_DRAWS_S '):]}")
     if proc["rc"] != 0 or list(out) != list(ZOO_ORDER):
         raise AssertionError(f"[zoo-full] the child failed (exit "
                              f"{proc['rc']}): {proc['stderr'][-3000:]}")
@@ -5531,28 +5676,18 @@ def _wire_guard() -> tuple:
     return min(t["ratio"] for t in trials), trials
 
 
-def _soak_in(root: str, name: str, model_dir: str, v2_dir=None) -> str:
-    """A soak work dir holding the given model dirs (the soak loads, not
-    builds, a model it finds)."""
-    import shutil
-
-    work = os.path.join(root, name)
-    shutil.copytree(model_dir, os.path.join(work, "model_v1"))
-    if v2_dir:
-        shutil.copytree(v2_dir, os.path.join(work, "model_v2"))
-    return work
-
-
 def phase_fleet_small() -> dict:
     """Phase 42: the serving fleet at the reference tests' shapes (the
     120-gene, 4-cluster atlas), one model dir built by the port on the
     CPU and served on the card and on the CPU: the wire front's statuses,
-    the hot-swap under wire load, the replay through 1 and 3 replicas, a
-    replica kill with its respawn, the three fault sites and the
-    planted-drift reconsensus loop; card = CPU on every ``labels_sha`` and
-    on the new clusters. Then the model built on the card against the
-    CPU's build, and the wire-overhead guard on the production-shaped
-    model. Returns the guard and the loop's numbers."""
+    a replica kill through the pool with its respawn, the three fault
+    sites and the planted-drift reconsensus loop; card = CPU on the
+    statuses' labels, the sites and the loop's ``labels_sha`` and new
+    clusters. Then the model built on the card against the CPU's build,
+    and the wire-overhead guard on the production-shaped model. The
+    chaos plans (swap, replay, kill under load) run once, in phase 44's
+    worker children, on both devices. Returns the guard and the loop's
+    numbers."""
     import shutil
     import tempfile
 
@@ -5563,7 +5698,6 @@ def phase_fleet_small() -> dict:
         _gaussian_atlas,
         build_atlas_model,
         make_query_batches,
-        run_fleet_soak,
     )
     from scconsensus_tpu_torch.serve.slo import validate_slo
 
@@ -5580,31 +5714,6 @@ def phase_fleet_small() -> dict:
             t0 = time.perf_counter()
             r = {"statuses": _fleet_statuses(v1, dev, root)}
             r["sites"] = _fleet_sites(v1, v2, dev, root)
-            swap = run_fleet_soak(_soak_in(root, f"swap-{dev}", v1, v2),
-                                  n_requests=30, cells_per=8,
-                                  seed=FLEET_SEED, replicas=3,
-                                  swap_after=10, device=dev)
-            assert swap["ok"] and swap["resolved"] == 30, swap
-            assert swap["swapped"] and swap["post_swap_responses"] > 0
-            assert swap["post_swap_pure"] is True
-            assert set(swap["fps_seen"]) <= {swap["fp_v1"], swap["fp_v2"]}
-            assert swap["record"]["serving"]["wire"]["requests"][
-                "submitted"] == 30
-            replay = {}
-            for n in (1, 3):
-                s = run_fleet_soak(_soak_in(root, f"replay{n}-{dev}", v1),
-                                   n_requests=10, cells_per=8,
-                                   seed=FLEET_SEED, replicas=n, device=dev)
-                assert s["ok"], s["outcome_counts"]
-                replay[n] = (s["fp_v1"], s["labels_sha"])
-            assert replay[1] == replay[3], replay
-            kill = run_fleet_soak(_soak_in(root, f"kill-{dev}", v1),
-                                  n_requests=12, cells_per=32,
-                                  seed=FLEET_SEED, replicas=2,
-                                  kill_after=2, concurrency=4, device=dev)
-            assert kill["ok"] and kill["resolved"] == 12, kill
-            assert kill["kills"] and kill["trace_continuity"] is not False
-            assert kill["traced_responses"] == 12
             with ReplicaPool(v1, n_replicas=2, config=_fleet_cfg(),
                              device=dev) as pool:
                 x = make_query_batches(1, 4, FLEET_SEED)[0]
@@ -5619,25 +5728,17 @@ def phase_fleet_small() -> dict:
             assert sec["requests"]["ok"] == 2 and len(sec["fleet"]["kills"])
             validate_slo(slo)
             r["recon"] = _fleet_reconsensus(v1, dev, root)
-            r["swap_sha"] = swap["labels_sha"]
-            r["replay"] = replay[1]
-            r["kill_sha"] = kill["labels_sha"]
             r["wall_s"] = time.perf_counter() - t0
             by_dev[dev] = r
             log(f"[fleet] {dev}: statuses "
                 f"{json.dumps(r['statuses']['status_codes'])} (429 x "
                 f"{r['statuses']['queue_full'][1]}); fault sites "
-                f"{json.dumps(r['sites'])}; swap under load v1 "
-                f"{swap['fp_v1']} -> v2 {swap['fp_v2']}, "
-                f"{swap['post_swap_responses']} post-swap responses; kill "
-                f"{json.dumps(kill['kills'])}, retried "
-                f"{len(kill['retried'])}; reconsensus loop "
+                f"{json.dumps(r['sites'])}; pool kill "
+                f"{json.dumps(k)}; reconsensus loop "
                 f"{r['recon']['loop_s']!r} s, new labels "
                 f"{r['recon']['new_labels']}, ARI {r['recon']['ari']!r}; "
                 f"{r['wall_s']!r} s")
         card, cpu = by_dev["cuda"], by_dev["cpu"]
-        for key in ("swap_sha", "replay", "kill_sha"):
-            assert card[key] == cpu[key], (key, card[key], cpu[key])
         assert card["statuses"]["labels"] == cpu["statuses"]["labels"]
         assert card["sites"] == cpu["sites"]
         for key in ("new_labels", "n_new_clusters", "labels_sha"):
@@ -5654,9 +5755,8 @@ def phase_fleet_small() -> dict:
         on_cpu = load_consensus_model(v1, device="cuda")
         got = built.classify(cells)[0]
         assert np.array_equal(got, on_cpu.classify(cells)[0])
-        log(f"[fleet] card = CPU: swap sha {card['swap_sha'][:16]}, replay "
-            f"{card['replay'][1][:16]} (1 and 3 replicas), kill sha "
-            f"{card['kill_sha'][:16]}, reconsensus sha "
+        log(f"[fleet] card = CPU: statuses' labels, fault sites, "
+            f"reconsensus sha "
             f"{card['recon']['labels_sha'][:16]}; the card's build "
             f"{built.fingerprint()} in {t_build!r} s labels the 360 "
             "training cells as the CPU's")
@@ -5847,9 +5947,13 @@ KILL_ARGS = dict(cells=256, pumps=6)
 
 
 def _fleet_soak_argv(workdir: str, n: int, *extra) -> list:
-    return [sys.executable, "-m", "scconsensus_tpu_torch.serve.fleet.soak",
+    argv = [sys.executable, "-m", "scconsensus_tpu_torch.serve.fleet.soak",
             "--dir", workdir, "--requests", str(n), "--summary",
             os.path.join(workdir, "SUMMARY.json"), *extra]
+    if "cpu" in extra:
+        # several workers share the host's cores: two torch threads each
+        argv = ["env", "OMP_NUM_THREADS=2", *argv]
+    return argv
 
 
 def _load_argv(workdir: str, pumps: int = 8, **kw) -> list:
@@ -5916,11 +6020,12 @@ def _postmortem(launcher, workdir: str) -> tuple:
         return proc["rc"], {}
 
 
-def _kill_argv(workdir: str, cells: int, pumps: int) -> list:
+def _kill_argv(workdir: str, cells: int, pumps: int,
+               device: str = "cuda") -> list:
     return _fleet_soak_argv(workdir, 30, "--fresh", "--replicas", "2",
                             "--kill-after", "6", "--heartbeat", "0.15",
                             "--cells", str(cells), "--concurrency",
-                            str(pumps), "--device", "cuda")
+                            str(pumps), "--device", device)
 
 
 def phase_fleet_workers(launcher) -> dict:
@@ -5930,7 +6035,9 @@ def phase_fleet_workers(launcher) -> dict:
     (3 replicas, 16 requests, swap after 5), replay-across-replicas (1
     replica, 3, and 3 with ``--device cpu``, on one model built here) and
     kill-replica-under-load (2 replicas, 30 requests of 256 cells from 6
-    pumps, heartbeat 0.15 s, kill after 6) plans, started at once; then
+    pumps, heartbeat 0.15 s, kill after 6) plans, the swap and the kill
+    also with ``--device cpu``, all started at once (each plan runs only
+    here: card = CPU on every plan's ``labels_sha``); then
     one ``run_load`` at the reference's defaults alone; then the spike
     soak of ``tools/load_run.py`` at its defaults alone, with the
     reference's ``tools/postmortem.py`` over its work dir. Each runs
@@ -5944,6 +6051,7 @@ def phase_fleet_workers(launcher) -> dict:
 
     root = tempfile.mkdtemp(prefix="scc-fleet-workers-")
     d = {k: os.path.join(root, k) for k in ("swap", "replay", "kill",
+                                             "swap-cpu", "kill-cpu",
                                              "load", "spike")}
 
     def soaked(tag, proc, work):
@@ -5973,12 +6081,17 @@ def phase_fleet_workers(launcher) -> dict:
                              "--device", "cuda"),
             _fleet_soak_argv(d["replay"] + "-cpu", 16, "--replicas", "3",
                              "--device", "cpu"),
-            _kill_argv(d["kill"], **KILL_ARGS)])
+            _kill_argv(d["kill"], **KILL_ARGS),
+            _fleet_soak_argv(d["swap-cpu"], 16, "--fresh", "--replicas",
+                             "3", "--swap-after", "5", "--device", "cpu"),
+            _kill_argv(d["kill-cpu"], **KILL_ARGS, device="cpu")])
         swap = soaked("swap", procs[0], d["swap"])
         r1 = soaked("replay-1", procs[1], d["replay"])
         r3 = soaked("replay-3", procs[2], d["replay"] + "-3")
         rcpu = soaked("replay-cpu", procs[3], d["replay"] + "-cpu")
         kill = soaked("kill", procs[4], d["kill"])
+        swap_cpu = soaked("swap-cpu", procs[5], d["swap-cpu"])
+        kill_cpu = soaked("kill-cpu", procs[6], d["kill-cpu"])
         load = _child_summary("load", wave([_load_argv(d["load"],
                                                        fresh=True)])[0])
         spike = _child_summary("spike", wave([_load_argv(
@@ -6012,14 +6125,20 @@ def phase_fleet_workers(launcher) -> dict:
         f"{load['late_fraction']!r}, breaches {load['breaches']}, scales "
         f"{len(load['scales'])}, outcomes "
         f"{json.dumps(load['outcome_counts'])}")
-    # swap-under-load (tools/chaos_run.py:651-685)
-    sv = swap["record"]["serving"]
-    fps = set(swap["fps_seen"])
-    assert swap["ok"] and swap["resolved"] == swap["requests"] == 16
-    assert swap["accounting_ok"] is True
-    assert swap["swapped"] and swap["post_swap_responses"]
-    assert fps and fps <= {swap["fp_v1"], swap["fp_v2"]}
-    assert swap["post_swap_pure"] is True and len(sv["fleet"]["swaps"]) >= 1
+    log(f"[fleet-workers] card = CPU: swap sha {swap['labels_sha'][:16]} "
+        f"/ {swap_cpu['labels_sha'][:16]}, kill sha "
+        f"{kill['labels_sha'][:16]} / {kill_cpu['labels_sha'][:16]}")
+    # swap-under-load (tools/chaos_run.py:651-685), on both devices
+    for sw in (swap, swap_cpu):
+        sv = sw["record"]["serving"]
+        fps = set(sw["fps_seen"])
+        assert sw["ok"] and sw["resolved"] == sw["requests"] == 16
+        assert sw["accounting_ok"] is True
+        assert sw["swapped"] and sw["post_swap_responses"]
+        assert fps and fps <= {sw["fp_v1"], sw["fp_v2"]}
+        assert sw["post_swap_pure"] is True and len(
+            sv["fleet"]["swaps"]) >= 1
+    assert swap["labels_sha"] == swap_cpu["labels_sha"]
     # replay-across-replicas (:768-793), and the CPU on the same model
     assert r1["ok"] and r3["ok"] and rcpu["ok"]
     assert r1["labels_sha"] == r3["labels_sha"] == rcpu["labels_sha"]
@@ -6030,6 +6149,9 @@ def phase_fleet_workers(launcher) -> dict:
     assert all(k in ("ok", "degraded", "quarantined")
                for k in kill["outcome_counts"])
     assert len(kill["retried"]) >= 1 and kill["trace_continuity"] is True
+    assert kill_cpu["ok"] and kill_cpu["resolved"] == 30
+    assert kill_cpu["trace_continuity"] is not False
+    assert kill["labels_sha"] == kill_cpu["labels_sha"]
     # run_load at the defaults, alone (tools/load_run.py:130-167): nothing
     # lost, a valid record; its SLO reading is printed, not held, as the
     # tool does not hold it (PERF.md, the fleet)
@@ -6043,6 +6165,191 @@ def phase_fleet_workers(launcher) -> dict:
             "spike_rps_at_slo": spike["rps_at_slo"],
             "spike_cells": SPIKE_SOAK["cells_per"], "kill": KILL_ARGS,
             "wall_s": sum(walls)}
+
+
+# ---------------------------------------------------------------------------
+# phase 45: the mesh across two processes
+# ---------------------------------------------------------------------------
+
+# two ranks, each with 2 shards of the one card: phase 26's 4-shard mesh,
+# split across a gloo group
+MESH2_PROCS = 2
+
+
+def _data_sha(data, cons) -> str:
+    """sha256 of the 26k matrix's bytes and the consensus labels (the
+    proof that a child drew phase 6's data)."""
+    h = hashlib.sha256()
+    h.update(data.cpu().numpy().tobytes())
+    h.update("\x00".join(str(c) for c in cons).encode())
+    return h.hexdigest()
+
+
+_MESH2_CHILD = """
+import json, os, sys, time
+from datetime import timedelta
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import torch.distributed as dist
+import chip_smoke
+
+rank = {rank}
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{port}",
+                        world_size={procs}, rank=rank,
+                        timeout=timedelta(seconds=300))
+from scconsensus_tpu_torch import recluster_de_consensus_fast
+from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
+from scconsensus_tpu_torch.parallel import mesh as pmesh
+
+data, truth, cons = chip_smoke.phase_full_data()
+sha = chip_smoke._data_sha(data, cons)
+mesh = pmesh.make_mesh(chip_smoke.MESH_SHARDS, device="cuda")
+for k in pmesh.SENT_BYTES:
+    pmesh.SENT_BYTES[k] = 0
+distance_cluster_sums.launches = 0
+torch.cuda.synchronize()
+dist.barrier()
+t0 = time.perf_counter()
+res = recluster_de_consensus_fast(data, cons, device="cuda", mesh=mesh)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+launches = distance_cluster_sums.launches
+m = res.metrics
+np.savez(os.path.join({root!r}, "rank%d.npz" % rank),
+         log_p=res.de.log_p.cpu().numpy(),
+         de_mask=res.de.de_mask.cpu().numpy(),
+         union=res.de_gene_union_idx,
+         silhouettes=np.array([i["silhouette"] for i in res.deep_split_info]),
+         keys=np.array(sorted(res.dynamic_labels)),
+         **{{"labels%d" % i: res.dynamic_labels[k]
+            for i, k in enumerate(sorted(res.dynamic_labels))}})
+print("MESH2 " + json.dumps({{
+    "rank": rank, "local": list(mesh.local), "procs": mesh.procs,
+    "data_sha": sha, "wall_s": wall, "launches": launches,
+    "sent_bytes": dict(pmesh.SENT_BYTES),
+    "kernel": m["wilcox_ladder"]["kernel"],
+    "silhouette": m["silhouette"], "stage_walls_s": m["stage_walls_s"],
+    "peak_bytes": torch.cuda.max_memory_allocated()}}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _mesh2_view(path: str):
+    """A rank's saved result, shaped for ``assert_mesh_equals_serial``."""
+    from types import SimpleNamespace
+
+    z = np.load(path)
+    labels = {str(k): z[f"labels{i}"] for i, k in enumerate(z["keys"])}
+    return SimpleNamespace(
+        de=SimpleNamespace(log_p=z["log_p"], de_mask=z["de_mask"]),
+        de_gene_union_idx=z["union"], dynamic_labels=labels,
+        deep_split_info=[{"silhouette": float(v)}
+                         for v in z["silhouettes"]])
+
+
+def _mesh_procs_start() -> dict:
+    """Start phase 45's two children (they run while phase 41's do);
+    ``phase_mesh_procs`` collects them. Started from this process, not
+    the launcher: the phase reads no host RSS, and the launcher is busy
+    with phase 41."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = tempfile.mkdtemp(prefix="scc-mesh2-")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH2_CHILD.format(
+            repo=REPO, rank=r, port=port, procs=MESH2_PROCS, root=root)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MESH2_PROCS)]
+    return {"root": root, "procs": procs, "t0": time.perf_counter()}
+
+
+def phase_mesh_procs(started: dict, ref: dict) -> dict:
+    """Phase 45: the 26k flagship fast Wilcoxon on phase 26's 4-shard
+    mesh split across two processes: two children (started by
+    ``_mesh_procs_start`` beside phase 41), each on ``cuda`` with 2
+    shards of the card, joined by a gloo group (``torch.distributed``),
+    each drawing phase 6's data itself. Held:
+    both draws' sha against each other and phase 6's; each rank's result
+    by ``parallel.validate.assert_mesh_equals_serial`` against phase 7's
+    serial run and on its labels against phase 26's one-process mesh;
+    the two ranks' results the same bits. Printed: each rank's refine
+    wall, the bytes each collective sent across the group and the
+    kernel's launches (every rank computes the silhouette). ``ref``:
+    phase 7's summary (``serial``), phase 26's (``mesh``) and phase 6's
+    data sha. Returns the launches over both ranks and the numbers."""
+    import shutil
+
+    root = started["root"]
+    try:
+        procs = []
+        for p in started["procs"]:
+            out, err = p.communicate(timeout=600)
+            procs.append({"rc": p.returncode, "stdout": out, "stderr": err})
+        wall = time.perf_counter() - started["t0"]
+        ranks = []
+        for r, proc in enumerate(procs):
+            lines = [ln for ln in proc["stdout"].splitlines()
+                     if ln.startswith("MESH2 ")]
+            if proc["rc"] != 0 or not lines:
+                raise AssertionError(
+                    f"[mesh-procs] rank {r} failed (exit {proc['rc']}): "
+                    f"{proc['stderr'][-3000:]}")
+            ranks.append(json.loads(lines[-1][len("MESH2 "):]))
+        views = [_mesh2_view(os.path.join(root, f"rank{r}.npz"))
+                 for r in range(MESH2_PROCS)]
+    finally:
+        for p in started["procs"]:  # a failed rank's partner
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+    for r, (rec, view) in enumerate(zip(ranks, views)):
+        log(f"[mesh-procs] rank {r} (shards {rec['local']} of "
+            f"{MESH_SHARDS}): refine wall {rec['wall_s']!r} s, bytes sent "
+            f"across the group by collective "
+            f"{json.dumps(rec['sent_bytes'])}, kernel launches "
+            f"{rec['launches']}, peak {rec['peak_bytes']} bytes; stage "
+            f"walls (s) {json.dumps(rec['stage_walls_s'])}")
+        if rec["data_sha"] != ref["data_sha"]:
+            raise AssertionError(f"[mesh-procs] rank {r} drew other data: "
+                                 f"{rec['data_sha']} against phase 6's "
+                                 f"{ref['data_sha']}")
+        if rec["procs"] != MESH2_PROCS or len(rec["local"]) != \
+                MESH_SHARDS // MESH2_PROCS:
+            raise AssertionError(f"[mesh-procs] rank {r}: {rec['local']}")
+        if rec["kernel"] != "mesh-scan" or rec["launches"] != 1 or \
+                rec["silhouette"].get("engine") != "kernel":
+            raise AssertionError(f"[mesh-procs] rank {r}: kernel "
+                                 f"{rec['kernel']}, {rec['launches']} "
+                                 "launches")
+        if not rec["sent_bytes"]["gather"]:
+            raise AssertionError(f"[mesh-procs] rank {r} sent nothing")
+        _mesh_contract(f"mesh-procs-{r}", view,
+                       _summary_view(ref["serial"]),
+                       "2 processes x 2 shards, phase 7 serial")
+        for key, want in ref["mesh"]["labels"].items():
+            if not np.array_equal(view.dynamic_labels[key], want):
+                raise AssertionError(f"[mesh-procs] rank {r} {key}: labels "
+                                     "differ from phase 26's")
+    a, b = views
+    if not (np.array_equal(a.de.log_p, b.de.log_p, equal_nan=True)
+            and np.array_equal(a.de_gene_union_idx, b.de_gene_union_idx)
+            and [i["silhouette"] for i in a.deep_split_info]
+            == [i["silhouette"] for i in b.deep_split_info]):
+        raise AssertionError("[mesh-procs] the ranks' results differ")
+    out = {"wall_s": wall, "ranks": [{k: rec[k] for k in (
+        "wall_s", "sent_bytes", "launches", "peak_bytes")} for rec in ranks],
+        "launches": sum(rec["launches"] for rec in ranks)}
+    log(f"[mesh-procs] both ranks' draws sha {ref['data_sha'][:16]} = "
+        "phase 6's; each rank's result = phase 7's serial run "
+        "(assert_mesh_equals_serial) and phase 26's labels; the ranks the "
+        f"same bits; the children in {wall!r} s from their start")
+    return out
 
 
 def _time_phases() -> dict:
@@ -6115,6 +6422,8 @@ def _main(launcher) -> int:
     phase_mesh_small()
     phase_oracles()
     data, truth, cons = phase_full_data()
+    data_sha = _data_sha(data, cons)
+    log(f"[data] sha256 of the matrix and the consensus labels {data_sha}")
     rec, dense_fast = phase_full(data, truth, cons)
     records = {"7": _flagship_record(dense_fast.metrics)}
     erec, dense_edger = phase_edger_full(data, truth, cons)
@@ -6130,6 +6439,9 @@ def _main(launcher) -> int:
                                      n_buckets)
     mesh_ref = phase_mesh_full(data, truth, cons, wilcox_ref)
     elastic_launches = phase_elastic(data, truth, cons, mesh_ref, launcher)
+    # what phase 45 holds its two processes to
+    mesh2_ref = {"serial": wilcox_ref, "mesh": mesh_ref["summary"],
+                 "data_sha": data_sha}
     trace_launches, trace_out = phase_trace_full(data, truth, cons,
                                                  wilcox_ref, rec)
     records["29"] = trace_out.pop("record")
@@ -6142,9 +6454,11 @@ def _main(launcher) -> int:
     phase_contract(data, cons, csr)
     del csr
     torch.cuda.empty_cache()
+    # phase 36's child runs while phase 35's three do
+    passports = _passports_start(launcher)
     live_launches, _ = phase_live()
     passport_launches, records["36"], _ = phase_passports(
-        launcher, wilcox_ref, audit_out)
+        launcher, passports, wilcox_ref, audit_out)
     gate_launches, _ = phase_gate(data, truth, cons, wilcox_ref, records,
                                   audit_out)
     del data, wilcox_ref, records
@@ -6163,7 +6477,12 @@ def _main(launcher) -> int:
     phase_soak_workers(launcher)
     zoo_small_launches = phase_zoo_small()
     zoo_full = phase_zoo_full(launcher)
+    # phase 45's two children run while phase 41's do, and are collected
+    # before the fleet's timed phases
+    mesh2 = _mesh_procs_start()
     phase_zoo_soak(launcher)
+    mesh2 = phase_mesh_procs(mesh2, mesh2_ref)
+    del mesh2_ref
     # the fleet classifies with plain tensor code: its paths launch none
     from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
 
@@ -6212,7 +6531,8 @@ def _main(launcher) -> int:
                **{f"zoo_{name}": rec["launches"]
                   for name, rec in zoo_full.items()},
                "fleet_small": fleet_small_launches,
-               "fleet_atlas_query": fleet_atlas_launches}
+               "fleet_atlas_query": fleet_atlas_launches,
+               "mesh_26k_2proc": mesh2["launches"]}
     comp = compilelog.snapshot()
     log("[compile] this process's compile log: " + json.dumps(comp))
     if comp["cache_hits"] < 2 or comp["compiles"] > 2:

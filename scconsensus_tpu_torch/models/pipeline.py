@@ -106,12 +106,13 @@ The guard rails (``scconsensus_tpu/models/pipeline.py:118-163,
 with site ``stage:<name>`` (de, union, embed, tree, cuts, silhouette,
 nodg), so a transient or resource fault, injected by ``SCC_FAULT_PLAN``
 or real (a ``torch.cuda.OutOfMemoryError``), retries; a resource fault in
-embed first frees the caching allocator's blocks (recorded as the
-reference's ``evict-devcache``). Inside DE the Wilcoxon ladder recovers
-bucket by bucket. Under ``SCC_INTEGRITY`` the embed is audited
-(``pca_scores_audited``, the ``embed_scores`` corruption site, the basis
-check and a sampled float64 replay), and DE, the landmark assignment and
-the cut boundary carry their checks.
+embed first drops the upload cache (``utils.devcache``) and frees the
+caching allocator's blocks (the reference's ``evict-devcache``). Inside
+DE the Wilcoxon ladder recovers bucket by bucket. Under
+``SCC_INTEGRITY`` the embed is audited (``pca_scores_audited``, the
+``embed_scores`` corruption site, the basis check and a sampled float64
+replay), and DE, the landmark assignment and the cut boundary carry
+their checks.
 
 With ``config.artifact_dir`` set, the run writes the reference's store
 (``utils.artifacts``): ``config.json`` (the config and an input
@@ -542,13 +543,17 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
                 return {"scores": sc.cpu().numpy()}
 
         def _embed_degrade(_attempt):
-            # an allocation failure in embed: hand the allocator's cached
-            # blocks back before the PCA retry (the reference evicts its
-            # device upload cache here, under the same action name)
+            # an allocation failure in embed: drop the upload cache and
+            # hand the allocator's cached blocks back before the PCA
+            # retry; the (N, |U|) gather and the PCA scratch are usually
+            # what tipped the card over
+            from scconsensus_tpu_torch.utils.devcache import clear_cache
+
+            clear_cache()
             free_device_cache(dev)
             robust_record.note_degradation(
                 "stage:embed", "evict-devcache",
-                "freed the caching allocator's blocks before PCA retry")
+                "dropped pinned device buffers before PCA retry")
 
         embedding = _guard(
             lambda: _stage_cached("embed", _embed), site="stage:embed",

@@ -28,7 +28,7 @@ import numpy as np
 
 from scconsensus_tpu_torch.obs.device import native_build_event
 
-__all__ = ["ward_native", "build"]
+__all__ = ["ward_native", "native_available"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "ward.cpp")
@@ -126,6 +126,17 @@ def _load() -> ctypes.CDLL:
         except (OSError, RuntimeError, FileNotFoundError) as e:
             _LOAD_ERROR = e
             raise
+
+
+def native_available() -> bool:
+    """True when the Ward library builds (or is built) and loads on this
+    host, the reference's meaning; a failure is remembered, as by
+    ``ward_native``."""
+    try:
+        _load()
+        return True
+    except Exception:
+        return False
 
 
 def ward_native(points: np.ndarray, weights: np.ndarray

@@ -499,17 +499,21 @@ def ambient_stage() -> Tuple[Optional[str], int]:
     """``(stage_name, entry_ordinal)`` of the innermost open stage-kind
     span, or ``(None, 0)`` with no stage open. Contextvar first, then
     :func:`last_tracer`, so off-thread observers resolve the stage the
-    run thread is in. Thread-safe; never raises."""
+    run thread is in. Thread-safe; never raises.
+
+    Reads a snapshot of the stack without the tracer's lock: the host
+    profiler's ``gc.callbacks`` hook calls this, and a collection can
+    start in a thread that already holds that (non-reentrant) lock, which
+    would then wait on itself. ``tuple(list)`` is one step under the GIL."""
     tr = _ACTIVE.get()
     if tr is None:
         tr = last_tracer()
     if tr is None:
         return (None, 0)
     try:
-        with tr._lock:
-            for s in reversed(tr._stack):
-                if s.kind == "stage":
-                    return (s.name, tr._stage_entries.get(s.name, 1))
+        for s in reversed(tuple(tr._stack)):
+            if s.kind == "stage":
+                return (s.name, tr._stage_entries.get(s.name, 1))
     except Exception:
         pass
     return (None, 0)

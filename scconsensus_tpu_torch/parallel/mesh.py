@@ -1,9 +1,11 @@
-"""The device mesh: one process driving one shard per device.
+"""The device mesh: one shard per device, in one process or across several.
 
 The torch form of ``scconsensus_tpu/parallel/mesh.py``. The reference is
-single-controller: one ``refine()`` call in one process lays a
+single-controller: one ``refine()`` call in each process lays a
 ``jax.sharding.Mesh`` over ``jax.devices()`` (:105-112) and runs
-``shard_map`` bodies with ``psum`` and ``ppermute``. Here a :class:`Mesh`
+``shard_map`` bodies with ``psum`` and ``ppermute``; under
+``jax.distributed`` the same mesh spans processes, each holding only its
+addressable shards (``tests/multihost_worker.py``). Here a :class:`Mesh`
 is a small frozen object:
 
   * ``devices``: one ``torch.device`` per shard. Shards may repeat a
@@ -12,22 +14,44 @@ is a small frozen object:
   * ``ids``: shard ids, 0..n-1 on a fresh mesh; they stand in for
     ``jax.Device.id`` in every stamp, and a mesh shrunk by the elastic
     supervisor keeps its survivors' ids;
-  * ``axis_name``: ``"cells"``, the reference's ``CELL_AXIS``.
+  * ``axis_name``: ``"cells"``, the reference's ``CELL_AXIS``;
+  * ``procs`` and ``rank``: the processes the shards are split across
+    and this one's rank (1 and 0 in one process).
 
-Sharded bodies run in a Python loop over the shards; on several cards
-each shard's kernels queue on its own device's current stream, so the
-cards overlap with no threads. The collectives are explicit functions on
-lists of per-shard tensors: :func:`psum` adds the shard partials in shard
-order on shard 0's device, in fp32, and hands the sum to every shard;
-:func:`ppermute` rotates the list by one, each block moving to the next
-shard's device with ``non_blocking=True`` (a no-op on a shared device).
-Sharded results are gathered back onto the device the input lay on
-(shard 0's for host input).
+Sharded bodies run in a Python loop over this process's shards; on
+several cards each shard's kernels queue on its own device's current
+stream, so the cards overlap with no threads. The collectives are
+explicit functions on lists of this process's per-shard tensors:
+:func:`psum` adds the shard partials in shard order on the local device,
+in fp32, and hands the sum to every shard; :func:`ppermute` rotates the
+blocks by one shard, each moving to the next shard's device with
+``non_blocking=True`` (a no-op on a shared device); :func:`gather`
+concatenates the blocks in shard order. Sharded results are gathered back
+onto the device the input lay on (shard 0's for host input).
+
+**Across processes.** Once ``torch.distributed`` is initialized with
+more than one rank, ``make_mesh(n, device=...)`` splits the ``n`` shards
+evenly across the ranks, in rank order: rank r holds shards
+``r·n/R .. (r+1)·n/R − 1`` and computes only those. ``size``, ``ids`` and
+``mesh_shape_meta`` stay global, so stamps and stores are those of a
+one-process mesh of ``n`` shards. :func:`put_sharded` and
+:func:`pad_and_shard` take the same host value in every process and keep
+the local blocks (the reference's ``put_sharded`` contract). The
+collectives cross the process group (the default group) over gloo with
+host-staged tensors, on the CPU and on the card alike (NCCL cannot run
+two ranks on one device): :func:`psum` gathers every shard's partial to
+every rank and adds them in shard order, so it gives the one-process
+bits; :func:`ppermute` rotates locally and sends only the boundary block
+to the next rank; :func:`gather` returns the full result on every rank,
+so each goes on with the host tree and the cut as in one process.
+:data:`SENT_BYTES` counts what this rank sent across the group, by
+collective. ``auto_mesh`` across processes and a device loss on a mesh
+that spans processes raise ``NotImplementedError``: the first needs a
+card per rank, the second has no defined behaviour in the reference.
 
 Left out against the reference: ``drain_if_cpu_mesh`` (:131), a
 workaround for XLA:CPU's collective rendezvous, which a Python loop of
-shards cannot deadlock, and ``utils/jax_compat.py``; and the multi-host
-form, where one mesh spans processes.
+shards cannot deadlock, and ``utils/jax_compat.py``.
 """
 
 from __future__ import annotations
@@ -44,10 +68,24 @@ __all__ = [
     "Mesh", "make_mesh", "auto_mesh", "pad_axis_to_multiple",
     "pad_and_shard", "put_sharded", "gather", "psum", "ppermute",
     "require_dense", "require_mesh", "CELL_AXIS", "mesh_shape_meta",
-    "mesh_device_ids",
+    "mesh_device_ids", "SENT_BYTES",
 ]
 
 CELL_AXIS = "cells"
+
+# bytes this process sent across the process group, by collective (a
+# multi-process mesh's; reset by the caller)
+SENT_BYTES = {"psum": 0, "ppermute": 0, "gather": 0}
+
+
+def _group_world() -> Tuple[int, int]:
+    """(world size, rank) of an initialized ``torch.distributed`` default
+    group; (1, 0) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
 
 
 def _norm_device(device) -> torch.device:
@@ -70,10 +108,17 @@ class Mesh:
     devices: Tuple[torch.device, ...]
     ids: Tuple[int, ...]
     axis_name: str = CELL_AXIS
+    procs: int = 1
+    rank: int = 0
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("a mesh needs at least one shard")
+        if self.procs < 1 or not 0 <= self.rank < self.procs or \
+                len(self.devices) % self.procs:
+            raise ValueError(f"{len(self.devices)} shards do not split "
+                             f"evenly across {self.procs} processes "
+                             f"(rank {self.rank})")
         if len(self.ids) != len(self.devices):
             raise ValueError(f"{len(self.ids)} shard ids for "
                              f"{len(self.devices)} shards")
@@ -87,6 +132,13 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def local(self) -> range:
+        """The positions of this process's shards (all of them in one
+        process)."""
+        n = self.size // self.procs
+        return range(self.rank * n, (self.rank + 1) * n)
 
     @property
     def platform(self) -> str:
@@ -132,7 +184,15 @@ def mesh_shape_meta(mesh: Optional[Mesh],
 def auto_mesh(device=None, axis_name: str = CELL_AXIS) -> Optional[Mesh]:
     """The pipeline's mesh policy (:105-112): a mesh over every visible
     card when the run is on ``cuda`` and there are at least two, else None
-    (the serial path). ``refine(mesh="auto")`` resolves through this."""
+    (the serial path). ``refine(mesh="auto")`` resolves through this.
+    Across processes it raises ``NotImplementedError``: a mesh over every
+    rank's cards waits for a machine with several (pass
+    ``make_mesh(n, device=...)``)."""
+    if _group_world()[0] > 1:
+        raise NotImplementedError(
+            "mesh='auto' across processes is not supported: it needs a "
+            "card per rank; pass make_mesh(n, device=...), which splits "
+            "n shards of each rank's device across the ranks")
     dev = resolve_device(device)
     if dev.type != "cuda" or torch.cuda.device_count() < 2:
         return None
@@ -144,15 +204,28 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = CELL_AXIS,
     """A mesh of ``n_devices`` shards: over the first ``n_devices`` of
     ``devices`` (default: every visible card), or, when ``device`` is
     given, all on that one device (``n_devices`` default 1), which is how
-    the tests and ``chip_smoke.py`` build theirs."""
+    the tests and ``chip_smoke.py`` build theirs. With an initialized
+    ``torch.distributed`` group of R > 1 ranks, the ``device`` form splits
+    the ``n_devices`` shards across the ranks (each rank passes its own
+    device; ``n_devices`` a multiple of R); the other forms raise
+    ``NotImplementedError`` there."""
+    world, rank = _group_world()
     if device is not None:
         if devices is not None:
             raise ValueError("pass either devices or device, not both")
         n = 1 if n_devices is None else int(n_devices)
         if n < 1:
             raise ValueError(f"n_devices must be >= 1, got {n}")
+        if n % world:
+            raise ValueError(f"{n} shards do not split evenly across "
+                             f"{world} processes")
         return Mesh(tuple([_norm_device(device)] * n), tuple(range(n)),
-                    axis_name)
+                    axis_name, procs=world, rank=rank)
+    if world > 1:
+        raise NotImplementedError(
+            "a mesh over a list of devices across processes is not "
+            "supported (it needs a card per rank); pass "
+            "make_mesh(n, device=...)")
     if devices is None:
         resolve_device("cuda")   # raises without a card
         devices = [torch.device("cuda", i)
@@ -209,16 +282,19 @@ def put_sharded(x, mesh: Mesh, shard_axis: Optional[int] = None
     """``x`` laid out over ``mesh``: one copy per shard when
     ``shard_axis`` is None (replicated), else equal blocks along
     ``shard_axis`` (its length a multiple of the shard count), each on its
-    shard's device."""
+    shard's device. Only this process's shards: every process passes the
+    same value and keeps its own blocks."""
     t = _as_tensor(x)
+    local = mesh.local
     if shard_axis is None:
-        return [t.to(d, non_blocking=True) for d in mesh.devices]
+        return [t.to(mesh.devices[i], non_blocking=True) for i in local]
     n = t.shape[shard_axis]
     if n % mesh.size:
         raise ValueError(f"axis {shard_axis} of length {n} does not split "
                          f"into {mesh.size} shards")
-    return [b.contiguous().to(d, non_blocking=True) for b, d in
-            zip(torch.chunk(t, mesh.size, dim=shard_axis), mesh.devices)]
+    blocks = torch.chunk(t, mesh.size, dim=shard_axis)
+    return [blocks[i].contiguous().to(mesh.devices[i], non_blocking=True)
+            for i in local]
 
 
 def pad_and_shard(x, mesh: Mesh, shard_axis: int, fill=0
@@ -231,31 +307,85 @@ def pad_and_shard(x, mesh: Mesh, shard_axis: int, fill=0
     return put_sharded(xp, mesh, shard_axis), n_pad
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host copy for gloo (the tensor itself on the CPU)."""
+    return t.detach().to("cpu").contiguous()
+
+
+def _all_gather(local: torch.Tensor, mesh: Mesh, name: str
+                ) -> List[torch.Tensor]:
+    """Every rank's ``local`` (host-staged, any shape), in rank order."""
+    import torch.distributed as dist
+
+    h = _host(local)
+    shapes: List[Optional[list]] = [None] * mesh.procs
+    dist.all_gather_object(shapes, list(h.shape))
+    size = max(int(np.prod(sh)) for sh in shapes)
+    flat = torch.zeros(size, dtype=h.dtype)
+    flat[:h.numel()] = h.reshape(-1)
+    got = [torch.empty(size, dtype=h.dtype) for _ in range(mesh.procs)]
+    dist.all_gather(got, flat)
+    SENT_BYTES[name] += h.numel() * h.element_size() * (mesh.procs - 1)
+    return [g[:int(np.prod(sh))].reshape(sh)
+            for g, sh in zip(got, shapes)]
+
+
 def gather(blocks: Sequence[torch.Tensor], axis: int = 0,
-           device=None) -> torch.Tensor:
+           device=None, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Concatenate per-shard blocks along ``axis`` on ``device`` (default:
-    shard 0's)."""
+    shard 0's). On a ``mesh`` that spans processes, ``blocks`` are this
+    process's and every rank's are gathered in shard order: each rank
+    gets the full result."""
     dev = blocks[0].device if device is None else torch.device(device)
-    return torch.cat([b.to(dev) for b in blocks], dim=axis)
+    local = torch.cat([b.to(dev) for b in blocks], dim=axis)
+    if mesh is None or mesh.procs == 1:
+        return local
+    parts = _all_gather(local, mesh, "gather")
+    return torch.cat([p.to(dev) for p in parts], dim=axis)
 
 
 def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """All-reduce: the shard partials added in shard order on shard 0's
-    device in fp32, the sum handed to every shard."""
-    dev0 = mesh.devices[0]
-    total = parts[0].to(device=dev0, dtype=torch.float32)
+    """All-reduce: the shard partials added in shard order on the local
+    shards' device in fp32, the sum handed to each of this process's
+    shards. Across processes every shard's partial reaches every rank
+    first, so the additions and their order are the one-process mesh's."""
+    dev0 = mesh.devices[mesh.local[0]]
+    parts = [p.to(device=dev0, dtype=torch.float32) for p in parts]
+    if mesh.procs > 1:
+        if len({tuple(p.shape) for p in parts}) != 1:
+            raise ValueError("psum partials must share one shape")
+        stacked = _all_gather(torch.stack(parts), mesh, "psum")
+        parts = [p.to(dev0) for g in stacked for p in g.unbind(0)]
+    total = parts[0]
     for p in parts[1:]:
-        total = total + p.to(device=dev0, dtype=torch.float32)
-    return [total.to(d, non_blocking=True) for d in mesh.devices]
+        total = total + p
+    return [total.to(mesh.devices[i], non_blocking=True)
+            for i in mesh.local]
 
 
 def ppermute(blocks: Sequence[torch.Tensor], mesh: Mesh
              ) -> List[torch.Tensor]:
     """Ring rotation by one: shard i's block moves to shard i + 1 (mod n),
-    the reference's ``perm = [(i, (i + 1) % n)]``."""
-    n = mesh.size
-    out: List[Optional[torch.Tensor]] = [None] * n
-    for i, b in enumerate(blocks):
-        j = (i + 1) % n
-        out[j] = b.to(mesh.devices[j], non_blocking=True)
+    the reference's ``perm = [(i, (i + 1) % n)]``. Across processes this
+    process's last block goes to the next rank and its first shard takes
+    the previous rank's last block (``isend``/``irecv``, host-staged);
+    the other moves stay local."""
+    local = mesh.local
+    out: List[Optional[torch.Tensor]] = [None] * len(local)
+    for k in range(len(local) - 1):
+        out[k + 1] = blocks[k].to(mesh.devices[local[k + 1]],
+                                  non_blocking=True)
+    if mesh.procs == 1:
+        out[0] = blocks[-1].to(mesh.devices[local[0]], non_blocking=True)
+        return out
+    import torch.distributed as dist
+
+    send = _host(blocks[-1])
+    recv = torch.empty_like(send)
+    reqs = [dist.isend(send, (mesh.rank + 1) % mesh.procs),
+            dist.irecv(recv, (mesh.rank - 1) % mesh.procs)]
+    for r in reqs:
+        r.wait()
+    SENT_BYTES["ppermute"] += send.numel() * send.element_size()
+    out[0] = recv.to(mesh.devices[local[0]])
     return out

@@ -78,7 +78,7 @@ def _ring_sums(mesh: Mesh, xs: List[torch.Tensor],
                         device=x.device) for x, o in zip(xs, ohs)]
     ys, oys = list(xs), list(ohs)
     for step in range(mesh.size):
-        for s in range(mesh.size):
+        for s in range(len(xs)):  # this process's shards
             for r in _row_blocks(xs[s].shape[0], ys[s].shape[0]):
                 accs[s][r] += distance_tile(xs[s][r], ys[s]) @ oys[s]
         if step + 1 < mesh.size:
@@ -107,7 +107,7 @@ def ring_cluster_distance_sums(
     n = xd.shape[0]
     xs, _ = pad_and_shard(xd, mesh, 0)
     ohs, _ = pad_and_shard(_as_tensor(onehot).to(torch.float32), mesh, 0)
-    return gather(_ring_sums(mesh, xs, ohs), 0, xd.device)[:n]
+    return gather(_ring_sums(mesh, xs, ohs), 0, xd.device, mesh=mesh)[:n]
 
 
 def sharded_silhouette_widths(
@@ -161,7 +161,7 @@ def _ring_knn(mesh: Mesh, xd: torch.Tensor, k: int
                          device=b.device) for b in xs]
     ys, yids = list(xs), list(ids)
     for step in range(mesh.size):
-        for s in range(mesh.size):
+        for s in range(len(xs)):  # this process's shards
             for r in _row_blocks(xs[s].shape[0], ys[s].shape[0]):
                 d = distance_tile(xs[s][r], ys[s])
                 drop = (ids[s][r, None] == yids[s][None, :]) \
@@ -175,8 +175,8 @@ def _ring_knn(mesh: Mesh, xd: torch.Tensor, k: int
                 best_i[s][r] = torch.gather(cat_i, 1, pos)
         if step + 1 < mesh.size:
             ys, yids = ppermute(ys, mesh), ppermute(yids, mesh)
-    return (gather(best_d, 0, xd.device)[:n],
-            gather(best_i, 0, xd.device)[:n])
+    return (gather(best_d, 0, xd.device, mesh=mesh)[:n],
+            gather(best_i, 0, xd.device, mesh=mesh)[:n])
 
 
 def ring_knn(x, k: int, mesh: Optional[Mesh] = None,

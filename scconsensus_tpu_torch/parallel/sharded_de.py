@@ -146,8 +146,8 @@ def _ranksum_on(mesh: Mesh, chunk: torch.Tensor, cid: torch.Tensor,
     reps = [put_sharded(t, mesh) for t in (n_of, pair_i, pair_j)]
     outs = [ranksum_body(b, c, n, pi, pj, n_clusters, window=window)
             for b, c, n, pi, pj in zip(blocks, cids, *reps)]
-    return tuple(gather([o[f] for o in outs], 0, chunk.device)[:gc]
-                 for f in range(3))
+    return tuple(gather([o[f] for o in outs], 0, chunk.device,
+                        mesh=mesh)[:gc] for f in range(3))
 
 
 def sharded_allpairs_ranksum(
@@ -191,7 +191,7 @@ def _wilcox_on(mesh: Mesh, data: torch.Tensor, idx, m1, m2, n1, n2
     blocks, _ = pad_and_shard(data, mesh, 0)
     reps = [put_sharded(_as_tensor(t), mesh) for t in (idx, m1, m2, n1, n2)]
     outs = [wilcoxon_pairs_tile(b, *r)[0] for b, *r in zip(blocks, *reps)]
-    return gather(outs, 1, data.device)[:, :g]
+    return gather(outs, 1, data.device, mesh=mesh)[:, :g]
 
 
 def sharded_wilcox_logp(

@@ -140,7 +140,8 @@ def distributed_refine_step(mesh: Mesh, axis_name: str = CELL_AXIS, *,
         n = scores.shape[0]
         xs, _ = pad_and_shard(scores, mesh, 0)
         ohs, _ = pad_and_shard(onehot, mesh, 0)
-        return gather(_ring_sums(mesh, xs, ohs), 0, scores.device)[:n]
+        return gather(_ring_sums(mesh, xs, ohs), 0, scores.device,
+                      mesh=mesh)[:n]
 
     return _build_step(
         agg_fn,

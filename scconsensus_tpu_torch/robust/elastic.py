@@ -159,6 +159,9 @@ class ElasticMeshSupervisor:
                 return None, mesh
             sup = cls(devices=list(mesh.devices), ids=list(mesh.ids),
                       axis_name=mesh.axis_name, auto=False)
+            # the caller's mesh itself until a shrink (a mesh that spans
+            # processes carries its group's split)
+            sup._mesh, sup._mesh_built = mesh, True
         return sup, sup.mesh
 
     def _shard_list(self) -> List[Tuple[int, torch.device]]:
@@ -235,7 +238,16 @@ class ElasticMeshSupervisor:
         answers: the injected case, and transient wedges) halves onto the
         lowest ids, so the ladder is deterministic: 8 → 4 → 2 → 1. Raises
         :class:`DeviceLossUnrecoverable` at the
-        ``SCC_ELASTIC_MIN_DEVICES`` floor."""
+        ``SCC_ELASTIC_MIN_DEVICES`` floor, and ``NotImplementedError`` on
+        a mesh that spans processes: the reference's probe there fails
+        every other process's devices, which leaves each process on its
+        own shards with no defined agreement between them."""
+        if self.mesh is not None and self.mesh.procs > 1:
+            raise NotImplementedError(
+                f"device loss at {stage} on a mesh that spans "
+                f"{self.mesh.procs} processes: shrinking it is not "
+                "supported (the reference defines no agreement between "
+                "the processes)")
         with robust_record.timed():
             before = self._shard_list()
             from_ids = sorted(i for i, _ in before) if before else [0]
@@ -254,6 +266,12 @@ class ElasticMeshSupervisor:
                 )
             self._shards = list(alive)
             self._mesh_built = False  # the next .mesh read rebuilds
+            # cached uploads may live on the lost device: evict, so the
+            # re-entered stage stages its inputs again instead of
+            # reading a dead buffer
+            from scconsensus_tpu_torch.utils.devcache import clear_cache
+
+            clear_cache()
             to_ids = sorted(i for i, _ in alive)
             robust_record.note_mesh_transition(
                 stage=stage, from_devices=from_ids, to_devices=to_ids,

@@ -38,8 +38,9 @@ admission) and ``fleet_swap`` (the start of a hot-swap), and any site a
 caller names to ``robust.retry.call``.
 
 A plan naming a ``corruption`` rule at a site that is not one of the
-in-computation corruption sites raises ``NotImplementedError`` when it is
-read, so a chaos run cannot pass by corrupting nowhere.
+in-computation corruption sites raises ``ValueError`` when it is read, so
+a chaos run cannot pass by corrupting nowhere. Neither package corrupts
+values at such a site; the reference runs that plan as a no-op.
 
 Fault classes and what they do at a compute site:
 
@@ -122,19 +123,27 @@ class InjectedDiskFault(InjectedFault):
     The out-of-core streaming layer's test vector (stream.store)."""
 
 
-# the in-computation corruption sites the port has
+# the in-computation corruption sites, the reference's seven
+# (scconsensus_tpu/robust/faults.py:67-71)
 _VALUE_SITES = ("wilcox_bucket_out", "embed_scores", "bh_logq",
                 "landmark_assign", "stream_block", "contingency_table",
                 "serve_classify")
 
 
 def _check_site(path: str, i: int, rule: Dict[str, Any]) -> None:
+    """Refuse a ``corruption`` rule at a site with no value hook. Neither
+    package corrupts values there: the reference skips such a rule in
+    ``fault_point`` and never reads it in ``corrupt_value``, so its chaos
+    run would pass without the fault. The port refuses the plan as
+    malformed, with the reference loader's ``ValueError`` (a stated
+    difference: the reference runs it as a no-op)."""
     site = str(rule["site"])
     if rule["class"] == "corruption" and site not in _VALUE_SITES:
-        raise NotImplementedError(
-            f"SCC_FAULT_PLAN {path!r}: faults[{i}] names site {site!r} "
-            "(class 'corruption'), which the port does not have as a "
-            f"corruption site; those are {', '.join(_VALUE_SITES)}"
+        raise ValueError(
+            f"SCC_FAULT_PLAN {path!r}: faults[{i}] is a 'corruption' rule "
+            f"at site {site!r}, where neither package corrupts a value "
+            "(the reference would run it as a no-op); the corruption "
+            f"sites are {', '.join(_VALUE_SITES)}"
         )
 
 

@@ -16,7 +16,12 @@ outcomes, actuations (seconds after the first) and failed checks::
 
 ``--constant-classify`` (CPU only, in this process) answers every
 request with label 1 and no device work: the wire, pool and generator's
-own capacity on this host.
+own capacity on this host. With ``--rates R1,R2,...`` it then runs the
+spike's payload steady at each rate for 4 s and prints the achieved
+rate, the late fraction, the served p50 and p99, and the time
+``json.loads`` takes on one such request body here::
+
+    python3 spike_probe.py --constant-classify --runs 96x8 --rates 20,60,100
 """
 
 import argparse
@@ -62,6 +67,38 @@ def _constant(runs, root):
               c._spike_checks(s, 1, {}, 0)[:7], t)
 
 
+def _constant_rates(rates, root):
+    import json
+
+    from scconsensus_tpu_torch.serve.fleet.loadgen import (
+        _build_request_bodies,
+        arrival_offsets,
+        resolve_mix,
+        run_load,
+    )
+
+    kw = {**c.SPIKE_SOAK, "profile": "steady", "duration_s": 4.0,
+          "autoscale": False}
+    for i, rate in enumerate(rates):
+        s = run_load(os.path.join(root, f"r{i}"), device="cpu", pumps=8,
+                     **{**kw, "base_rps": rate, "peak_rps": rate})
+        lat = s["record"]["serving"]["latency_ms"]
+        c.log(f"[probe] constant classify, steady {rate} rps, cells "
+              f"{kw['cells_per']} pumps 8: achieved {s['achieved_rps']} late "
+              f"{s['late_fraction']} served p50 {lat['p50']} p99 "
+              f"{lat['p99']} ms, outcomes {s['outcome_counts']}")
+    offs = arrival_offsets("steady", 20.0, 20.0, 2.0, c.SPIKE_SOAK["seed"])
+    bodies, _ = _build_request_bodies(offs, resolve_mix(None),
+                                      c.SPIKE_SOAK["cells_per"], 120, 4,
+                                      c.SPIKE_SOAK["seed"])
+    t = time.perf_counter()
+    for b in bodies:
+        json.loads(b)
+    c.log(f"[probe] json.loads of one {len(bodies[0])}-byte body: "
+          f"{(time.perf_counter() - t) / len(bodies) * 1e3:.3f} ms (mean of "
+          f"{len(bodies)})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", default="96x8,128x8",
@@ -70,6 +107,8 @@ def main() -> int:
                     help="steady run_load runs alone after the spikes")
     ap.add_argument("--phase44", action="store_true")
     ap.add_argument("--constant-classify", action="store_true")
+    ap.add_argument("--rates", default="",
+                    help="with --constant-classify: steady rates to run")
     args = ap.parse_args()
     runs = [tuple(int(v) for v in r.split("x"))
             for r in args.runs.split(",") if r]
@@ -77,6 +116,9 @@ def main() -> int:
     if args.constant_classify:
         try:
             _constant(runs, root)
+            if args.rates:
+                _constant_rates([float(r) for r in args.rates.split(",")],
+                                root)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         return 0

@@ -204,6 +204,37 @@ class TestHostProfilerLive:
         prof._lock.release()
         assert prof.sections()["host_profile"]["gc"]["collections"] >= 1
 
+    def test_a_collection_inside_the_tracers_locked_region_finishes(self):
+        """The callback names the open stage through ``ambient_stage``. A
+        collection can start in a thread that holds the tracer's lock (a
+        span's exit, or the sampler reading the stage): the callback must
+        not wait on that lock, and still names the stage."""
+        import threading
+
+        prof = HostProfiler(period_s=0.01)
+        tr = Tracer(sync="off")
+        gc.callbacks.append(prof._on_gc)
+        done = threading.Event()
+        stages = []
+
+        def body():
+            with tr.span("locked_stage"):
+                with tr._lock:
+                    gc.collect()
+                stages.extend(s for s, _ in prof._gc_pauses)
+            done.set()
+
+        try:
+            threading.Thread(target=body, daemon=True).start()
+            finished = done.wait(timeout=30)
+        finally:
+            gc.callbacks.remove(prof._on_gc)
+        assert finished, "the gc callback deadlocked on the tracer lock"
+        if not tr._lock.acquire(timeout=5):
+            pytest.fail("the tracer lock is still held")
+        tr._lock.release()
+        assert "locked_stage" in stages
+
     def test_stop_removes_gc_callback(self):
         prof = HostProfiler(period_s=0.01).start()
         assert prof._on_gc in gc.callbacks

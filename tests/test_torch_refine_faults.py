@@ -190,7 +190,12 @@ class TestFaultMatrix:
     def test_input_staging_oom_frees_and_uploads_again(
         self, tmp_path, monkeypatch, small_case, clean
     ):
+        from scconsensus_tpu_torch.utils import devcache
+
         data, labels = small_case
+        # the clean run cached this array's upload (utils.devcache): drop
+        # it, so the run uploads and the plan's fault fires
+        devcache.clear_cache()
         _plan(tmp_path, [{"site": "input_staging", "class": "oom"}],
               monkeypatch)
         res = port.refine(data, labels, _cfg(), device="cpu")

@@ -418,11 +418,35 @@ def test_a_plan_naming_a_mesh_site_fires_as_in_the_reference(
     {"site": "ring:distance_sums", "class": "corruption"},
     {"site": "serve_device", "class": "corruption"},
 ], ids=lambda r: f"{r['site']}-{r['class']}")
-def test_a_plan_naming_a_site_the_port_lacks_raises(tmp_path, monkeypatch,
-                                                    rule):
+def test_a_corruption_rule_at_a_site_with_no_value_hook_is_refused_where_the_reference_runs_a_no_op(
+        tmp_path, monkeypatch, rule):
+    # a stated difference: neither package corrupts a value at such a
+    # site; the reference runs the plan and fires nothing, the port
+    # refuses the plan as malformed, as the reference's loader refuses one
     _plan(tmp_path, [rule], monkeypatch)
-    with pytest.raises(NotImplementedError, match="does not have"):
+    # the reference: fault_point skips the rule and records nothing, and
+    # its code reads corruption rules only at the seven value sites
+    assert ref_faults.fault_point(rule["site"]) is None
+    assert ref_faults.fault_point("serve_batch") is None
+    assert ref_record.section() is None
+    assert _reference_value_sites() == set(faults._VALUE_SITES)
+    assert rule["site"] not in _reference_value_sites()
+    with pytest.raises(ValueError, match="neither package corrupts"):
         faults.fault_point("serve_batch")
+    with pytest.raises(ValueError, match=rule["site"]):
+        faults.corrupt_value(rule["site"], torch.zeros(3))
+
+
+def _reference_value_sites() -> set:
+    """The site names the reference's code hands ``corrupt_value``."""
+    import pathlib
+    import re
+
+    import scconsensus_tpu
+
+    root = pathlib.Path(scconsensus_tpu.__file__).parent
+    pat = re.compile(r"corrupt_value\(\s*\"([^\"]+)\"")
+    return {m for f in root.rglob("*.py") for m in pat.findall(f.read_text())}
 
 
 # --------------------------------------------------------------------------

@@ -125,12 +125,39 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
             "parallel/step.py", "parallel/validate.py", "ops/ranks.py",
             "robust/soak.py", "obs/kernels.py", "obs/export.py",
             "utils/logging.py", "ops/treecut_direct.py",
-            "de/edger_direct.py"} <= rel
+            "de/edger_direct.py", "utils/devcache.py"} <= rel
     bad = [
         f"{os.path.relpath(p, REPO)}:{line} imports {mod}"
         for p in files for mod, line in _imported_roots(p)
         if mod in ("jax", "jaxlib", "scconsensus_tpu")
     ]
+    assert not bad, bad
+
+
+def test_the_multihost_worker_imports_no_jax_or_reference():
+    """``tests/test_torch_multihost.py`` run as a script is the
+    two-process mesh's worker: its module level and every function but
+    the test and the reference's side import the port alone."""
+    path = os.path.join(REPO, "tests", "test_torch_multihost.py")
+    tree = ast.parse(open(path).read(), filename=path)
+    parent_only = {"_reference_results"}
+    scanned, bad = [], []
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and (
+                node.name.startswith("test_") or node.name in parent_only):
+            continue
+        scanned.append(getattr(node, "name", type(node).__name__))
+        for sub in ast.walk(node):
+            mods = []
+            if isinstance(sub, ast.Import):
+                mods = [a.name for a in sub.names]
+            elif isinstance(sub, ast.ImportFrom) and sub.module and \
+                    sub.level == 0:
+                mods = [sub.module]
+            bad += [f"{m}:{sub.lineno}" for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib",
+                                           "scconsensus_tpu")]
+    assert "_worker_main" in scanned
     assert not bad, bad
 
 
@@ -290,7 +317,9 @@ def test_a_ported_flag_runs(flag, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["method", "sparse_method",
-                                  "unported_flag"])
+                                  "unported_flag",
+                                  "mesh_auto_across_processes",
+                                  "device_loss_across_processes"])
 def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     import json
 
@@ -322,6 +351,36 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
             port.streaming_refine(store, labels, ReclusterConfig(),
                                   device="cpu")
         return
+    if case == "mesh_auto_across_processes":
+        # a mesh over every rank's cards waits for a machine with several
+        import torch.distributed as dist
+
+        from scconsensus_tpu_torch.parallel.mesh import auto_mesh, make_mesh
+
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
+        monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
+        with pytest.raises(NotImplementedError, match="across processes"):
+            auto_mesh("cpu")
+        with pytest.raises(NotImplementedError, match="across processes"):
+            port.refine(data, labels, ReclusterConfig(), device="cpu")
+        with pytest.raises(NotImplementedError, match="across processes"):
+            make_mesh(2, devices=["cpu", "cpu"])
+        assert make_mesh(4, device="cpu").local == range(0, 2)
+        return
+    if case == "device_loss_across_processes":
+        # the reference defines no agreement between the processes
+        from scconsensus_tpu_torch.parallel.mesh import Mesh
+        from scconsensus_tpu_torch.robust.elastic import (
+            ElasticMeshSupervisor,
+        )
+
+        mesh = Mesh(("cpu",) * 4, (0, 1, 2, 3), procs=2, rank=1)
+        sup, got = ElasticMeshSupervisor.resolve(mesh)
+        assert got is mesh and list(got.local) == [2, 3]
+        with pytest.raises(NotImplementedError, match="spans 2 processes"):
+            sup.shrink("sharded:ranksum")
+        return
     run = {
         # "mast" is a method the reference refuses as well
         "method": lambda: port.refine(
@@ -344,7 +403,7 @@ NOT_EXPORTED = {}
 
 
 @pytest.mark.parametrize("sub", ["", "consensus", "models", "de", "ops",
-                                 "utils", "obs"])
+                                 "utils", "obs", "native", "utils.devcache"])
 def test_every_all_equals_the_reference(sub):
     import importlib
 
