@@ -5439,12 +5439,17 @@ def _fleet_statuses(model_dir: str, device: str, root: str) -> dict:
         with _env(SCC_FAULT_PLAN=_write_plan(root, [{
                 "site": "serve_batch", "class": "stall", "stall_s": 0.5,
                 "times": 4}], name=f"queue-{device}.json")):
-            big = make_query_batches(14, 8, FLEET_SEED)
-            ts = [threading.Thread(target=lambda x=x: results.append(
-                _wire_post(front.port, json.dumps({"cells": x.tolist()}))))
-                for x in big]
+            # the bodies encoded first and sent 20 ms apart: each arrival
+            # misses the 1 ms batch window of the one before it, so the
+            # first two batches stall with one request each, two queue
+            # behind each, and the rest, inside the 0.5 s stall, are shed
+            bodies = [json.dumps({"cells": x.tolist()})
+                      for x in make_query_batches(14, 8, FLEET_SEED)]
+            ts = [threading.Thread(target=lambda b=b: results.append(
+                _wire_post(front.port, b))) for b in bodies]
             for t in ts:
                 t.start()
+                time.sleep(0.02)
             for t in ts:
                 t.join(timeout=120)
         shed = [(st, doc, h) for st, doc, h in results if st == 429]
@@ -6201,36 +6206,68 @@ dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{port}",
 from scconsensus_tpu_torch import recluster_de_consensus_fast
 from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
 from scconsensus_tpu_torch.parallel import mesh as pmesh
+from scconsensus_tpu_torch.robust import faults
+from scconsensus_tpu_torch.robust.elastic import DeviceLossUnrecoverable
 
 data, truth, cons = chip_smoke.phase_full_data()
 sha = chip_smoke._data_sha(data, cons)
+out = {{"rank": rank, "data_sha": sha}}
+
+
+def run(tag, **kw):
+    # one refine with the counts at 0 just before it; its result saved
+    # for the launcher, its numbers into out[tag]
+    for k in pmesh.SENT_BYTES:
+        pmesh.SENT_BYTES[k] = 0
+    distance_cluster_sums.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = recluster_de_consensus_fast(data, cons, device="cuda", **kw)
+    except DeviceLossUnrecoverable as e:
+        out[tag] = {{"raised": type(e).__name__, "message": str(e),
+                    "launches": distance_cluster_sums.launches}}
+        return
+    torch.cuda.synchronize()
+    m = res.metrics
+    np.savez(os.path.join({root!r}, "rank%d_%s.npz" % (rank, tag)),
+             log_p=res.de.log_p.cpu().numpy(),
+             de_mask=res.de.de_mask.cpu().numpy(),
+             union=res.de_gene_union_idx,
+             silhouettes=np.array([i["silhouette"]
+                                   for i in res.deep_split_info]),
+             keys=np.array(sorted(res.dynamic_labels)),
+             **{{"labels%d" % i: res.dynamic_labels[k]
+                for i, k in enumerate(sorted(res.dynamic_labels))}})
+    out[tag] = {{
+        "wall_s": time.perf_counter() - t0,
+        "launches": distance_cluster_sums.launches,
+        "sent_bytes": dict(pmesh.SENT_BYTES),
+        "kernel": m["wilcox_ladder"]["kernel"],
+        "silhouette": m["silhouette"], "stage_walls_s": m["stage_walls_s"],
+        "transitions": m.get("robustness", {{}}).get("mesh_transitions",
+                                                     []),
+        "peak_bytes": torch.cuda.max_memory_allocated()}}
+
+
+# phase 26's 4-shard mesh, 2 shards a rank
 mesh = pmesh.make_mesh(chip_smoke.MESH_SHARDS, device="cuda")
-for k in pmesh.SENT_BYTES:
-    pmesh.SENT_BYTES[k] = 0
-distance_cluster_sums.launches = 0
-torch.cuda.synchronize()
+out["local"], out["procs"] = list(mesh.local), mesh.procs
 dist.barrier()
-t0 = time.perf_counter()
-res = recluster_de_consensus_fast(data, cons, device="cuda", mesh=mesh)
-torch.cuda.synchronize()
-wall = time.perf_counter() - t0
-launches = distance_cluster_sums.launches
-m = res.metrics
-np.savez(os.path.join({root!r}, "rank%d.npz" % rank),
-         log_p=res.de.log_p.cpu().numpy(),
-         de_mask=res.de.de_mask.cpu().numpy(),
-         union=res.de_gene_union_idx,
-         silhouettes=np.array([i["silhouette"] for i in res.deep_split_info]),
-         keys=np.array(sorted(res.dynamic_labels)),
-         **{{"labels%d" % i: res.dynamic_labels[k]
-            for i, k in enumerate(sorted(res.dynamic_labels))}})
-print("MESH2 " + json.dumps({{
-    "rank": rank, "local": list(mesh.local), "procs": mesh.procs,
-    "data_sha": sha, "wall_s": wall, "launches": launches,
-    "sent_bytes": dict(pmesh.SENT_BYTES),
-    "kernel": m["wilcox_ladder"]["kernel"],
-    "silhouette": m["silhouette"], "stage_walls_s": m["stage_walls_s"],
-    "peak_bytes": torch.cuda.max_memory_allocated()}}), flush=True)
+run("mesh", mesh=mesh)
+# (a) the default mesh="auto": every rank's card, one shard a rank
+auto = pmesh.auto_mesh("cuda")
+out["auto_mesh"] = {{"size": auto.size, "local": list(auto.local),
+                    "meta": pmesh.mesh_shape_meta(auto)}}
+dist.barrier()
+run("auto")
+# (b) the same under a device loss at stage:silhouette: rank 0 goes on
+# alone on the lowest half, rank 1 leaves the run
+os.environ["SCC_FAULT_PLAN"] = os.path.join({root!r}, "plan.json")
+faults.reset()
+dist.barrier()
+run("loss")
+print("MESH2 " + json.dumps(out), flush=True)
 dist.destroy_process_group()
 """
 
@@ -6260,28 +6297,54 @@ def _mesh_procs_start() -> dict:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     root = tempfile.mkdtemp(prefix="scc-mesh2-")
+    with open(os.path.join(root, "plan.json"), "w") as f:
+        json.dump({"faults": [{"site": "stage:silhouette",
+                               "class": "device_loss"}]}, f)
+    env = {k: v for k, v in os.environ.items() if k != "SCC_FAULT_PLAN"}
     procs = [subprocess.Popen(
         [sys.executable, "-c", _MESH2_CHILD.format(
             repo=REPO, rank=r, port=port, procs=MESH2_PROCS, root=root)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(MESH2_PROCS)]
     return {"root": root, "procs": procs, "t0": time.perf_counter()}
 
 
+def _mesh2_held(tag: str, view, ref: dict) -> None:
+    """A rank's result held to phase 7's serial run by
+    ``assert_mesh_equals_serial`` and to phase 26's labels."""
+    _mesh_contract(tag, view, _summary_view(ref["serial"]),
+                   "phase 7 serial")
+    for key, want in ref["mesh"]["labels"].items():
+        if not np.array_equal(view.dynamic_labels[key], want):
+            raise AssertionError(f"[{tag}] {key}: labels differ from "
+                                 "phase 26's")
+
+
 def phase_mesh_procs(started: dict, ref: dict) -> dict:
-    """Phase 45: the 26k flagship fast Wilcoxon on phase 26's 4-shard
-    mesh split across two processes: two children (started by
-    ``_mesh_procs_start`` beside phase 41), each on ``cuda`` with 2
-    shards of the card, joined by a gloo group (``torch.distributed``),
-    each drawing phase 6's data itself. Held:
-    both draws' sha against each other and phase 6's; each rank's result
-    by ``parallel.validate.assert_mesh_equals_serial`` against phase 7's
-    serial run and on its labels against phase 26's one-process mesh;
-    the two ranks' results the same bits. Printed: each rank's refine
-    wall, the bytes each collective sent across the group and the
-    kernel's launches (every rank computes the silhouette). ``ref``:
-    phase 7's summary (``serial``), phase 26's (``mesh``) and phase 6's
-    data sha. Returns the launches over both ranks and the numbers."""
+    """Phase 45: the 26k flagship across two processes, two children
+    (started by ``_mesh_procs_start`` beside phase 41), each on ``cuda``
+    joined by a gloo group (``torch.distributed``), each drawing phase
+    6's data itself (both draws' sha held to phase 6's). Each child runs
+    three refines in turn, each with the kernel's count at 0 just before
+    it:
+
+    * ``mesh``: phase 26's 4-shard mesh, 2 shards a rank
+      (``make_mesh(4, device="cuda")``);
+    * ``auto``: the default ``mesh="auto"``, which resolves to every
+      rank's card, 2 shards, one a rank (``cuda:0`` in each);
+    * ``loss``: ``auto`` under an injected ``device_loss`` at
+      ``stage:silhouette``: rank 0 must record the transition [0, 1] →
+      [0] and go on alone, rank 1 must raise
+      ``DeviceLossUnrecoverable`` (the fault fires at the stage's entry,
+      so rank 1 launches no kernel there); anything else fails.
+
+    Every finished run is held to phase 7's serial run by
+    ``parallel.validate.assert_mesh_equals_serial`` and to phase 26's
+    labels; the ranks' ``mesh`` and ``auto`` results the same bits.
+    Printed: each run's wall, the bytes each collective sent across the
+    group and the kernel's launches. ``ref``: phase 7's summary
+    (``serial``), phase 26's (``mesh``) and phase 6's data sha. Returns
+    the launches over both ranks of each path and the numbers."""
     import shutil
 
     root = started["root"]
@@ -6300,21 +6363,17 @@ def phase_mesh_procs(started: dict, ref: dict) -> dict:
                     f"[mesh-procs] rank {r} failed (exit {proc['rc']}): "
                     f"{proc['stderr'][-3000:]}")
             ranks.append(json.loads(lines[-1][len("MESH2 "):]))
-        views = [_mesh2_view(os.path.join(root, f"rank{r}.npz"))
-                 for r in range(MESH2_PROCS)]
+        views = {(r, tag): _mesh2_view(path) for r in range(MESH2_PROCS)
+                 for tag in ("mesh", "auto", "loss")
+                 for path in [os.path.join(root, f"rank{r}_{tag}.npz")]
+                 if os.path.exists(path)}
     finally:
         for p in started["procs"]:  # a failed rank's partner
             if p.poll() is None:
                 p.kill()
                 p.communicate()
         shutil.rmtree(root, ignore_errors=True)
-    for r, (rec, view) in enumerate(zip(ranks, views)):
-        log(f"[mesh-procs] rank {r} (shards {rec['local']} of "
-            f"{MESH_SHARDS}): refine wall {rec['wall_s']!r} s, bytes sent "
-            f"across the group by collective "
-            f"{json.dumps(rec['sent_bytes'])}, kernel launches "
-            f"{rec['launches']}, peak {rec['peak_bytes']} bytes; stage "
-            f"walls (s) {json.dumps(rec['stage_walls_s'])}")
+    for r, rec in enumerate(ranks):
         if rec["data_sha"] != ref["data_sha"]:
             raise AssertionError(f"[mesh-procs] rank {r} drew other data: "
                                  f"{rec['data_sha']} against phase 6's "
@@ -6322,33 +6381,65 @@ def phase_mesh_procs(started: dict, ref: dict) -> dict:
         if rec["procs"] != MESH2_PROCS or len(rec["local"]) != \
                 MESH_SHARDS // MESH2_PROCS:
             raise AssertionError(f"[mesh-procs] rank {r}: {rec['local']}")
-        if rec["kernel"] != "mesh-scan" or rec["launches"] != 1 or \
-                rec["silhouette"].get("engine") != "kernel":
-            raise AssertionError(f"[mesh-procs] rank {r}: kernel "
-                                 f"{rec['kernel']}, {rec['launches']} "
-                                 "launches")
-        if not rec["sent_bytes"]["gather"]:
-            raise AssertionError(f"[mesh-procs] rank {r} sent nothing")
-        _mesh_contract(f"mesh-procs-{r}", view,
-                       _summary_view(ref["serial"]),
-                       "2 processes x 2 shards, phase 7 serial")
-        for key, want in ref["mesh"]["labels"].items():
-            if not np.array_equal(view.dynamic_labels[key], want):
-                raise AssertionError(f"[mesh-procs] rank {r} {key}: labels "
-                                     "differ from phase 26's")
-    a, b = views
-    if not (np.array_equal(a.de.log_p, b.de.log_p, equal_nan=True)
-            and np.array_equal(a.de_gene_union_idx, b.de_gene_union_idx)
-            and [i["silhouette"] for i in a.deep_split_info]
-            == [i["silhouette"] for i in b.deep_split_info]):
-        raise AssertionError("[mesh-procs] the ranks' results differ")
-    out = {"wall_s": wall, "ranks": [{k: rec[k] for k in (
-        "wall_s", "sent_bytes", "launches", "peak_bytes")} for rec in ranks],
-        "launches": sum(rec["launches"] for rec in ranks)}
+        am = rec["auto_mesh"]
+        if (am["size"], am["local"], am["meta"]["device_ids"]) != (
+                MESH2_PROCS, [r], list(range(MESH2_PROCS))):
+            raise AssertionError(f"[mesh-procs] rank {r}: mesh='auto' "
+                                 f"resolved to {am}")
+        for tag in ("mesh", "auto"):
+            run = rec[tag]
+            log(f"[mesh-procs] rank {r} {tag} (shards "
+                f"{run['silhouette'].get('n_shards')}): refine wall "
+                f"{run['wall_s']!r} s, bytes sent across the group by "
+                f"collective {json.dumps(run['sent_bytes'])}, kernel "
+                f"launches {run['launches']}, peak {run['peak_bytes']} "
+                f"bytes; stage walls (s) {json.dumps(run['stage_walls_s'])}")
+            if run["kernel"] != "mesh-scan" or run["launches"] != 1 or \
+                    run["silhouette"].get("engine") != "kernel":
+                raise AssertionError(f"[mesh-procs] rank {r} {tag}: kernel "
+                                     f"{run['kernel']}, {run['launches']} "
+                                     "launches")
+            if not run["sent_bytes"]["gather"] or run["transitions"]:
+                raise AssertionError(f"[mesh-procs] rank {r} {tag}: "
+                                     f"{run['sent_bytes']}, "
+                                     f"{run['transitions']}")
+            _mesh2_held(f"mesh-procs-{tag}-{r}", views[(r, tag)], ref)
+    loss0, loss1 = ranks[0]["loss"], ranks[1]["loss"]
+    if "raised" in loss0 or (0, "loss") not in views:
+        raise AssertionError(f"[mesh-procs] rank 0 under the loss: {loss0}")
+    trans = [(t["stage"], t["from_devices"], t["to_devices"], t["cause"])
+             for t in loss0["transitions"]]
+    if trans != [("stage:silhouette", [0, 1], [0], "device_loss")] or \
+            loss0["launches"] != 1:
+        raise AssertionError(f"[mesh-procs] rank 0 under the loss: "
+                             f"{trans}, {loss0['launches']} launches")
+    _mesh2_held("mesh-procs-loss-0", views[(0, "loss")], ref)
+    if loss1.get("raised") != "DeviceLossUnrecoverable" or \
+            "all on rank 0" not in loss1["message"] or \
+            loss1["launches"] != 0 or (1, "loss") in views:
+        raise AssertionError(f"[mesh-procs] rank 1 under the loss: {loss1}")
+    log(f"[mesh-procs] loss: rank 0 went on alone ({trans[0]}), refine "
+        f"wall {loss0['wall_s']!r} s, launches {loss0['launches']}; rank 1 "
+        f"raised {loss1['raised']}: {loss1['message']}")
+    for tag in ("mesh", "auto"):
+        a, b = views[(0, tag)], views[(1, tag)]
+        if not (np.array_equal(a.de.log_p, b.de.log_p, equal_nan=True)
+                and np.array_equal(a.de_gene_union_idx, b.de_gene_union_idx)
+                and [i["silhouette"] for i in a.deep_split_info]
+                == [i["silhouette"] for i in b.deep_split_info]):
+            raise AssertionError(f"[mesh-procs] {tag}: the ranks' results "
+                                 "differ")
+    launches = {tag: sum(rec[tag]["launches"] for rec in ranks)
+                for tag in ("mesh", "auto", "loss")}
+    out = {"wall_s": wall, "launches": launches, "ranks": [
+        {tag: {k: rec[tag][k] for k in ("wall_s", "sent_bytes", "launches",
+                                        "peak_bytes") if k in rec[tag]}
+         for tag in ("mesh", "auto", "loss")} for rec in ranks]}
     log(f"[mesh-procs] both ranks' draws sha {ref['data_sha'][:16]} = "
-        "phase 6's; each rank's result = phase 7's serial run "
+        "phase 6's; every finished run = phase 7's serial run "
         "(assert_mesh_equals_serial) and phase 26's labels; the ranks the "
-        f"same bits; the children in {wall!r} s from their start")
+        f"same bits; launches by path {json.dumps(launches)}; the children "
+        f"in {wall!r} s from their start")
     return out
 
 
@@ -6532,7 +6623,9 @@ def _main(launcher) -> int:
                   for name, rec in zoo_full.items()},
                "fleet_small": fleet_small_launches,
                "fleet_atlas_query": fleet_atlas_launches,
-               "mesh_26k_2proc": mesh2["launches"]}
+               "mesh_26k_2proc": mesh2["launches"]["mesh"],
+               "mesh_auto_26k_2proc": mesh2["launches"]["auto"],
+               "elastic_26k_2proc": mesh2["launches"]["loss"]}
     comp = compilelog.snapshot()
     log("[compile] this process's compile log: " + json.dumps(comp))
     if comp["cache_hits"] < 2 or comp["compiles"] > 2:

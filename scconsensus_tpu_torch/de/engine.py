@@ -62,10 +62,13 @@ resume of blocks written on a larger mesh stamps a ``cause: "resume"``
 transition. The aggregates, gates, BH and the other tests run on the
 matrix's device as without a mesh, as in the reference.
 
-Left out against the reference: the run-space kernel with its overflow
-redo (an XLA:CPU form; the port runs the scan body, as the reference
-does on the card, so its serial checkpoint variant is ``scan``). An
-unknown method raises ``NotImplementedError``.
+The engine keeps its one rank-sum form, the scan body, on both devices.
+The reference takes the run-space form with its overflow redo on XLA:CPU
+only (:768-772); ``ops.ranksum_allpairs.ranksum_body_runspace`` is its
+port, parity API the engine does not call: the port's CPU is its test
+device, the labels are the same either way, and the serial checkpoint
+variant is ``scan``, as the reference's on the card. An unknown method
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

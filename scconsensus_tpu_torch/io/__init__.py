@@ -19,6 +19,7 @@ from scconsensus_tpu_torch.io.sparsemat import (
     aggregates_from_sparse,
     csr_to_device,
     expm1_sparse,
+    is_jax,
     is_sparse,
     mean_expm1,
     nodg,
@@ -33,6 +34,7 @@ __all__ = [
     "log_normalize",
     "DeviceCSR",
     "is_sparse",
+    "is_jax",
     "row_chunk_dense",
     "expm1_sparse",
     "mean_expm1",

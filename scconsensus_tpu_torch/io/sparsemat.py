@@ -17,7 +17,10 @@ one of three inputs and dispatches on its type, as the reference does:
 * a dense (G, N) tensor: the dense forms.
 
 ``csr_to_device`` is the reference's opt-in route for a matrix that does
-fit the card: the triplet crosses and is densified there.
+fit the card: the triplet crosses and is densified there. ``is_jax``
+(:44) is the reference's check for a ``jax.Array``, by the value's type
+and without importing JAX, so that input from the reference's device
+path can be named.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from scconsensus_tpu_torch.ops.gates import (
 __all__ = [
     "DeviceCSR",
     "is_sparse",
+    "is_jax",
     "as_csr",
     "row_chunk_dense",
     "padded_row_chunk",
@@ -173,6 +177,17 @@ def _chunk_rows(n_cells: int) -> int:
 
 def is_sparse(x) -> bool:
     return _sp.issparse(x)
+
+
+def is_jax(x) -> bool:
+    """True for a ``jax.Array`` (a concrete array, a PRNG key array or a
+    tracer), judged by the type's module and its classes alone: JAX is
+    never imported."""
+    if type(x).__module__.split(".")[0] not in ("jax", "jaxlib"):
+        return False
+    return any(c.__module__.split(".")[0] == "jax"
+               and c.__name__ in ("Array", "Tracer")
+               for c in type(x).__mro__)
 
 
 def as_csr(x):

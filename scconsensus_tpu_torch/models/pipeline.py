@@ -134,9 +134,15 @@ A ``stream.ChunkedCSRStore`` routes to the out-of-core
 serially whatever the mesh, as the reference's runner does.
 
 The mesh (``parallel.mesh``): ``mesh="auto"`` (the default) resolves to a
-mesh over every visible card when the run is on ``cuda`` with two or
-more, and to None (the serial path) on one card or the CPU; an explicit
-``parallel.mesh.Mesh`` or None pins it. ``robust.elastic``'s supervisor
+mesh over every visible card of every rank (in rank order across an
+initialized ``torch.distributed`` group, one device a rank on the CPU)
+when there are two or more, and to None (the serial path) on one card
+or the CPU in one process; an explicit
+``parallel.mesh.Mesh`` or None pins it. A mesh across processes is one
+run over one input: every rank calls ``refine()`` with the same data and
+labels (``ValueError`` on every rank otherwise, from their fingerprints),
+and a rank that does not call it leaves the others in the mesh's first
+collective until the group's timeout. ``robust.elastic``'s supervisor
 owns it for the run (``SCC_ELASTIC``): every stage guard passes its
 device-loss hook, and each stage reads the supervisor's current mesh
 when it runs, so a ``device_lost`` failure re-enters the stage on the
@@ -144,7 +150,7 @@ shrunk mesh. On a mesh the rank-sum tests shard their genes
 (``parallel.sharded_de``), the kNN graph of the kNN branch and of the
 landmark tree's kNN linkage comes from the ring, and the silhouette of
 every cut is the exact one, from one kernel pass over the embedding on
-shard 0's device (``ops.silhouette.mesh_multi_cut_silhouette``), also
+the mesh's home device (every rank's own) (``ops.silhouette.mesh_multi_cut_silhouette``), also
 past ``approx_threshold``, where the serial path takes the pooled
 estimator. Stage artifacts,
 ``de`` and the Wilcoxon blocks carry the mesh's ``mesh_shape`` stamp; a
@@ -208,7 +214,10 @@ from scconsensus_tpu_torch.robust import integrity as robust_integrity
 from scconsensus_tpu_torch.robust import record as robust_record
 from scconsensus_tpu_torch.robust import retry as robust_retry
 from scconsensus_tpu_torch.robust.contract import preflight
-from scconsensus_tpu_torch.parallel.mesh import mesh_shape_meta
+from scconsensus_tpu_torch.parallel.mesh import (
+    mesh_shape_meta,
+    require_same_on_every_rank,
+)
 from scconsensus_tpu_torch.robust.elastic import ElasticMeshSupervisor
 from scconsensus_tpu_torch.utils.artifacts import (
     ArtifactStore,
@@ -265,10 +274,14 @@ def refine(
       device: "cuda" by default; "cpu" only when asked for.
       omega: optional (F, k) random projection for the PCA embed (F = the
         DE-gene union size, k = min(n_pcs + 10, F, N)); see ``carry``.
-      mesh: "auto" (every visible card when the run is on ``cuda`` with
-        two or more, else the serial path), a ``parallel.mesh.Mesh``, or
+      mesh: "auto" (every visible card of every rank when the run is on
+        ``cuda``, one CPU device a rank across an initialized
+        ``torch.distributed`` group, when that makes two or more; else
+        the serial path), a ``parallel.mesh.Mesh``, or
         None for the serial path. A mesh run equals the serial run
-        (``parallel.validate.assert_mesh_equals_serial``).
+        (``parallel.validate.assert_mesh_equals_serial``). Across
+        processes every rank passes the same ``data`` and ``labels``
+        (``ValueError`` otherwise).
       timer: the ``utils.logging.StageTimer`` whose tracer times the
         stages (default: a new one logging to ``get_logger()``, in annotate
         mode under ``SCC_OBS_KERNELS``); ``result.metrics`` carries its
@@ -417,6 +430,11 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
 
     def _mesh():
         return supervisor.mesh if supervisor is not None else mesh
+
+    # across processes every rank must pass the same input, checked on a
+    # strided-sample fingerprint before any rank uploads or fails alone
+    if _mesh() is not None and _mesh().procs > 1:
+        require_same_on_every_rank(_mesh(), input_fingerprint(data, labels))
 
     # the matrix upload runs at the input_staging fault site
     data = as_device_matrix(data, dev)

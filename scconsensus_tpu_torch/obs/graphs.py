@@ -49,14 +49,20 @@ that program's work: ``distance.sq_dists``,
 ``distance.pearson_distance_matrix`` (the port's Pearson path normalizes
 the cells, ``ops.distance.pearson_unit_cells``),
 ``gates.compute_aggregates_cid`` (the reference's one-hot-input
-``gates.compute_aggregates`` is its matmul form here),
+``gates.compute_aggregates`` runs it here),
 ``gates.pair_gates_fast``, ``gates.pair_gates_slow``,
 ``embed.pca_scores``, ``embed.pca_scores_audited``, ``embed.pca_basis``,
 ``landmark.lloyd``, ``landmark.lloyd_sketch``, ``landmark.assign_blocks``,
 ``wilcox.allpairs_ranksum_chunk`` (``ranksum_body``),
 ``wilcox.sort_probe``, ``edger.sub_table_sorted_chunk`` and
-``edger.table_chunk``. ``wilcox.allpairs_ranksum_runspace_chunk`` has no
-port. :func:`instrumented_programs` lists them.
+``edger.table_chunk``. ``wilcox.allpairs_ranksum_runspace_chunk`` is
+never run by the port's engine and has no passport.
+:func:`instrumented_programs` lists them.
+
+:func:`passport_from_hlo` and :data:`TRANSFER_OP_KINDS` are copies of the
+reference's parser of optimized-HLO text (:73-221): it reads text and
+needs no JAX, so a passport the reference would build from a module's
+text can be built here too.
 
 The runtime mirrors ``obs.compilelog``: :func:`install_and_mark` arms the
 registry (gated on ``SCC_GRAPHS``), :func:`instrument` wraps a program
@@ -85,6 +91,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import re
 import sys
 import threading
 import time
@@ -96,6 +103,8 @@ from scconsensus_tpu_torch.config import env_flag
 
 __all__ = [
     "GRAPHS_VERSION",
+    "TRANSFER_OP_KINDS",
+    "passport_from_hlo",
     "TRANSFER_OPS",
     "HOST_SYNC_OPS",
     "build_passport",
@@ -184,6 +193,135 @@ def build_passport(
         "host_callbacks": {"count": len(callbacks),
                            "sites": [dict(s) for s in callbacks]},
         "donation": {"declared": 0, "hits": 0, "misses": 0},
+        "buffers": buffers,
+        "capture_s": round(float(capture_s), 6),
+    }
+    if cost:
+        passport["cost"] = {k: float(v) for k, v in cost.items()}
+    return passport
+
+
+# ---- the reference's HLO-text passport (a copy of :73-221) --------------
+
+# HLO op kinds that are host<->device (or cross-device) data movement
+# inside a compiled program; host-memory-space copies are caught apart
+TRANSFER_OP_KINDS = frozenset((
+    "infeed", "outfeed",
+    "send", "send-done", "recv", "recv-done",
+))
+
+# XLA marks host-memory-space buffers S(5) in layouts: a copy touching
+# one is a device<->host transfer
+_HOST_SPACE = "S(5)"
+_COPY_KINDS = frozenset(("copy", "copy-start", "copy-done"))
+
+# one HLO instruction: `  [ROOT] %name = <type> op-kind(...)`
+_OP_RE = re.compile(
+    r"^\s*(?:ROOT\s+)?%?[\w.\-]+\s*=\s*(?:\([^=]*\)|\S+)\s+"
+    r"([a-zA-Z][\w\-]*)\("
+)
+_META_RE = re.compile(r'source_file="([^"]*)"\s+source_line=(\d+)')
+_TARGET_RE = re.compile(r'custom_call_target="([^"]*)"')
+# module-header donation evidence: input_output_alias={ {}: (0, {}, ...) }
+_ALIAS_BLOCK_RE = re.compile(r"input_output_alias=\{(.*?)\}\s*(?:,|$)")
+_ALIAS_PARAM_RE = re.compile(r"\(\s*(\d+)\s*,")
+
+
+def _hlo_where(line: str) -> Optional[str]:
+    """``file:line`` from an HLO op's metadata, repo-relative when
+    possible."""
+    m = _META_RE.search(line)
+    if not m:
+        return None
+    path, lineno = m.group(1), m.group(2)
+    for marker in ("/scconsensus_tpu/", "/tools/", "/tests/"):
+        i = path.find(marker)
+        if i >= 0:
+            path = path[i + 1:]
+            break
+    return f"{path}:{lineno}"
+
+
+def _hlo_callback(kind: str, line: str) -> Optional[str]:
+    """The custom-call target when this op is a host callback, else
+    None."""
+    if kind != "custom-call":
+        return None
+    m = _TARGET_RE.search(line)
+    if m and "callback" in m.group(1):
+        return m.group(1)
+    return None
+
+
+def _hlo_transfer(kind: str, line: str) -> bool:
+    if kind in TRANSFER_OP_KINDS:
+        return True
+    return kind in _COPY_KINDS and _HOST_SPACE in line
+
+
+def passport_from_hlo(
+    program: str,
+    hlo_text: str,
+    donated: int = 0,
+    memory: Optional[Dict[str, Any]] = None,
+    cost: Optional[Dict[str, Any]] = None,
+    stage: Optional[str] = None,
+    entry_ordinal: int = 1,
+    capture_s: float = 0.0,
+) -> Dict[str, Any]:
+    """One graph passport from optimized-HLO text (pure), the reference's
+    exactly. ``donated`` is the number of declared donated buffers; hits
+    are the module header's ``input_output_alias`` entries, misses the
+    declared remainder. ``memory`` carries XLA's ``CompiledMemoryStats``
+    fields as a plain dict; ``cost`` the normalized cost-analysis dict."""
+    histogram: Dict[str, int] = {}
+    fusions = 0
+    transfers: List[Dict[str, Any]] = []
+    callbacks: List[Dict[str, Any]] = []
+    alias_hits = 0
+    for line in hlo_text.splitlines():
+        if "input_output_alias={" in line:
+            blk = _ALIAS_BLOCK_RE.search(line)
+            if blk:
+                alias_hits = len(_ALIAS_PARAM_RE.findall(blk.group(1)))
+        m = _OP_RE.match(line)
+        if not m:
+            continue
+        kind = m.group(1)
+        histogram[kind] = histogram.get(kind, 0) + 1
+        if kind == "fusion":
+            fusions += 1
+        target = _hlo_callback(kind, line)
+        if target is not None:
+            callbacks.append({"target": target, "where": _hlo_where(line)})
+        elif _hlo_transfer(kind, line):
+            transfers.append({"op": kind, "where": _hlo_where(line)})
+    hits = min(alias_hits, donated) if donated else alias_hits
+    misses = max(0, donated - alias_hits)
+    buffers: Dict[str, int] = {}
+    if memory:
+        for key in ("argument_bytes", "output_bytes", "temp_bytes",
+                    "alias_bytes", "generated_code_bytes"):
+            v = memory.get(key)
+            if isinstance(v, (int, float)):
+                buffers[key] = int(v)
+        buffers["peak_bytes"] = max(0, (
+            buffers.get("argument_bytes", 0)
+            + buffers.get("output_bytes", 0)
+            + buffers.get("temp_bytes", 0)
+            - buffers.get("alias_bytes", 0)
+        ))
+    passport: Dict[str, Any] = {
+        "program": program,
+        "stage": stage,
+        "entry_ordinal": int(entry_ordinal),
+        "ops": sum(histogram.values()),
+        "op_histogram": {k: histogram[k] for k in sorted(histogram)},
+        "fusions": fusions,
+        "transfer_ops": {"count": len(transfers), "sites": transfers},
+        "host_callbacks": {"count": len(callbacks), "sites": callbacks},
+        "donation": {"declared": int(donated), "hits": int(hits),
+                     "misses": int(misses)},
         "buffers": buffers,
         "capture_s": round(float(capture_s), 6),
     }

@@ -4,8 +4,8 @@ The (genes × cells) matrix is reduced against the cell→cluster map once,
 and every pair's Seurat gates (pct, mean expression, |logFC|) come from the
 (genes × clusters) aggregates: masks, never ragged selections. The torch
 form of ``scconsensus_tpu/ops/gates.py`` ``ClusterAggregates`` (:35-60),
-``compute_aggregates_cid`` (:80-118), ``pair_gates_fast`` (:128-166) and ``pair_gates_slow``
-(:169-196).
+``compute_aggregates`` (:63-77) and ``compute_aggregates_cid`` (:80-118),
+``pair_gates_fast`` (:128-166) and ``pair_gates_slow`` (:169-196).
 
 The aggregates come in the reference's two forms. ``"segment"``: segment
 sums over cells at each cell's cluster id, O(G·N), the form the reference
@@ -16,7 +16,7 @@ default picks the matmul form on ``cuda`` and the segment form on the CPU.
 Graph passports (``obs.graphs``, ``SCC_GRAPHS``) under the reference's
 names (:199-205): ``gates.compute_aggregates_cid``,
 ``gates.pair_gates_fast`` and ``gates.pair_gates_slow``. The reference's
-one-hot-input ``gates.compute_aggregates`` is the matmul form of
+one-hot-input ``gates.compute_aggregates`` runs
 ``compute_aggregates_cid`` here, so its passport is that one's.
 """
 
@@ -29,8 +29,8 @@ import torch
 
 from scconsensus_tpu_torch.obs.graphs import instrument as _passport
 
-__all__ = ["ClusterAggregates", "compute_aggregates_cid", "pair_gates_fast",
-           "pair_gates_slow"]
+__all__ = ["ClusterAggregates", "compute_aggregates", "compute_aggregates_cid",
+           "pair_gates_fast", "pair_gates_slow"]
 
 
 @dataclasses.dataclass
@@ -55,6 +55,27 @@ class ClusterAggregates:
     def pct(self) -> torch.Tensor:
         """Percent of cells expressing, Seurat's pct.1/pct.2 scale (0-100)."""
         return 100.0 * self.nnz / torch.clamp(self.counts, min=1.0)[None, :]
+
+
+def compute_aggregates(data: torch.Tensor,
+                       onehot: torch.Tensor) -> ClusterAggregates:
+    """The reference's one-hot signature: ``data`` (G, N), ``onehot``
+    (N, K) 0/1 cluster membership with at most one 1 a row (an all-zero
+    row excludes its cell). Runs ``compute_aggregates_cid`` on the ids the
+    one-hot encodes, in the form ``data``'s device picks; a weighted or multi-membership ``onehot``, which the
+    reference's matmul would take, raises ``ValueError``."""
+    onehot = torch.as_tensor(onehot)
+    member = onehot != 0
+    if bool((member & (onehot != 1)).any()) or \
+            bool((member.sum(dim=1) > 1).any()):
+        raise ValueError("onehot must be 0/1 with at most one 1 a row: a "
+                         "weighted or multi-membership one-hot has no "
+                         "cluster-id form")
+    cid = torch.where(member.any(dim=1),
+                      member.to(torch.float32).argmax(dim=1),
+                      torch.full((onehot.shape[0],), -1,
+                                 device=onehot.device))
+    return compute_aggregates_cid(data, cid, int(onehot.shape[1]))
 
 
 def compute_aggregates_cid(data: torch.Tensor, cid: torch.Tensor,

@@ -32,10 +32,22 @@ over the one-hot cluster axis and flat gathers of pair entries, O(W·K)
 pair selections (the form it takes on an accelerator). None picks by the
 chunk's device.
 
+``ranksum_body_runspace`` (:321-470) is the reference's tied-run form of
+the same statistic, with its overflow output (the tied runs a gene holds;
+entries past ``run_cap`` are invalid). The port's engine keeps its one
+rank-sum form, the scan body, on both devices, where the reference's
+engine takes the run-space form on XLA:CPU only
+(``scconsensus_tpu/de/engine.py:768-772``): the port's CPU is its test
+device, and the labels are the same either way. Its tables are built in
+the reference's CPU forms (scatter-adds and per-cell gathers, O(W·K)),
+on any device.
+
 Graph passports (``obs.graphs``, ``SCC_GRAPHS``) under the reference's
-names (:472-483): ``ranksum_body`` is ``wilcox.allpairs_ranksum_chunk``,
-``sort_probe`` is ``wilcox.sort_probe``. The reference's third program,
-``wilcox.allpairs_ranksum_runspace_chunk``, has no port.
+names (:472-483): ``ranksum_body`` is ``wilcox.allpairs_ranksum_chunk``
+(``allpairs_ranksum_chunk``, the reference's public name for it, is the
+same function), ``sort_probe`` is ``wilcox.sort_probe``. The engine never
+runs the run-space form, so ``allpairs_ranksum_runspace_chunk`` (the same
+function as ``ranksum_body_runspace``) has no passport.
 """
 
 from __future__ import annotations
@@ -47,11 +59,17 @@ import torch
 from scconsensus_tpu_torch.obs.graphs import instrument as _passport
 from scconsensus_tpu_torch.ops.wilcoxon import wilcoxon_from_ranks
 
-__all__ = ["ranksum_body", "sort_probe", "chunk_genes_for_budget",
-           "ALLPAIRS_ELEM_BUDGET"]
+__all__ = ["allpairs_ranksum_chunk", "allpairs_ranksum_runspace_chunk",
+           "ranksum_body", "ranksum_body_runspace", "chunk_genes_for_budget",
+           "sort_probe", "RUN_CAP", "ALLPAIRS_ELEM_BUDGET"]
 
 # Element budget for the (Gc, K, N) working tensors (~6 live at once).
 ALLPAIRS_ELEM_BUDGET = 320_000_000
+
+# Upper bound on the run-space form's tied-run table height (a memory
+# guard): the height is pow2(W/2), the most size-≥2 runs a W-wide window
+# holds, so only windows wider than 2·RUN_CAP can overflow it.
+RUN_CAP = 65536
 
 
 def chunk_genes_for_budget(n_cells: int, n_clusters: int) -> int:
@@ -227,5 +245,104 @@ def _pairs_finish(u_mat, B, nnz_k, n_of, pair_i, pair_j, n_clusters: int,
     return log_p, u_out, tie_sum
 
 
+def ranksum_body_runspace(
+    chunk: torch.Tensor,
+    cid: torch.Tensor,
+    n_of: torch.Tensor,
+    pair_i: torch.Tensor,
+    pair_j: torch.Tensor,
+    n_clusters: int,
+    window: int = 0,
+    run_cap: int = RUN_CAP,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tied-run formulation of ``ranksum_body``: one cumsum, no fills.
+
+    A position p in a size-1 run has L_j(p) + E_j(p)/2 = S_j(p) − C_j(p)
+    straight from the inclusive cumsum S; positions in size-≥2 runs go
+    through a per-run table, with R[k, t] = # cells of cluster k in tied
+    run t and Lg[j, t] = # j-cells strictly before the run:
+
+        U[i, j] = Σ_{p untied} C_i(S_j − C_j) + Σ_t R_i·(Lg_j + R_j/2),
+        B[k, l] = diag(# untied positions of k) + Σ_t R_k²·R_l,
+
+    the scan body's statistic exactly (size-1 runs add t³−t = 0 to the tie
+    moments). The table height is min(run_cap, pow2(W/2)); the tables are
+    filled by scatter-adds and read back per cell by gathers. Returns
+    (log_p, u, tie_sum, n_tied_runs), each statistic (Gc, P); entries of a
+    gene whose ``n_tied_runs > run_cap`` had tail runs merged and are
+    invalid (the reference's engine redoes those genes with the scan
+    body). ``window`` and pre-compacted (Gc, W) ``cid`` rows as in
+    ``ranksum_body``.
+    """
+    Gc, N = chunk.shape
+    K = n_clusters
+    dev = chunk.device
+    sparse_mode = window > 0
+    w_eff = min(window, N) if sparse_mode else N
+    key = -chunk if sparse_mode else chunk
+    sv, perm = torch.sort(key, dim=1, stable=True)
+    cid = cid.to(device=dev, dtype=torch.int64)
+    scid = torch.gather(cid, 1, perm) if cid.dim() == 2 else cid[perm]
+    if sparse_mode:
+        sv = sv[:, :w_eff]
+        scid = torch.where(sv < 0, scid[:, :w_eff],
+                           torch.full_like(scid[:, :w_eff], -1))
+    W = sv.shape[1]
+    oh_k = (scid[:, :, None] == torch.arange(K, device=dev)[None, None, :]
+            ).to(torch.float32)                          # (Gc, W, K)
+    S = torch.cumsum(oh_k, dim=1)                        # inclusive
+    SmC = S - oh_k                                       # strictly before
+
+    no = torch.zeros((Gc, 1), dtype=torch.bool, device=dev)
+    same_prev = torch.cat([no, sv[:, 1:] == sv[:, :-1]], dim=1)
+    same_next = torch.cat([same_prev[:, 1:], no], dim=1)
+    tied = same_prev | same_next                         # (Gc, W)
+    if sparse_mode:
+        # the window's all-zero tail is excluded already; it must not
+        # count as a tied run
+        tied = tied & (sv < 0)
+    tstart = tied & ~same_prev
+    tid_raw = torch.cumsum(tstart.to(torch.int64), dim=1) - 1
+    n_truns = tid_raw[:, -1] + 1                         # tied runs a gene
+    T = int(min(run_cap, 1 << max(W // 2 - 1, 1).bit_length()))
+    tid = torch.clamp(tid_raw, 0, T - 1)
+    rows = torch.arange(Gc, device=dev)[:, None]
+
+    def scatter(height: int, idx: torch.Tensor, vals: torch.Tensor):
+        # (Gc, W, K) values added into (Gc, height, K) rows idx (Gc, W)
+        flat = (rows * height + idx).reshape(-1)
+        out = torch.zeros((Gc * height, K), dtype=torch.float32, device=dev)
+        return out.index_add_(0, flat, vals.reshape(-1, K)).view(
+            Gc, height, K)
+
+    tied_f = tied[:, :, None].to(torch.float32)
+    R = scatter(T, tid, oh_k * tied_f)                   # (Gc, T, K)
+    Lg = scatter(T, tid, SmC * tstart[:, :, None].to(torch.float32))
+    untied_k = torch.sum(oh_k * (1.0 - tied_f), dim=1)   # (Gc, K)
+    valid = scid >= 0
+    trash = torch.full_like(scid, K)
+    idx_un = torch.where(valid & ~tied, scid, trash)
+    idx_t = torch.where(tied & valid, scid, trash)
+    tidb = tid[:, :, None].expand(Gc, W, K)
+    Xg = torch.gather(Lg + 0.5 * R, 1, tidb)             # (Gc, W, K)
+    u_mat = (scatter(K + 1, idx_un, SmC)
+             + scatter(K + 1, idx_t, Xg))[:, :K, :]
+    Rg = torch.gather(R, 1, tidb)
+    r_own = torch.sum(Rg * oh_k, dim=2)                  # (Gc, W)
+    B = scatter(K + 1, idx_t, Rg * r_own[:, :, None])[:, :K, :]
+    B = B + untied_k[:, :, None] * torch.eye(K, device=dev)[None]
+    log_p, u_out, tie_sum = _pairs_finish(
+        u_mat, B, S[:, -1, :], n_of, pair_i, pair_j, K, sparse_mode,
+        dev.type == "cpu")
+    # a gene past the effective height T (below run_cap at small windows)
+    # must read as over the cap too
+    n_truns = torch.where(n_truns > T,
+                          torch.clamp(n_truns, min=run_cap + 1), n_truns)
+    return log_p, u_out, tie_sum, n_truns
+
+
 ranksum_body = _passport("wilcox.allpairs_ranksum_chunk", ranksum_body)
 sort_probe = _passport("wilcox.sort_probe", sort_probe)
+# the reference's public names of the two bodies
+allpairs_ranksum_chunk = ranksum_body
+allpairs_ranksum_runspace_chunk = ranksum_body_runspace

@@ -1,11 +1,13 @@
 """Seurat-style DE tests of the fast path: bimod LRT, Welch t, AUC.
 
-The torch form of the pair forms of ``scconsensus_tpu/ops/seurat_tests.py``
-(``:32-197``): the zero-inflated-normal likelihood from sufficient
-statistics, the bimod likelihood-ratio test and the two-sided Welch t for
-all pairs straight from the per-cluster aggregates, and the AUC and
-Seurat's marker power from the Mann-Whitney U. The reference's (B, G, W)
-tile forms have no caller on the fast path and are not ported.
+The torch form of ``scconsensus_tpu/ops/seurat_tests.py`` (``:32-197``):
+the zero-inflated-normal likelihood from sufficient statistics, the bimod
+likelihood-ratio test and the two-sided Welch t for all pairs straight
+from the per-cluster aggregates, and the AUC and Seurat's marker power
+from the Mann-Whitney U. The reference's (B, G, W) tile forms,
+``bimod_lrt_tile`` and ``welch_t_tile``, take masked cells instead of
+aggregates; the fast path does not call them, and they share the pair
+forms' bodies here.
 
 Library names map one to one: ``gammaincc`` → ``torch.special.gammaincc``,
 ``gammaln`` → ``torch.lgamma``, ``betainc`` → ``ops.special.betainc``
@@ -28,7 +30,8 @@ import torch
 from scconsensus_tpu_torch.ops.gates import ClusterAggregates
 from scconsensus_tpu_torch.ops.special import betainc, flush_log
 
-__all__ = ["bimod_lrt_pairs", "welch_t_pairs", "auc_from_u"]
+__all__ = ["bimod_lrt_tile", "welch_t_tile", "bimod_lrt_pairs",
+           "welch_t_pairs", "auc_from_u"]
 
 _PI_CLIP_LO = 1e-5  # Seurat's MinMax(…, 1e-5, 1-1e-5) on the positive fraction
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -53,6 +56,17 @@ def _zinorm_loglik_stats(n, n_pos, s, ss):
                - quad / (2.0 * sd * sd))
     lik_zero = n_zero * torch.log1p(-frac)
     return lik_zero + lik_pos
+
+
+def _zero_inflated_loglik(vals, mask, xmin: float):
+    """Per-cell-tile form of ``_zinorm_loglik_stats`` (vals/mask (..., W);
+    positives are entries > xmin among masked cells)."""
+    pos = mask & (vals > xmin)
+    n = mask.sum(dim=-1).to(torch.float32)
+    n_pos = pos.sum(dim=-1).to(torch.float32)
+    vp = torch.where(pos, vals, 0.0)
+    return _zinorm_loglik_stats(n, n_pos, vp.sum(dim=-1),
+                                (vp * vp).sum(dim=-1))
 
 
 def _chi2_3_log_sf(lrt):
@@ -84,6 +98,39 @@ def _pair_stats(agg: ClusterAggregates, k: torch.Tensor):
     """(n (P, 1), nnz, Σx, Σx² (P, G)) of the clusters ``k`` (P,)."""
     return (agg.counts[k][:, None], agg.nnz[:, k].T, agg.sum_log[:, k].T,
             agg.sum_sq[:, k].T)
+
+
+def bimod_lrt_tile(vals: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+                   xmin: float = 0.0) -> torch.Tensor:
+    """Likelihood-ratio test of separate vs pooled zero-inflated normal
+    fits, χ² with 3 df (DifferentialLRT, R/reclusterDEConsensusFast.R:
+    110-133). vals: (B, G, W); m1/m2: (B, W) boolean masks (broadcast
+    over genes). Returns (B, G) log p-values."""
+    m1e, m2e = m1[:, None, :], m2[:, None, :]
+    lrt = 2.0 * (_zero_inflated_loglik(vals, m1e, xmin)
+                 + _zero_inflated_loglik(vals, m2e, xmin)
+                 - _zero_inflated_loglik(vals, m1e | m2e, xmin))
+    log_p = _chi2_3_log_sf(torch.clamp(lrt, min=0.0))
+    n1 = m1.sum(dim=-1)[:, None]
+    n2 = m2.sum(dim=-1)[:, None]
+    return torch.where((n1 < 1) | (n2 < 1), float("nan"), log_p)
+
+
+def welch_t_tile(vals: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor
+                 ) -> torch.Tensor:
+    """Two-sided Welch t-test (R ``t.test`` default, var.equal=FALSE;
+    reference per-gene loop R/reclusterDEConsensusFast.R:185-196). vals:
+    (B, G, W); m1/m2: (B, W) boolean masks. Returns (B, G) log p-values."""
+
+    def moments(mask):
+        n = mask.sum(dim=-1).to(torch.float32)
+        v = torch.where(mask, vals, 0.0)
+        mean = v.sum(dim=-1) / torch.clamp(n, min=1.0)
+        var = ((v * v).sum(dim=-1) - n * mean * mean) / torch.clamp(
+            n - 1.0, min=1.0)
+        return n, mean, torch.clamp(var, min=0.0)
+
+    return _welch_log_p(*moments(m1[:, None, :]), *moments(m2[:, None, :]))
 
 
 def bimod_lrt_pairs(agg: ClusterAggregates, pair_i: torch.Tensor,

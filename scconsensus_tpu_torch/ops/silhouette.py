@@ -10,8 +10,8 @@ plain version on the CPU); the N×N matrix never exists. The torch form of
 (:236) and ``mean_cluster_silhouette`` (:255-270).
 
 On a mesh (``mesh_multi_cut_silhouette``) the embedding, (N, d) with
-d ≤ 15 and so small beside the N² distance work, goes to shard 0's device
-and the kernel scores every cut in one pass. The reference's mesh instead
+d ≤ 15 and so small beside the N² distance work, goes to this process's
+first shard's device (``Mesh.home``: shard 0's in one process) and the kernel scores every cut in one pass. The reference's mesh instead
 runs its XLA ring once per cut; the port keeps that ring as
 ``parallel.ring.sharded_silhouette_widths``, which gives the same widths
 (within 1e-4) without the kernel.
@@ -39,7 +39,6 @@ from scconsensus_tpu_torch.obs import residency
 from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
 
 __all__ = [
-    "widths_from_cluster_sums",
     "cut_labels",
     "silhouette_widths",
     "mean_cluster_silhouette",
@@ -47,6 +46,7 @@ __all__ = [
     "mesh_multi_cut_silhouette",
     "pooled_multi_cut_silhouette",
     "pooled_mean_cluster_silhouette",
+    "widths_from_cluster_sums",
 ]
 
 
@@ -111,7 +111,7 @@ def mean_cluster_silhouette(x, labels, device=None, mesh=None
                             ) -> Tuple[float, Dict[int, float]]:
     """Mean of the per-cluster average widths (the reference's reported
     silhouette) and the per-cluster breakdown. With a ``mesh`` the sums
-    run on shard 0's device (``mesh_multi_cut_silhouette``)."""
+    run on the mesh's home device (``mesh_multi_cut_silhouette``)."""
     if mesh is not None:
         if device is not None and not isinstance(x, torch.Tensor):
             x = as_points(x, device)
@@ -172,8 +172,9 @@ def mesh_multi_cut_silhouette(x, labels_list, mesh) -> List[
         Tuple[float, Dict[int, float]]]:
     """``multi_cut_silhouette`` on a mesh: the exact silhouette of every
     cut, also past ``approx_threshold`` (the reference's rule), from one
-    kernel pass on shard 0's device, where the embedding is moved (host
-    input goes there too). The fault site ``ring:distance_sums`` fires
+    kernel pass on ``mesh.home``, this process's first shard's device,
+    where the embedding is moved (host input goes there too); across
+    processes every rank scores the cuts itself. The fault site ``ring:distance_sums`` fires
     here, where the reference's mesh silhouette runs its ring, so a
     device-loss plan written for it recovers the same way."""
     from scconsensus_tpu_torch.parallel.mesh import require_mesh
@@ -181,7 +182,7 @@ def mesh_multi_cut_silhouette(x, labels_list, mesh) -> List[
 
     mesh = require_mesh(mesh)
     fault_point("ring:distance_sums")
-    return multi_cut_silhouette(as_points(x, mesh.devices[0]), labels_list)
+    return multi_cut_silhouette(as_points(x, mesh.home), labels_list)
 
 
 def pooled_multi_cut_silhouette(

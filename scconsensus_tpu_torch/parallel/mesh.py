@@ -27,16 +27,35 @@ in fp32, and hands the sum to every shard; :func:`ppermute` rotates the
 blocks by one shard, each moving to the next shard's device with
 ``non_blocking=True`` (a no-op on a shared device); :func:`gather`
 concatenates the blocks in shard order. Sharded results are gathered back
-onto the device the input lay on (shard 0's for host input).
+onto the device the input lay on (for host input, :attr:`Mesh.home`,
+shard 0's in one process).
 
 **Across processes.** Once ``torch.distributed`` is initialized with
-more than one rank, ``make_mesh(n, device=...)`` splits the ``n`` shards
-evenly across the ranks, in rank order: rank r holds shards
-``r·n/R .. (r+1)·n/R − 1`` and computes only those. ``size``, ``ids`` and
-``mesh_shape_meta`` stay global, so stamps and stores are those of a
-one-process mesh of ``n`` shards. :func:`put_sharded` and
+more than one rank, a mesh spans every rank's devices, as the
+reference's ``jax.devices()`` spans every process's. A rank's visible
+devices are every card it sees, in index order, on ``cuda`` (JAX's
+``local_devices``) and one device on the CPU (JAX's default of one CPU
+device a process; under a launcher that does not narrow
+``CUDA_VISIBLE_DEVICES`` to one card a rank, every rank of a node with
+several cards drives all of them and homes on ``cuda:0``); the global
+list joins the ranks' lists in rank order
+(an ``all_gather_object`` when the mesh is built, so every rank builds
+its meshes in the same order). ``auto_mesh`` lays a mesh over that list,
+``make_mesh(n)`` over its first ``n`` entries and
+``make_mesh(devices=...)`` over each rank's own list joined in rank
+order. Unlike the reference, whose mesh may hold shards some process
+cannot address, a :class:`Mesh` needs the same number of shards on every
+rank, rank r holding a contiguous block: a list that breaks this raises
+``ValueError``. ``make_mesh(n, device=...)`` splits ``n`` shards of each
+rank's one device evenly across the ranks. On every form rank r holds
+shards ``r·n/R .. (r+1)·n/R − 1`` and computes only those; the other
+ranks' entries of ``devices`` are names, never touched here. ``size``,
+``ids`` and ``mesh_shape_meta`` stay global, so stamps and stores are
+those of a one-process mesh of ``n`` shards. :func:`put_sharded` and
 :func:`pad_and_shard` take the same host value in every process and keep
-the local blocks (the reference's ``put_sharded`` contract). The
+the local blocks (the reference's ``put_sharded`` contract);
+:func:`require_same_on_every_rank` is how ``refine()`` refuses ranks that
+pass different inputs. The
 collectives cross the process group (the default group) over gloo with
 host-staged tensors, on the CPU and on the card alike (NCCL cannot run
 two ranks on one device): :func:`psum` gathers every shard's partial to
@@ -45,13 +64,12 @@ bits; :func:`ppermute` rotates locally and sends only the boundary block
 to the next rank; :func:`gather` returns the full result on every rank,
 so each goes on with the host tree and the cut as in one process.
 :data:`SENT_BYTES` counts what this rank sent across the group, by
-collective. ``auto_mesh`` across processes and a device loss on a mesh
-that spans processes raise ``NotImplementedError``: the first needs a
-card per rank, the second has no defined behaviour in the reference.
+collective. A device loss on such a mesh is ``robust.elastic``'s.
 
-Left out against the reference: ``drain_if_cpu_mesh`` (:131), a
-workaround for XLA:CPU's collective rendezvous, which a Python loop of
-shards cannot deadlock, and ``utils/jax_compat.py``.
+:func:`drain_if_cpu_mesh` keeps the reference's signature (:131); a
+Python loop of shards cannot deadlock as XLA:CPU's collective rendezvous
+can, so it only waits for the arrays. ``utils/jax_compat.py`` has no
+port.
 """
 
 from __future__ import annotations
@@ -65,10 +83,11 @@ import torch
 from scconsensus_tpu_torch.device import resolve_device
 
 __all__ = [
-    "Mesh", "make_mesh", "auto_mesh", "pad_axis_to_multiple",
+    "Mesh", "make_mesh", "auto_mesh", "drain_if_cpu_mesh",
+    "pad_axis_to_multiple",
     "pad_and_shard", "put_sharded", "gather", "psum", "ppermute",
     "require_dense", "require_mesh", "CELL_AXIS", "mesh_shape_meta",
-    "mesh_device_ids", "SENT_BYTES",
+    "mesh_device_ids", "SENT_BYTES", "require_same_on_every_rank",
 ]
 
 CELL_AXIS = "cells"
@@ -124,9 +143,12 @@ class Mesh:
                              f"{len(self.devices)} shards")
         if len(set(self.ids)) != len(self.ids):
             raise ValueError(f"shard ids must be distinct, got {self.ids}")
-        # a mesh on cuda with no card raises here, before any shard runs
-        object.__setattr__(self, "devices",
-                           tuple(_norm_device(d) for d in self.devices))
+        # a mesh on cuda with no card raises here, before any shard runs;
+        # another rank's entries are names, checked on that rank
+        local = self.local
+        object.__setattr__(self, "devices", tuple(
+            _norm_device(d) if i in local else torch.device(d)
+            for i, d in enumerate(self.devices)))
         object.__setattr__(self, "ids", tuple(int(i) for i in self.ids))
 
     @property
@@ -141,9 +163,16 @@ class Mesh:
         return range(self.rank * n, (self.rank + 1) * n)
 
     @property
+    def home(self) -> torch.device:
+        """The device of this process's first shard (shard 0's in one
+        process): where host input to a sharded call lands and where its
+        gathered result stays."""
+        return self.devices[self.local[0]]
+
+    @property
     def platform(self) -> str:
         """JAX's platform name for the shards' devices: "gpu" for CUDA."""
-        return "gpu" if self.devices[0].type == "cuda" else "cpu"
+        return "gpu" if self.home.type == "cuda" else "cpu"
 
 
 def require_mesh(mesh) -> Mesh:
@@ -181,38 +210,108 @@ def mesh_shape_meta(mesh: Optional[Mesh],
     }
 
 
+def require_same_on_every_rank(mesh: Optional[Mesh], value,
+                               what: str = "input") -> None:
+    """``ValueError`` on every rank unless every rank of a mesh across
+    processes passed an equal ``value`` (a fingerprint of its input): a
+    mesh run is one program over one input, and ranks that each run their
+    own would have the shards mix their data. A collective across the
+    mesh's ranks; a no-op on a one-process mesh or None."""
+    if mesh is None or mesh.procs == 1:
+        return
+    import torch.distributed as dist
+
+    got: List[object] = [None] * mesh.procs
+    dist.all_gather_object(got, value)
+    differ = [r for r, v in enumerate(got) if v != got[0]]
+    if differ:
+        raise ValueError(
+            f"a mesh across {mesh.procs} processes runs one {what} on "
+            f"every rank, but ranks {differ} passed another {what} than "
+            f"rank 0 ({got[0]!r} on rank 0, {got[differ[0]]!r} on rank "
+            f"{differ[0]})")
+
+
+def _visible_devices(device_type: str) -> List[torch.device]:
+    """This process's devices of one type: every card it sees, in index
+    order, on ``cuda`` (raises without one); one device on the CPU."""
+    if device_type == "cuda":
+        resolve_device("cuda")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def _joined(local: Sequence) -> Tuple[List[torch.device], List[int]]:
+    """Every rank's device list joined in rank order (the order of
+    ``jax.devices()``), and the rank of each entry. A collective across
+    an initialized group of more than one rank; this list alone
+    otherwise."""
+    local = [_norm_device(d) for d in local]
+    world, rank = _group_world()
+    if world == 1:
+        return local, [0] * len(local)
+    import torch.distributed as dist
+
+    lists: List[Optional[list]] = [None] * world
+    dist.all_gather_object(lists, [str(d) for d in local])
+    devs: List[torch.device] = []
+    owners: List[int] = []
+    for r, names in enumerate(lists):
+        devs += local if r == rank else [torch.device(n) for n in names]
+        owners += [r] * len(names)
+    return devs, owners
+
+
+def _global_mesh(devs: List[torch.device], owners: List[int],
+                 n_devices: Optional[int], axis_name: str) -> Mesh:
+    """A mesh over the first ``n_devices`` (default all) of a joined
+    list; ValueError unless every rank holds the same number of them."""
+    if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(
+                f"requested {n_devices} devices, only {len(devs)} available")
+        devs, owners = devs[:n_devices], owners[:n_devices]
+    world, rank = _group_world()
+    counts = [owners.count(r) for r in range(world)]
+    if len(set(counts)) != 1:
+        raise ValueError(
+            f"a mesh across {world} processes needs the same number of "
+            f"shards on every rank, rank r holding a contiguous block; "
+            f"these {len(devs)} devices give the ranks {counts} (the "
+            "reference would build a mesh some process cannot address)")
+    return Mesh(tuple(devs), tuple(range(len(devs))), axis_name,
+                procs=world, rank=rank)
+
+
 def auto_mesh(device=None, axis_name: str = CELL_AXIS) -> Optional[Mesh]:
-    """The pipeline's mesh policy (:105-112): a mesh over every visible
-    card when the run is on ``cuda`` and there are at least two, else None
-    (the serial path). ``refine(mesh="auto")`` resolves through this.
-    Across processes it raises ``NotImplementedError``: a mesh over every
-    rank's cards waits for a machine with several (pass
-    ``make_mesh(n, device=...)``)."""
-    if _group_world()[0] > 1:
-        raise NotImplementedError(
-            "mesh='auto' across processes is not supported: it needs a "
-            "card per rank; pass make_mesh(n, device=...), which splits "
-            "n shards of each rank's device across the ranks")
+    """The pipeline's mesh policy (:105-112): a mesh over every rank's
+    visible devices of ``device``'s type (every card on ``cuda``, one
+    device on the CPU; in rank order across an initialized group) when
+    there are at least two, else None (the serial path).
+    ``refine(mesh="auto")`` resolves through this: serial on one card or
+    the CPU in one process, one shard a rank on the CPU across ranks."""
     dev = resolve_device(device)
-    if dev.type != "cuda" or torch.cuda.device_count() < 2:
+    devs, owners = _joined(_visible_devices(dev.type))
+    if len(devs) < 2:
         return None
-    return make_mesh(axis_name=axis_name)
+    return _global_mesh(devs, owners, None, axis_name)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = CELL_AXIS,
               devices: Optional[Sequence] = None, device=None) -> Mesh:
-    """A mesh of ``n_devices`` shards: over the first ``n_devices`` of
-    ``devices`` (default: every visible card), or, when ``device`` is
-    given, all on that one device (``n_devices`` default 1), which is how
-    the tests and ``chip_smoke.py`` build theirs. With an initialized
-    ``torch.distributed`` group of R > 1 ranks, the ``device`` form splits
-    the ``n_devices`` shards across the ranks (each rank passes its own
-    device; ``n_devices`` a multiple of R); the other forms raise
-    ``NotImplementedError`` there."""
-    world, rank = _group_world()
+    """A mesh of ``n_devices`` shards over the first ``n_devices`` of the
+    global device list (default: all of it): every rank's ``devices``
+    (default: every card it sees) joined in rank order (:115-128). With
+    ``device``, all ``n_devices`` shards (default 1) lie on that one
+    device, split evenly across the ranks of an initialized group (each
+    rank passes its own device), which is how the tests and
+    ``chip_smoke.py`` build theirs. Across ranks every rank must hold the
+    same number of shards (``ValueError`` otherwise)."""
     if device is not None:
         if devices is not None:
             raise ValueError("pass either devices or device, not both")
+        world, rank = _group_world()
         n = 1 if n_devices is None else int(n_devices)
         if n < 1:
             raise ValueError(f"n_devices must be >= 1, got {n}")
@@ -221,22 +320,29 @@ def make_mesh(n_devices: Optional[int] = None, axis_name: str = CELL_AXIS,
                              f"{world} processes")
         return Mesh(tuple([_norm_device(device)] * n), tuple(range(n)),
                     axis_name, procs=world, rank=rank)
-    if world > 1:
-        raise NotImplementedError(
-            "a mesh over a list of devices across processes is not "
-            "supported (it needs a card per rank); pass "
-            "make_mesh(n, device=...)")
-    if devices is None:
-        resolve_device("cuda")   # raises without a card
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devs = list(devices)
-    if n_devices is not None:
-        if n_devices > len(devs):
-            raise ValueError(
-                f"requested {n_devices} devices, only {len(devs)} available")
-        devs = devs[:n_devices]
-    return Mesh(tuple(devs), tuple(range(len(devs))), axis_name)
+    devs, owners = _joined(_visible_devices("cuda") if devices is None
+                           else list(devices))
+    return _global_mesh(devs, owners, n_devices, axis_name)
+
+
+def drain_if_cpu_mesh(mesh: Mesh, *arrays) -> None:
+    """The reference's wait after a sharded launch (:131): it blocks until
+    ``arrays`` are ready on a CPU mesh, where XLA's in-process collectives
+    can deadlock with several programs in flight. Here it waits on the
+    cards the arrays (tensors, or lists and tuples of them) lie on; on a
+    CPU mesh, whose shard loop cannot deadlock and whose tensors are
+    ready when their operators return, it is a no-op."""
+    require_mesh(mesh)
+    cards = set()
+    todo = list(arrays)
+    while todo:
+        a = todo.pop()
+        if isinstance(a, (list, tuple)):
+            todo += a
+        elif isinstance(a, torch.Tensor) and a.device.type == "cuda":
+            cards.add(a.device)
+    for d in cards:
+        torch.cuda.synchronize(d)
 
 
 def require_dense(*arrays) -> None:

@@ -18,7 +18,7 @@ sweep, which ``ring_knn`` without a mesh runs: each row block against
 all N cells, the live tile (block, N).
 
 ``refine()``'s silhouette on a mesh does not take the ring: it runs the
-CUDA kernel over the whole embedding on shard 0's device
+CUDA kernel over the whole embedding on the mesh's home device
 (``ops.silhouette.mesh_multi_cut_silhouette``), one pass for every cut.
 The ring sums and :func:`sharded_silhouette_widths` are the reference's
 engine API, held against it in the tests and used by the fused step
@@ -66,7 +66,7 @@ def _points_for(x, mesh: Mesh) -> torch.Tensor:
     require_dense(x)
     if isinstance(x, torch.Tensor):
         return as_points(x)
-    return as_points(x, mesh.devices[0])
+    return as_points(x, mesh.home)
 
 
 def _ring_sums(mesh: Mesh, xs: List[torch.Tensor],

@@ -111,7 +111,7 @@ def sharded_aggregates(
         fault_point("sharded:aggregates")
         x = _as_f32(data)
         out_dev = x.device if isinstance(data, torch.Tensor) \
-            else mesh.devices[0]
+            else mesh.home
         dp, _ = pad_and_shard(x, mesh, 1)
         if cid is not None:
             if onehot is not None:
@@ -215,7 +215,7 @@ def sharded_wilcox_logp(
     mesh = require_mesh(mesh or make_mesh(axis_name=axis_name))
     x = _as_f32(data)
     if not isinstance(data, torch.Tensor):
-        x = x.to(mesh.devices[0])
+        x = x.to(mesh.home)
     with obs_trace.span("sharded_wilcox_logp", n_shards=mesh.size,
                         n_genes=int(x.shape[0])) as sp:
         attach_cost(sp, _wilcox_on, mesh, x, idx, m1, m2, n1, n2)

@@ -20,6 +20,31 @@ mesh they are handed), so the re-entered stage re-pads onto the new
 shard count by construction; a mesh shrunk to one shard serves ``None``,
 the serial path.
 
+**Across processes**, as the reference runs it (``jax.distributed``,
+measured in two CPU processes). The reference's probe answers for every
+device of the mesh, the other processes' too, so an injected loss is
+indistinct there and every process halves onto the lowest global ids.
+Here a rank probes its own shards and counts every other rank's as
+answering, which gives the same survivors. Then:
+
+  * a rank that holds every survivor goes on alone, on a one-process
+    mesh of those shards (``procs=1``, their ids kept): it records the
+    reference's transition (``from_devices`` every global id,
+    ``to_devices`` the survivors), clears the upload cache, re-enters
+    the stage from its checkpoint and makes no collective across the
+    group from then on;
+  * a rank that holds none raises :class:`DeviceLossUnrecoverable`
+    naming the ranks that do (the reference's process there is left with
+    a mesh it cannot address and fails on JAX's non-addressable fetch);
+  * survivors spread over several ranks would need a subgroup that every
+    rank builds; the reference gives no working case to hold one to, so
+    every rank raises :class:`DeviceLossUnrecoverable`.
+
+A loss that fires in one rank only (a real fault seen by one process)
+leaves the others inside their next collective until the group's
+timeout: the reference shares that hazard, and no agreement protocol is
+added here.
+
 **Shape-changing resume.** Stage artifacts and the ``_WilcoxCkpt`` bucket
 blocks carry a ``mesh_shape`` stamp (``parallel.mesh.mesh_shape_meta``,
 the reference's JSON). They hold mesh-invariant results, so a store
@@ -117,6 +142,8 @@ class ElasticMeshSupervisor:
         # card, serial below 2); an explicit list pins the starting mesh
         self._device = device
         self._shards: Optional[List[Tuple[int, torch.device]]] = None
+        # (processes, this one's rank) of the shard list's split
+        self._split: Tuple[int, int] = (1, 0)
         if devices is not None or not auto:
             devices = list(devices or [])
             ids = list(range(len(devices))) if ids is None else list(ids)
@@ -159,8 +186,8 @@ class ElasticMeshSupervisor:
                 return None, mesh
             sup = cls(devices=list(mesh.devices), ids=list(mesh.ids),
                       axis_name=mesh.axis_name, auto=False)
-            # the caller's mesh itself until a shrink (a mesh that spans
-            # processes carries its group's split)
+            # the caller's mesh itself until a shrink
+            sup._split = (mesh.procs, mesh.rank)
             sup._mesh, sup._mesh_built = mesh, True
         return sup, sup.mesh
 
@@ -171,7 +198,15 @@ class ElasticMeshSupervisor:
             m = auto_mesh(self._device, self.axis_name)
             self._shards = (list(zip(m.ids, m.devices)) if m is not None
                             else [])
+            if m is not None:
+                self._split = (m.procs, m.rank)
         return self._shards
+
+    def _local_positions(self) -> range:
+        """The positions of this process's shards in the shard list."""
+        procs, rank = self._split
+        per = len(self._shard_list()) // procs
+        return range(rank * per, (rank + 1) * per)
 
     @property
     def mesh(self):
@@ -186,7 +221,7 @@ class ElasticMeshSupervisor:
 
                 self._mesh = Mesh(tuple(d for _, d in shards),
                                   tuple(i for i, _ in shards),
-                                  self.axis_name)
+                                  self.axis_name, *self._split)
             self._mesh_built = True
         return self._mesh
 
@@ -226,10 +261,14 @@ class ElasticMeshSupervisor:
 
     def survivors(self) -> List[Tuple[int, torch.device]]:
         """The shards whose device answers the probe (each distinct
-        device probed once)."""
+        device of this process probed once; another rank's shards answer,
+        as every device answers the reference's probe)."""
         shards = self._shard_list()
-        alive = {d: self._probe_device(d) for d in {d for _, d in shards}}
-        return [(i, d) for i, d in shards if alive[d]]
+        local = self._local_positions()
+        alive = {d: self._probe_device(d)
+                 for d in {shards[p][1] for p in local}}
+        return [(i, d) for p, (i, d) in enumerate(shards)
+                if p not in local or alive[d]]
 
     def shrink(self, stage: str) -> None:
         """Rebuild the mesh on the surviving shards after a device_lost
@@ -238,16 +277,10 @@ class ElasticMeshSupervisor:
         answers: the injected case, and transient wedges) halves onto the
         lowest ids, so the ladder is deterministic: 8 → 4 → 2 → 1. Raises
         :class:`DeviceLossUnrecoverable` at the
-        ``SCC_ELASTIC_MIN_DEVICES`` floor, and ``NotImplementedError`` on
-        a mesh that spans processes: the reference's probe there fails
-        every other process's devices, which leaves each process on its
-        own shards with no defined agreement between them."""
-        if self.mesh is not None and self.mesh.procs > 1:
-            raise NotImplementedError(
-                f"device loss at {stage} on a mesh that spans "
-                f"{self.mesh.procs} processes: shrinking it is not "
-                "supported (the reference defines no agreement between "
-                "the processes)")
+        ``SCC_ELASTIC_MIN_DEVICES`` floor. On a mesh that spans processes
+        the rank that holds every survivor goes on alone and every other
+        rank raises :class:`DeviceLossUnrecoverable` (the module
+        docstring)."""
         with robust_record.timed():
             before = self._shard_list()
             from_ids = sorted(i for i, _ in before) if before else [0]
@@ -264,6 +297,8 @@ class ElasticMeshSupervisor:
                     f"shrink to ({len(before)} -> {len(alive)} devices; "
                     f"floor SCC_ELASTIC_MIN_DEVICES={self.min_devices})"
                 )
+            if self._split[0] > 1:
+                self._leave_group(stage, before, alive)
             self._shards = list(alive)
             self._mesh_built = False  # the next .mesh read rebuilds
             # cached uploads may live on the lost device: evict, so the
@@ -282,6 +317,28 @@ class ElasticMeshSupervisor:
                 "elastic mesh: device loss at %s; mesh shrunk %d -> %d "
                 "shards (%s); the stage re-enters from its last finished "
                 "checkpoint", stage, len(before), len(alive), to_ids)
+
+    def _leave_group(self, stage: str, before, alive) -> None:
+        """The survivors of a shrink across processes: this rank goes on
+        alone on them when it holds them all, else it raises."""
+        procs, rank = self._split
+        per = len(before) // procs
+        owner = {i: p // per for p, (i, _) in enumerate(before)}
+        holders = sorted({owner[i] for i, _ in alive})
+        ids = sorted(i for i, _ in alive)
+        if len(holders) > 1:
+            raise DeviceLossUnrecoverable(
+                f"device lost at {stage} on a mesh across {procs} "
+                f"processes: the surviving shards {ids} are spread over "
+                f"ranks {holders}, and a smaller mesh across them would "
+                "need a subgroup that every rank builds")
+        if holders != [rank]:
+            raise DeviceLossUnrecoverable(
+                f"device lost at {stage} on a mesh across {procs} "
+                f"processes: the surviving shards {ids} are all on rank "
+                f"{holders[0]}, which goes on alone; rank {rank} holds "
+                "none of them")
+        self._split = (1, 0)
 
     def loss_handler(self, stage: str):
         """The ``on_device_loss`` hook for ``robust.retry`` at ``stage``."""

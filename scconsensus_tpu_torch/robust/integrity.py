@@ -70,9 +70,9 @@ __all__ = [
     "enabled",
     "enforcing",
     "begin_run",
-    "live_summary",
     "current",
     "section",
+    "live_summary",
     "validate_integrity",
     "TOLERANCES",
 ]

@@ -46,9 +46,9 @@ __all__ = [
     "note_degradation",
     "note_resume_point",
     "note_mesh_transition",
-    "live_summary",
     "add_consumed",
     "section",
+    "live_summary",
     "validate_robustness",
 ]
 

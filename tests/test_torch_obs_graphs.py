@@ -402,12 +402,14 @@ def test_the_reference_programs_are_instrumented_less_runspace():
 
     got = {p for p in graphs.instrumented_programs()
            if not p.startswith("t.")}
-    # the runspace chunk has no port (its absence is pinned, not faked),
-    # and the one-hot-input aggregates are compute_aggregates_cid's
-    # matmul form
+    # the runspace chunk is parity API the engine never runs (no passport),
+    # and the one-hot-input aggregates run compute_aggregates_cid
     assert got == REFERENCE_PROGRAMS - {
         "wilcox.allpairs_ranksum_runspace_chunk", "gates.compute_aggregates"}
-    assert not hasattr(ranksum_allpairs, "allpairs_ranksum_runspace_chunk")
+    assert ranksum_allpairs.allpairs_ranksum_runspace_chunk is \
+        ranksum_allpairs.ranksum_body_runspace
+    assert not hasattr(ranksum_allpairs.ranksum_body_runspace,
+                       "__wrapped__")
 
 
 def test_capture_failure_lands_in_errors_not_raised(armed, monkeypatch):

@@ -165,8 +165,7 @@ def test_the_reference_exports_are_the_ports():
 
     assert port_parallel.__all__ == ref_parallel.__all__
     for name in ref_mesh_mod.__all__:
-        if name != "drain_if_cpu_mesh":      # an XLA:CPU workaround
-            assert hasattr(mesh_mod, name), name
+        assert hasattr(mesh_mod, name), name
 
 
 def test_string_meshes_are_refused_below_refine(rng):

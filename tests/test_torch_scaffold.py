@@ -101,7 +101,10 @@ def _imported_roots(path):
 
 
 def test_no_jax_or_reference_import_anywhere_in_the_port():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # the port's examples are the port's too
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "examples", "torch_quickstart.py"),
+             os.path.join(REPO, "examples", "torch_device_resident.py")]
     for root, dirs, names in os.walk(PORT_DIR):
         # packages only: build outputs live in plain directories
         dirs[:] = [d for d in dirs
@@ -134,13 +137,12 @@ def test_no_jax_or_reference_import_anywhere_in_the_port():
     assert not bad, bad
 
 
-def test_the_multihost_worker_imports_no_jax_or_reference():
-    """``tests/test_torch_multihost.py`` run as a script is the
-    two-process mesh's worker: its module level and every function but
-    the test and the reference's side import the port alone."""
-    path = os.path.join(REPO, "tests", "test_torch_multihost.py")
+def _scan_worker(name: str, parent_only: set) -> None:
+    """A test file that runs as a worker script: its module level and
+    every function but the tests and ``parent_only`` (the reference's
+    side) import the port alone."""
+    path = os.path.join(REPO, "tests", name)
     tree = ast.parse(open(path).read(), filename=path)
-    parent_only = {"_reference_results"}
     scanned, bad = [], []
     for node in tree.body:
         if isinstance(node, ast.FunctionDef) and (
@@ -154,11 +156,22 @@ def test_the_multihost_worker_imports_no_jax_or_reference():
             elif isinstance(sub, ast.ImportFrom) and sub.module and \
                     sub.level == 0:
                 mods = [sub.module]
-            bad += [f"{m}:{sub.lineno}" for m in mods
+            bad += [f"{name}:{m}:{sub.lineno}" for m in mods
                     if m.split(".")[0] in ("jax", "jaxlib",
                                            "scconsensus_tpu")]
     assert "_worker_main" in scanned
     assert not bad, bad
+
+
+def test_the_multihost_worker_imports_no_jax_or_reference():
+    """``tests/test_torch_multihost.py`` and
+    ``tests/test_torch_multihost_auto.py`` run as scripts are the
+    multi-process mesh's workers; each imports the port alone (the
+    second file's reference worker and its fixture's reference inputs
+    are the reference's side)."""
+    _scan_worker("test_torch_multihost.py", {"_reference_results"})
+    _scan_worker("test_torch_multihost_auto.py",
+                 {"_reference_worker_main", "_reference_inputs"})
 
 
 def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
@@ -317,9 +330,7 @@ def test_a_ported_flag_runs(flag, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["method", "sparse_method",
-                                  "unported_flag",
-                                  "mesh_auto_across_processes",
-                                  "device_loss_across_processes"])
+                                  "unported_flag"])
 def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     import json
 
@@ -351,36 +362,6 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
             port.streaming_refine(store, labels, ReclusterConfig(),
                                   device="cpu")
         return
-    if case == "mesh_auto_across_processes":
-        # a mesh over every rank's cards waits for a machine with several
-        import torch.distributed as dist
-
-        from scconsensus_tpu_torch.parallel.mesh import auto_mesh, make_mesh
-
-        monkeypatch.setattr(dist, "is_initialized", lambda: True)
-        monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-        monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
-        with pytest.raises(NotImplementedError, match="across processes"):
-            auto_mesh("cpu")
-        with pytest.raises(NotImplementedError, match="across processes"):
-            port.refine(data, labels, ReclusterConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="across processes"):
-            make_mesh(2, devices=["cpu", "cpu"])
-        assert make_mesh(4, device="cpu").local == range(0, 2)
-        return
-    if case == "device_loss_across_processes":
-        # the reference defines no agreement between the processes
-        from scconsensus_tpu_torch.parallel.mesh import Mesh
-        from scconsensus_tpu_torch.robust.elastic import (
-            ElasticMeshSupervisor,
-        )
-
-        mesh = Mesh(("cpu",) * 4, (0, 1, 2, 3), procs=2, rank=1)
-        sup, got = ElasticMeshSupervisor.resolve(mesh)
-        assert got is mesh and list(got.local) == [2, 3]
-        with pytest.raises(NotImplementedError, match="spans 2 processes"):
-            sup.shrink("sharded:ranksum")
-        return
     run = {
         # "mast" is a method the reference refuses as well
         "method": lambda: port.refine(
@@ -391,6 +372,61 @@ def test_what_the_slice_leaves_out_raises(case, tmp_path, monkeypatch):
     }[case]
     with pytest.raises(NotImplementedError):
         run()
+
+
+def _fake_group(monkeypatch, rank: int) -> None:
+    """A default group of 2 ranks with this one at ``rank``; the gather
+    of device lists hands every rank this rank's list."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda *a: rank)
+    monkeypatch.setattr(dist, "all_gather_object",
+                        lambda out, obj, *a, **k: out.__setitem__(
+                            slice(None), [obj] * len(out)))
+
+
+@pytest.mark.parametrize("case", ["mesh_auto_across_processes",
+                                  "device_loss_across_processes"])
+def test_what_was_left_out_now_runs(case, monkeypatch):
+    """The two raise cases of the multi-process mesh, now run: a mesh
+    over every rank's devices, and a device loss across processes as the
+    reference runs it (two real processes: test_torch_multihost_auto)."""
+    from scconsensus_tpu_torch.parallel.mesh import Mesh, auto_mesh, make_mesh
+    from scconsensus_tpu_torch.robust import record as robust_record
+    from scconsensus_tpu_torch.robust.elastic import (
+        DeviceLossUnrecoverable,
+        ElasticMeshSupervisor,
+    )
+
+    if case == "mesh_auto_across_processes":
+        _fake_group(monkeypatch, 0)
+        auto = auto_mesh("cpu")
+        assert (auto.size, auto.procs, auto.rank) == (2, 2, 0)
+        assert auto.local == range(0, 1)
+        sup, got = ElasticMeshSupervisor.resolve("auto", "cpu")
+        assert (got.size, got.procs, list(got.local)) == (2, 2, [0])
+        four = make_mesh(4, devices=["cpu", "cpu"])
+        assert (four.procs, four.local) == (2, range(0, 2))
+        with pytest.raises(ValueError, match=r"give the ranks \[2, 0\]"):
+            make_mesh(2, devices=["cpu", "cpu"])
+        assert make_mesh(4, device="cpu").local == range(0, 2)
+        return
+    # the survivors of the halving, shards 0 and 1, are rank 0's
+    robust_record.begin_run()
+    mesh = Mesh(("cpu",) * 4, (0, 1, 2, 3), procs=2, rank=1)
+    sup, got = ElasticMeshSupervisor.resolve(mesh)
+    assert got is mesh and list(got.local) == [2, 3]
+    with pytest.raises(DeviceLossUnrecoverable, match="all on rank 0"):
+        sup.shrink("sharded:ranksum")
+    sup, _ = ElasticMeshSupervisor.resolve(
+        Mesh(("cpu",) * 4, (0, 1, 2, 3), procs=2, rank=0))
+    sup.shrink("sharded:ranksum")
+    alone = sup.mesh
+    assert (alone.ids, alone.procs, alone.local) == ((0, 1), 1, range(2))
+    (t,) = robust_record.current_run().mesh_transitions
+    assert (t["from_devices"], t["to_devices"]) == ([0, 1, 2, 3], [0, 1])
 
 
 # --------------------------------------------------------------------------
