@@ -28,6 +28,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from scconsensus_tpu_torch.obs.trace import span
+
 __all__ = [
     "ContingencyResult",
     "contingency_table",
@@ -165,17 +167,20 @@ def plot_contingency_table(
 
     Renders the contingency heatmap to ``filename`` when given (PDF/PNG via
     the report layer; needs matplotlib) and, when ``automate_consensus`` is
-    set, returns the automated consensus label vector.
+    set, returns the automated consensus label vector. The table and the
+    consensus run in a ``consensus`` span.
     """
     if cluster_labels_1 is None or cluster_labels_2 is None:
         raise ValueError("Incomplete parameters provided.")
-    ctg = contingency_table(cluster_labels_1, cluster_labels_2)
-    if filename is not None:
-        from scconsensus_tpu_torch.report import plot_contingency_heatmap
+    with span("consensus"):
+        ctg = contingency_table(cluster_labels_1, cluster_labels_2)
+        if filename is not None:
+            from scconsensus_tpu_torch.report import plot_contingency_heatmap
 
-        plot_contingency_heatmap(ctg, filename)
-    if automate_consensus:
-        return automated_consensus(
-            cluster_labels_1, cluster_labels_2, min_clust_size=min_clust_size, ctg=ctg
-        )
+            plot_contingency_heatmap(ctg, filename)
+        if automate_consensus:
+            return automated_consensus(
+                cluster_labels_1, cluster_labels_2,
+                min_clust_size=min_clust_size, ctg=ctg
+            )
     return None

@@ -640,7 +640,8 @@ def _run_wilcox(
     # O(G) ints to plan the ladder; the decomposition needs zeros as the
     # minimum, so any negative value sends every gene to full width
     compact = isinstance(data, DeviceCSR)
-    with residency.boundary("wilcox_ladder_plan"):
+    with obs_trace.span("ladder_plan"), \
+            residency.boundary("wilcox_ladder_plan"):
         if compact:
             windowed = not bool((data.values < 0).any())
             nnz_g = data.stored_per_row()
@@ -806,22 +807,23 @@ def _run_wilcox(
     if small.size:
         # R's exact branch runs on the host by design: fetch only the
         # small pairs' rows (u and the tie indicator)
-        with residency.boundary("exact_small_pairs"):
-            rows = torch.as_tensor(small, device=dev)
-            u_small = u_stat[rows].cpu().numpy()
-            tie_small = _gather(2)[rows].cpu().numpy()
-            lp_small = log_p[rows].cpu().numpy()
-        for r, p in enumerate(small):
-            tiefree = tie_small[r] == 0
-            if tiefree.any():
-                pe = wilcoxon_exact_host(
-                    u_small[r][tiefree],
-                    int(n_of[pair_i[p]]), int(n_of[pair_j[p]]),
-                )
-                lp_small[r, np.nonzero(tiefree)[0]] = np.log(
-                    pe).astype(np.float32)
-        with residency.boundary("exact_small_pairs"):
-            log_p[rows] = torch.from_numpy(lp_small).to(dev)
+        with obs_trace.span("exact_small_pairs", n_pairs=int(small.size)):
+            with residency.boundary("exact_small_pairs"):
+                rows = torch.as_tensor(small, device=dev)
+                u_small = u_stat[rows].cpu().numpy()
+                tie_small = _gather(2)[rows].cpu().numpy()
+                lp_small = log_p[rows].cpu().numpy()
+            for r, p in enumerate(small):
+                tiefree = tie_small[r] == 0
+                if tiefree.any():
+                    pe = wilcoxon_exact_host(
+                        u_small[r][tiefree],
+                        int(n_of[pair_i[p]]), int(n_of[pair_j[p]]),
+                    )
+                    lp_small[r, np.nonzero(tiefree)[0]] = np.log(
+                        pe).astype(np.float32)
+            with residency.boundary("exact_small_pairs"):
+                log_p[rows] = torch.from_numpy(lp_small).to(dev)
     return log_p, u_stat
 
 

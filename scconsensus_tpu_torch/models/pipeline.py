@@ -45,8 +45,13 @@ the tree stage's pool where there is one.
 ``result.metrics`` keys: the tracer's ``as_dict()`` (``stages``,
 ``total_s``, ``spans``, ``schema``, ``schema_version``: every stage above
 runs inside a tracer span of the reference's name, ``de`` and
-``de_store`` excepted, whose walls the reference does not time; the
-edgeR sub-stages are ``detail`` spans), ``device``, ``stage_walls_s``,
+``de_store`` excepted, whose walls the reference does not time (while a
+profiler records they are its windows all the same); the edgeR
+sub-stages are ``detail`` spans, and so are the port's own
+``preflight``, the tree's ``lloyd``, ``pool_to_host`` and ``ward``, the
+cut's ``cutree`` (one a deepSplit), ``expand`` and ``colors``, and the
+pooled silhouette's ``pooled_widths`` and ``aggregate``), ``device``,
+``stage_walls_s``,
 ``union_size``,
 ``per_pair_de_counts``, ``wilcox_ladder`` (Wilcoxon methods: the
 rank-sum route and its buckets' occupancy, else None), ``tree_engine``
@@ -74,10 +79,11 @@ device type as the device side: every crossing span-attributed on
 ``metrics["residency"]``; enforce raises on a crossing outside the
 declared boundaries). ``SCC_OBS_COST=1`` prices the rank-sum and edgeR
 chunk bodies on their spans (``obs.cost``). ``SCC_OBS_KERNELS=<dir>``
-opens a ``torch.profiler`` window around the run (``obs.kernels``), with
-the tracer in annotate mode, and joins every CUDA kernel to the span that
-launched it (``metrics["kernels"]``, with ``vs_cost_model`` when the
-cost model ran). ``SCC_HOSTPROF=1`` samples the run thread
+opens a ``torch.profiler`` window around the run (``obs.kernels``), in
+which every span is a ``record_function`` window, as in any profiler's,
+and joins every CUDA kernel to the span that launched it
+(``metrics["kernels"]``, with ``vs_cost_model`` when the cost model
+ran). ``SCC_HOSTPROF=1`` samples the run thread
 (``obs.hostprof``; ``metrics["host_profile"]`` and
 ``["memory_timeline"]``), started here unless a profiler is already
 active. ``SCC_WILCOX_PROBE=1`` times each Wilcoxon bucket
@@ -189,6 +195,7 @@ from scconsensus_tpu_torch.io.sparsemat import rows_dense
 from scconsensus_tpu_torch.obs import hostprof
 from scconsensus_tpu_torch.obs import quality as obs_quality
 from scconsensus_tpu_torch.obs import residency as obs_residency
+from scconsensus_tpu_torch.obs import trace as obs_trace
 from scconsensus_tpu_torch.obs.cost import stage_cost_summary
 from scconsensus_tpu_torch.obs.device import TransferWatch
 from scconsensus_tpu_torch.obs.kernels import KernelCapture
@@ -283,9 +290,8 @@ def refine(
         processes every rank passes the same ``data`` and ``labels``
         (``ValueError`` otherwise).
       timer: the ``utils.logging.StageTimer`` whose tracer times the
-        stages (default: a new one logging to ``get_logger()``, in annotate
-        mode under ``SCC_OBS_KERNELS``); ``result.metrics`` carries its
-        ``as_dict()``.
+        stages (default: a new one logging to ``get_logger()``);
+        ``result.metrics`` carries its ``as_dict()``.
 
     See the module docstring for the branches past ``approx_threshold``,
     the mesh, the guard rails and the keys of ``result.metrics``.
@@ -311,9 +317,7 @@ def refine(
     robust_integrity.begin_run()
     capture = KernelCapture()
     if timer is None:
-        # the kernel join needs the spans' record_function windows in the
-        # profiler's timeline: the tracer's annotate mode
-        timer = StageTimer(get_logger(), trace=capture.enabled)
+        timer = StageTimer(get_logger())
     watch = None
     if env_flag("SCC_OBS_TRANSFERS"):
         watch = TransferWatch(device_types=(dev.type,))
@@ -441,7 +445,7 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
     G, N = data.shape
     # shape, NaN labels, a non-finite matrix and labelings with fewer than
     # two pairable clusters fail here, typed, before any stage runs
-    with robust_record.timed():
+    with robust_record.timed(), tracer.span("preflight", kind="detail"):
         preflight(data, labels, config)
     if supervisor is not None:
         # the sharded working set a shrink re-lays out (each transition's
@@ -686,28 +690,31 @@ def _refine_impl(data, labels, config: ReclusterConfig, gene_names, dev,
         def _cuts():
             out = {}
             for dsv in config.deep_split_values:
-                cut_labels = cutree_hybrid(
-                    tree, cut_points, deep_split=int(dsv),
-                    min_cluster_size=cut_min_size,
-                    pam_stage=config.pam_stage, weights=cut_weights,
-                )
+                with obs_trace.span("cutree", deep_split=int(dsv)):
+                    cut_labels = cutree_hybrid(
+                        tree, cut_points, deep_split=int(dsv),
+                        min_cluster_size=cut_min_size,
+                        pam_stage=config.pam_stage, weights=cut_weights,
+                    )
                 if pool_assign is not None:
-                    cut_labels = cut_labels[pool_assign]
+                    with obs_trace.span("expand"):
+                        cut_labels = cut_labels[pool_assign]
                 out[f"ds{dsv}"] = cut_labels
             return out
 
         cut_arrays = _guard(
             lambda: _stage_cached("cuts", _cuts), site="stage:cuts")
-        for dsv in config.deep_split_values:
-            cut_labels = cut_arrays[f"ds{dsv}"]
-            key = f"deepsplit: {dsv}"
-            dynamic_labels[key] = cut_labels
-            dynamic_colors[key] = labels_to_colors(cut_labels)
-            deep_split_info.append({
-                "deep_split": int(dsv),
-                "n_clusters": int(len(set(
-                    cut_labels[cut_labels > 0].tolist()))),
-            })
+        with obs_trace.span("colors"):
+            for dsv in config.deep_split_values:
+                cut_labels = cut_arrays[f"ds{dsv}"]
+                key = f"deepsplit: {dsv}"
+                dynamic_labels[key] = cut_labels
+                dynamic_colors[key] = labels_to_colors(cut_labels)
+                deep_split_info.append({
+                    "deep_split": int(dsv),
+                    "n_clusters": int(len(set(
+                        cut_labels[cut_labels > 0].tolist()))),
+                })
 
         if landmark_info is not None:
             # how many of the landmarks each cut uses

@@ -11,9 +11,10 @@ capture directory, parses it, and joins:
     launch on the card, under the names of their ``__global__`` functions
     (the hand kernel's ``.so`` is loaded with ``ctypes``, not as a torch
     extension, and CUPTI still sees its launches);
-  * **tracer spans**: the tracer's annotate mode wraps every span in
-    ``torch.profiler.record_function``, so span windows appear in the same
-    timeline as ``user_annotation`` events on the host.
+  * **tracer spans**: while a profiler records, every span is a
+    ``torch.profiler.record_function`` window (``obs.trace``), so span
+    windows appear in the same timeline as ``user_annotation`` events on
+    the host.
 
 A kernel runs asynchronously: its device timestamp often falls after its
 span's host window has closed. So a kernel is joined through its launch:
@@ -227,10 +228,10 @@ def launch_events(trace: Dict[str, Any]) -> Dict[int, float]:
 
 
 def annotation_windows(trace: Dict[str, Any], span_names) -> List[Dict]:
-    """Host X-events whose name is a tracer span name: the
-    ``record_function`` windows of the tracer's annotate mode
-    (category ``user_annotation``; the profiler's device-side copies,
-    ``gpu_user_annotation``, are in device time and left out)."""
+    """Host X-events whose name is a tracer span name: the spans'
+    ``record_function`` windows (category ``user_annotation``; the
+    profiler's device-side copies, ``gpu_user_annotation``, are in device
+    time and left out)."""
     names = set(span_names)
     out = []
     for e in trace.get("traceEvents") or []:

@@ -10,11 +10,13 @@ contextvar, so deep code opens child spans through the module-level
 :func:`span` without threading a tracer through every signature, and with
 no active tracer that is a no-op sink.
 
-``Tracer(annotate=True)`` wraps every span in
-``torch.profiler.record_function(name)``, so span windows appear in a
-``torch.profiler`` timeline beside the CUDA kernels they launched (the
-kernel capture, ``obs.kernels``, joins the two); outside a profiler
-window an annotation costs one no-op call. The run-record views are the
+While a ``torch.profiler`` records, whoever opened it (a benchmark,
+``SCC_OBS_KERNELS``, ``SCC_OBS_STALL_TRACE``), every span, a null span
+too, is a ``torch.profiler.record_function(name)`` window, so span
+windows appear in the profiler's timeline, on its clock, beside the CUDA
+kernels they launched (the kernel capture, ``obs.kernels``, joins the
+two). With no profiler recording a span pays one check of the profiler's
+state and makes no ``record_function`` call. The run-record views are the
 reference's: ``stage_records``, ``span_records``, ``open_stack``,
 ``live_span_records``, ``total_s``, ``as_dict`` and :func:`ambient_stage`.
 ``compile_stats`` aggregates the compile events since the tracer was
@@ -47,6 +49,8 @@ __all__ = [
     "ambient_stage",
     "last_tracer",
     "device_drain",
+    "profiling",
+    "annotation",
     "summarize_record",
     "new_trace_id",
 ]
@@ -132,6 +136,49 @@ def device_drain() -> bool:
         return True
     except Exception:
         return False
+
+
+def profiling() -> bool:
+    """True while a ``torch.profiler`` records in this process. Reads the
+    profiler's state without importing torch: False when torch is not
+    loaded."""
+    import sys
+
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    try:
+        return bool(torch.autograd._profiler_enabled())
+    except Exception:
+        return False
+
+
+def _enter_annotation(name: str):
+    """An entered ``record_function(name)`` while a profiler records, else
+    None (no ``record_function`` call)."""
+    if not profiling():
+        return None
+    try:
+        from torch.profiler import record_function
+
+        ann = record_function(name)
+        ann.__enter__()
+        return ann
+    except Exception:
+        return None
+
+
+@contextmanager
+def annotation(name: str):
+    """A profiler window named ``name`` around the block while a profiler
+    records; nothing otherwise. For a timed region that is not a span
+    (``utils.timing.StageClock``'s stages run with ``span=False``)."""
+    ann = _enter_annotation(name)
+    try:
+        yield
+    finally:
+        if ann is not None:
+            ann.__exit__(None, None, None)
 
 
 _WARNED_SYNC_VALUES = set()
@@ -270,9 +317,9 @@ class Tracer:
     """Collects a span tree for one run.
 
     ``sync``: 'stage' | 'all' | 'off' (default from the SCC_TRACE_SYNC
-    flag). ``annotate=True`` also wraps each span in
-    ``torch.profiler.record_function`` so spans show up in a profiler
-    timeline. ``sample_device=True`` snapshots the card's live and peak
+    flag). ``annotate`` is the reference's argument and changes nothing:
+    every span is a profiler window whenever a profiler records.
+    ``sample_device=True`` snapshots the card's live and peak
     bytes at each synced span exit (None on the CPU). With a ``logger``,
     every finished stage span logs one summarized line.
     """
@@ -284,7 +331,6 @@ class Tracer:
         self.spans: List[Span] = []          # finished spans, completion order
         self.logger = logger
         self.sync = sync if sync in ("stage", "all", "off") else _sync_mode()
-        self.annotate = annotate
         self.sample_device = sample_device
         # wall-clock of the last span enter/exit: a live reader's progress
         # signal
@@ -303,14 +349,17 @@ class Tracer:
         self._compile_mark = obs_device.compile_mark()
 
     # -- span lifecycle ----------------------------------------------------
-    def _should_sync(self, kind: str, override: Optional[bool]) -> bool:
-        if override is not None:
-            return override
+    def drains(self, kind: str) -> bool:
+        """Whether a span of ``kind`` drains the card at its boundaries
+        (with no per-span override)."""
         if self.sync == "all":
             return True
         if self.sync == "stage":
             return kind == "stage"
         return False
+
+    def _should_sync(self, kind: str, override: Optional[bool]) -> bool:
+        return self.drains(kind) if override is None else override
 
     @contextmanager
     def span(self, name: str, kind: str = "stage",
@@ -328,15 +377,7 @@ class Tracer:
                     self._stage_entries.get(name, 0) + 1
             self.last_transition_unix = time.time()
         do_sync = self._should_sync(kind, sync)
-        ann = None
-        if self.annotate:
-            try:
-                from torch.profiler import record_function
-
-                ann = record_function(name)
-                ann.__enter__()
-            except Exception:
-                ann = None
+        ann = _enter_annotation(name)
         if do_sync:
             # entry boundary: queued work from the PREDECESSOR retires now,
             # so it cannot be billed to this span
@@ -522,11 +563,14 @@ def ambient_stage() -> Tuple[Optional[str], int]:
 @contextmanager
 def span(name: str, kind: str = "detail", sync: Optional[bool] = None,
          **attrs: Any):
-    """Open a child span on the ambient tracer (no-op sink when none is
-    active) — the instrumentation entry point for deep engine code."""
+    """Open a child span on the ambient tracer (a sink that records
+    nothing when none is active, but is still a profiler window while a
+    profiler records) — the instrumentation entry point for deep engine
+    code."""
     tr = _ACTIVE.get()
     if tr is None:
-        yield _NullSpan()
+        with annotation(name):
+            yield _NullSpan()
         return
     with tr.span(name, kind=kind, sync=sync, **attrs) as sp:
         yield sp

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 
 from scconsensus_tpu_torch.native import ward_native
+from scconsensus_tpu_torch.obs.trace import span
 
 __all__ = ["HClustTree", "ward_linkage", "cut_tree_k", "LAST_ENGINE"]
 
@@ -78,7 +79,15 @@ def ward_linkage(
 
     ``weights`` (N,) treats each point as a pre-merged cluster of that many
     observations (the centroid-pooling approximate path); default 1.
+    Runs in a ``ward`` span whose ``engine`` attribute names the engine.
     """
+    with span("ward", n=int(np.shape(points)[0])) as sp:
+        tree = _ward(points, use_native, weights)
+        sp["engine"] = LAST_ENGINE
+    return tree
+
+
+def _ward(points, use_native: bool, weights) -> HClustTree:
     points = np.ascontiguousarray(points, dtype=np.float64)
     n = points.shape[0]
     if n < 2:

@@ -42,6 +42,7 @@ import torch
 from scconsensus_tpu_torch.device import as_points
 from scconsensus_tpu_torch.obs import residency
 from scconsensus_tpu_torch.obs.graphs import instrument as _passport
+from scconsensus_tpu_torch.obs.trace import span
 from scconsensus_tpu_torch.ops.distance import sq_dists
 from scconsensus_tpu_torch.ops.linkage import HClustTree, ward_linkage
 from scconsensus_tpu_torch.robust import faults
@@ -127,8 +128,9 @@ _assign_blocks = _passport("landmark.assign_blocks", _assign_blocks)
 def _host(cent: torch.Tensor, assign: torch.Tensor, boundary: str
           ) -> Tuple[np.ndarray, np.ndarray]:
     """Centroids (float64) and assignment on the host, the declared
-    ``boundary``'s two crossings."""
-    with residency.boundary(boundary):
+    ``boundary``'s two crossings (span ``pool_to_host``: the fetch waits
+    for the pool's device work)."""
+    with span("pool_to_host"), residency.boundary(boundary):
         return cent.cpu().numpy().astype(np.float64), assign.cpu().numpy()
 
 
@@ -153,9 +155,10 @@ def kmeans_pool(x, n_centroids: int, n_iter: int = 10, seed: int = 0,
     rng = np.random.default_rng(seed)
     init = xd[torch.as_tensor(rng.choice(n, size=m, replace=False),
                               device=xd.device)]
-    cent = _lloyd(xd, init, n_iter)
-    return _used(*_host(cent, _assign(xd, cent, _lloyd_argmin),
-                        "tree_pool_fetch"), m)
+    with span("lloyd", n_iter=int(n_iter), m=int(m)):
+        cent = _lloyd(xd, init, n_iter)
+        assign = _assign(xd, cent, _lloyd_argmin)
+    return _used(*_host(cent, assign, "tree_pool_fetch"), m)
 
 
 def pooled_ward_linkage(x, n_centroids: int = 4096, n_iter: int = 10,
@@ -222,10 +225,12 @@ def landmark_pool(x, n_landmarks: Optional[int] = None,
     init_idx = rng.choice(s, size=k, replace=False)
     sk = xd if sk_idx is None else xd[torch.as_tensor(sk_idx,
                                                       device=xd.device)]
-    cent = _lloyd_sketch(sk, sk[torch.as_tensor(init_idx,
-                                                device=xd.device)], n_iter)
-    cent, assign = _host(cent, _assign_blocks(xd, cent),
-                         "landmark_assign_fetch")
+    with span("lloyd", n_iter=int(n_iter), m=int(k), sketch=int(s)):
+        cent = _lloyd_sketch(sk, sk[torch.as_tensor(init_idx,
+                                                    device=xd.device)],
+                             n_iter)
+        assign = _assign_blocks(xd, cent)
+    cent, assign = _host(cent, assign, "landmark_assign_fetch")
     # the integrity tier: the injected corruption site, occupancy
     # conservation, and once per run the float64 ghost replay of a seeded
     # 256-row block against the fetched landmarks; a detection raises

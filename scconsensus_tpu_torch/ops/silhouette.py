@@ -36,6 +36,7 @@ import torch
 
 from scconsensus_tpu_torch.device import as_points
 from scconsensus_tpu_torch.obs import residency
+from scconsensus_tpu_torch.obs.trace import span
 from scconsensus_tpu_torch.ops.cuda_kernels import distance_cluster_sums
 
 __all__ = [
@@ -229,43 +230,49 @@ def pooled_multi_cut_silhouette(
     else:
         eval_idx = np.arange(n)
 
-    # per-cut membership tables (m, k) from every cell
-    cuts = []
-    for labels in labels_list:
-        labels = np.asarray(labels)
-        valid = labels >= 0
-        uniq, inv = np.unique(labels[valid], return_inverse=True)
-        k = uniq.size
-        cm = np.bincount(assign[valid] * max(k, 1) + inv,
-                         minlength=m * max(k, 1)).astype(np.float32)
-        cm = torch.as_tensor(cm.reshape(m, max(k, 1)), device=dev)
-        own = np.full(n, -1, np.int64)
-        own[valid] = inv
-        cuts.append((labels, k, cm, cm.sum(dim=0),
-                     torch.as_tensor(own, device=dev),
-                     torch.full((n,), float("nan"), dtype=torch.float32,
-                                device=dev)))
+    # the card pass (span pooled_widths): per-cut membership tables
+    # (m, k) from every cell, the widths block by block, fetched; then
+    # the host's per-cluster means (span aggregate)
+    with span("pooled_widths", m=int(m), n_cuts=len(labels_list)):
+        cuts = []
+        for labels in labels_list:
+            labels = np.asarray(labels)
+            valid = labels >= 0
+            uniq, inv = np.unique(labels[valid], return_inverse=True)
+            k = uniq.size
+            cm = np.bincount(assign[valid] * max(k, 1) + inv,
+                             minlength=m * max(k, 1)).astype(np.float32)
+            cm = torch.as_tensor(cm.reshape(m, max(k, 1)), device=dev)
+            own = np.full(n, -1, np.int64)
+            own[valid] = inv
+            cuts.append((labels, k, cm, cm.sum(dim=0),
+                         torch.as_tensor(own, device=dev),
+                         torch.full((n,), float("nan"), dtype=torch.float32,
+                                    device=dev)))
 
-    assign_d = torch.as_tensor(assign, device=dev)
-    c2 = torch.sum(cents * cents, dim=1)[None, :]
-    for b0 in range(0, eval_idx.size, block):
-        rows = torch.as_tensor(eval_idx[b0:b0 + block], device=dev)
-        xb = xd[rows]
-        d2 = (torch.sum(xb * xb, dim=1, keepdim=True)
-              - (2.0 * xb) @ cents.T + c2)
-        d = torch.sqrt(torch.clamp(d2, min=0.0))            # (b, m)
-        d_self = d[torch.arange(rows.numel(), device=dev), assign_d[rows]]
-        for _labels, k, cm, counts, own, w in cuts:
-            if k < 2:
-                continue
-            ok = torch.nonzero(own[rows] >= 0).squeeze(1)
-            ob = own[rows][ok]
-            sums = d @ cm                                   # (b, k)
-            sums[ok, ob] -= d_self[ok]
-            w[rows[ok]] = _widths_on_device(sums[ok], counts, ob)
-    with residency.boundary("silhouette_slab_fetch"):
-        return [_aggregate_widths(w.cpu().numpy(), labels)
-                for labels, _k, _cm, _counts, _own, w in cuts]
+        assign_d = torch.as_tensor(assign, device=dev)
+        c2 = torch.sum(cents * cents, dim=1)[None, :]
+        for b0 in range(0, eval_idx.size, block):
+            rows = torch.as_tensor(eval_idx[b0:b0 + block], device=dev)
+            xb = xd[rows]
+            d2 = (torch.sum(xb * xb, dim=1, keepdim=True)
+                  - (2.0 * xb) @ cents.T + c2)
+            d = torch.sqrt(torch.clamp(d2, min=0.0))            # (b, m)
+            d_self = d[torch.arange(rows.numel(), device=dev),
+                       assign_d[rows]]
+            for _labels, k, cm, counts, own, w in cuts:
+                if k < 2:
+                    continue
+                ok = torch.nonzero(own[rows] >= 0).squeeze(1)
+                ob = own[rows][ok]
+                sums = d @ cm                                   # (b, k)
+                sums[ok, ob] -= d_self[ok]
+                w[rows[ok]] = _widths_on_device(sums[ok], counts, ob)
+        with residency.boundary("silhouette_slab_fetch"):
+            widths = [w.cpu().numpy() for *_rest, w in cuts]
+    with span("aggregate"):
+        return [_aggregate_widths(w, cut[0])
+                for w, cut in zip(widths, cuts)]
 
 
 def pooled_mean_cluster_silhouette(x, labels, n_centroids: int = 2048,

@@ -37,15 +37,15 @@ def get_logger(name: str = "scconsensus_tpu_torch") -> logging.Logger:
 class StageTimer:
     """Facade over ``obs.trace.Tracer``.
 
-    ``trace=True`` maps to the tracer's ``annotate`` mode: every span is
-    wrapped in ``torch.profiler.record_function``, so stages show up in a
-    ``torch.profiler`` timeline.
+    ``trace`` is the reference's argument and changes nothing: the
+    tracer's spans are ``torch.profiler`` windows whenever a profiler
+    records.
     """
 
     def __init__(self, logger: Optional[logging.Logger] = None,
                  trace: bool = False, tracer: Optional[Tracer] = None):
         self.logger = logger or get_logger()
-        self.tracer = tracer or Tracer(logger=self.logger, annotate=trace)
+        self.tracer = tracer or Tracer(logger=self.logger)
         if tracer is not None and tracer.logger is None:
             tracer.logger = self.logger
 
